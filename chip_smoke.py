@@ -11,20 +11,33 @@ Phases (any failure exits non-zero before the final line):
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main path gives it (dilate exact; matmul
    within 2e-4 of the output's scale; knn distances within 1e-4, indices
-   equal wherever the neighbours' distances differ by more than that),
-   timed with CUDA events beside the plain version, the one-call PyTorch
+   equal wherever the neighbours' distances differ by more than that;
+   axpy within 1 ulp, exact in practice; dot_partials and gemv within
+   1e-6 of the sum of the absolute terms, and bit for bit equal between
+   the whole-array launch with ``block_rows = br`` and the per-shard
+   launches).  Timed beside the plain version, the one-call PyTorch
    yardstick where one exists, and the bound the card's data-sheet rates
-   give (3.35 TB/s, 67 TFLOP/s fp32).  Each row also carries
-   ``device_kernels``: the mean device time of every ``__global__`` the
-   wrapper launched, from ``torch.profiler`` (knn launches two passes).
-   KNN's general path (D > 64 or k > 32) is checked too, at small shapes.
+   give (3.35 TB/s, 67 TFLOP/s fp32).  ``ms``, ``plain_ms`` and
+   ``library_ms`` are device times: many calls captured in one CUDA graph
+   and replayed between CUDA events, so the host's launch overhead is left
+   out; ``eager_ms`` is the kernel's time in back-to-back eager calls,
+   which is the host's time per call where the host is the slower.  Each
+   row also carries ``device_kernels``: the mean device time of every
+   ``__global__`` the wrapper launched, from ``torch.profiler`` (knn and
+   dot_partials launch two passes).  KNN's general path (D > 64 or
+   k > 32) is checked too, at small shapes.
 4. Path: stencil, CNN and KNN each built at the app's own size, compiled
    onto a 4-FPGA ring with the executor smoke's options, and executed
    through ``compile()`` → ``execute()`` on the card.  Checks parity with
    the binding's single-device ``reference()``, every ``agreement()``
    value, no starvation, and that the app's kernel launched during
    ``execute`` (launch counts are zeroed just before it and read just
-   after).
+   after).  The HBM apps (axpy, dot, gemv, axpydot) at the width their
+   graphs model (2^26 fp32 per vector; gemv 8192 x 8192) are compiled
+   with a bank model (``MemConfig()``, so ``memory_feedback`` runs) and
+   executed twice, through the bank model and on the ideal memory path;
+   both must equal ``reference()`` bit for bit, with every ``agreement()``
+   value true, and each kernel of the app must launch in each run.
 
 Prints the ``kernels`` JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``.  Needs no network and one card.
@@ -54,6 +67,12 @@ CNN_SPEC = {"h": 32, "w": 32, "cin": 64, "cout_per_col": 4, "streams": 32,
             "seed": 0}
 KNN_SPEC = {"n": 4_000_000, "dim": 16, "q": 128, "k": 10, "streams": 2,
             "seed": 0}
+# The HBM apps at their graphs' modelled width: N_FULL = 2^26 fp32 per
+# vector as [524288, 128]; gemv's M_FULL^2 matrix as [8192, 8192].  Three
+# firings each on a 4-FPGA ring: 8 shards, br = 65536 rows (gemv 1024).
+VEC_SPEC = {"rows": 524288, "lanes": 128, "streams": 3, "seed": 0}
+GEMV_SPEC = {"rows": 8192, "lanes": 8192, "streams": 3, "seed": 0}
+HBM_SHARDS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -86,6 +105,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int, replays: int = 5) -> float:
+    """Mean device time of one call of ``fn``: ``fn(0) .. fn(reps - 1)``
+    captured in one CUDA graph, replayed ``replays`` times between CUDA
+    events.  The host's launch overhead is left out; ``fn(i)`` may pick
+    its operands by ``i`` (so a call can find them cold in L2)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def device_kernels(fn, reps: int = 20) -> list:
@@ -152,10 +198,12 @@ def kernel_phase(dev) -> dict:
     def one_pass():
         return dilate(img, out, block_rows=min(128, h))
 
-    ms = cuda_ms(one_pass, 50)
-    plain = cuda_ms(lambda: dilate_ref(img), 10)
+    ms = graph_ms(lambda i: one_pass(), 50)
+    eager = cuda_ms(one_pass, 50)
+    plain = graph_ms(lambda i: dilate_ref(img), 10)
     b, by = bound(2 * h * w * 4, 12 * h * w)
     rows["dilate"] = dict(shape=[h, w], max_abs_err=0.0, ms=ms,
+                          eager_ms=eager,
                           plain_ms=plain, bound_ms=b, bound_by=by,
                           library_ms=None, bytes=2 * h * w * 4,
                           ops=12 * h * w,
@@ -182,14 +230,16 @@ def kernel_phase(dev) -> dict:
                       - matmul_ref(cols, wt).reshape(hh, hh, cpc)).abs().max())
     require(conv_err <= 2e-4, f"conv err {conv_err:.3e}")
     from repro_torch.kernels.systolic_matmul.kernel import matmul
-    ms = cuda_ms(lambda: matmul(cols, wt), 200)
-    plain = cuda_ms(lambda: matmul_ref(cols, wt), 200)
-    lib = cuda_ms(lambda: torch.matmul(cols, wt), 200)
+    ms = graph_ms(lambda i: matmul(cols, wt), 200)
+    eager = cuda_ms(lambda: matmul(cols, wt), 200)
+    plain = graph_ms(lambda i: matmul_ref(cols, wt), 200)
+    lib = graph_ms(lambda i: torch.matmul(cols, wt), 200)
     nbytes = 4 * (M * K + K * cpc + M * cpc)
     ops = 2 * M * K * cpc
     b, by = bound(nbytes, ops)
     rows["matmul"] = dict(shape=[M, K, cpc], max_abs_err=errs[cpc], ms=ms,
-                          plain_ms=plain, bound_ms=b, bound_by=by,
+                          eager_ms=eager, plain_ms=plain, bound_ms=b,
+                          bound_by=by,
                           library_ms=lib, bytes=nbytes, ops=ops,
                           max_abs_err_reference_shape=errs[20 * cpc],
                           device_kernels=device_kernels(
@@ -229,8 +279,9 @@ def kernel_phase(dev) -> dict:
         general[f"Q{gq} N{gn} D{gdim} k{gk}"] = derr
     from repro_torch.kernels.knn.kernel import knn
     shard = data[:shard_n]
-    ms = cuda_ms(lambda: knn(queries, shard, k), 100)
-    plain = cuda_ms(lambda: knn_ref(queries, shard, k), 20)
+    ms = graph_ms(lambda i: knn(queries, shard, k), 100)
+    eager = cuda_ms(lambda: knn(queries, shard, k), 100)
+    plain = graph_ms(lambda i: knn_ref(queries, shard, k), 20)
     ms_full = cuda_ms(lambda: knn(queries, data, k), 10)
     plain_full = cuda_ms(lambda: knn_ref(queries, data, k), 3)
 
@@ -245,7 +296,8 @@ def kernel_phase(dev) -> dict:
     b_full, by_full = bound(fb, fops)
     rows["knn"] = dict(shape=[q, shard_n, dim, k],
                        max_abs_err=checks["shard"][0], ms=ms,
-                       plain_ms=plain, bound_ms=b, bound_by=by,
+                       eager_ms=eager, plain_ms=plain, bound_ms=b,
+                       bound_by=by,
                        library_ms=None, bytes=nbytes, ops=ops,
                        index_diffs_at_ties=checks["shard"][1],
                        device_kernels=device_kernels(
@@ -258,39 +310,173 @@ def kernel_phase(dev) -> dict:
                                  bound_ms=b_full, bound_by=by_full,
                                  device_kernels=device_kernels(
                                      lambda: knn(queries, data, k), 5)))
+    rows.update(blas_kernel_rows(dev, gen))
     for name, row in rows.items():
         print(f"[kernel] {name} {json.dumps(row)}", flush=True)
     return rows
 
 
+def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in units of the last place of ``want``."""
+    mag = want.abs()
+    ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+    return float(((got - want).abs() / ulp).max())
+
+
+def sum_err(got, want, terms) -> float:
+    """Largest |got - want| over the sum of the absolute terms."""
+    return float(((got - want).abs() / terms.clamp_min(1e-30)).max())
+
+
+def blas_kernel_rows(dev, gen) -> dict:
+    """axpy, dot_partials and gemv on one shard of the HBM apps' arrays
+    (the shard tasks' call) and on the whole array with block_rows = br
+    (the reference's call).  Timed calls walk the shards in turn, so each
+    finds its operands cold in the 50 MB L2, as a firing does."""
+    from repro_torch.kernels.hbm_blas.kernel import (axpy, dot_partials,
+                                                     gemv)
+    from repro_torch.kernels.hbm_blas.ref import (axpy_ref,
+                                                  dot_partials_ref, gemv_ref)
+
+    S = HBM_SHARDS
+    rows_v, lanes = VEC_SPEC["rows"], VEC_SPEC["lanes"]
+    br = rows_v // S
+    X = torch.randn(rows_v, lanes, device=dev, generator=gen)
+    Y = torch.randn(rows_v, lanes, device=dev, generator=gen)
+    a = 1.5
+
+    def shard(t, i, rows):
+        return t[(i % S) * rows:(i % S + 1) * rows]
+
+    def per_shard(fn, *ts):
+        rows = ts[0].shape[0] // S
+        return torch.cat([fn(*(shard(t, i, rows) for t in ts))
+                          for i in range(S)])
+
+    out = {}
+    n = br * lanes
+
+    # axpy: fmaf, one rounding, like its plain version.
+    whole = axpy(a, X, Y, br)
+    want = axpy_ref(a, X, Y, br)
+    err_ulp = ulps(whole, want)
+    require(err_ulp <= 1.0, f"axpy {err_ulp} ulp from its plain version")
+    require(torch.equal(whole, per_shard(
+        lambda x, y: axpy(a, x, y, br), X, Y)),
+        "axpy: whole-array launch differs from the per-shard launches")
+    nbytes, ops = 3 * n * 4, 2 * n
+    b, by = bound(nbytes, ops)
+    out["axpy"] = dict(
+        shape=[br, lanes], max_abs_err=float((whole - want).abs().max()),
+        max_ulp=err_ulp, whole_equals_shards=True,
+        ms=graph_ms(lambda i: axpy(a, shard(X, i, br), shard(Y, i, br),
+                                   br), 40),
+        eager_ms=cuda_ms(lambda: axpy(a, X[:br], Y[:br], br), 40),
+        plain_ms=graph_ms(lambda i: axpy_ref(a, shard(X, i, br),
+                                             shard(Y, i, br), br), 10),
+        bound_ms=b, bound_by=by,
+        library_ms=graph_ms(lambda i: torch.add(shard(Y, i, br),
+                                                shard(X, i, br), alpha=a),
+                            40),
+        library="torch.add(y, x, alpha=a)", bytes=nbytes, ops=ops,
+        device_kernels=device_kernels(lambda: axpy(a, X[:br], Y[:br], br)))
+
+    # dot_partials: two passes, each block's sum independent of the grid.
+    whole = dot_partials(X, Y, br)
+    want = dot_partials_ref(X, Y, br)
+    terms = (X * Y).abs().reshape(S, -1).sum(1, keepdim=True)
+    rel = sum_err(whole, want, terms)
+    require(rel <= 1e-6, f"dot_partials err {rel:.3e} of sum|x*y|")
+    require(torch.equal(whole, per_shard(
+        lambda x, y: dot_partials(x, y, br), X, Y)),
+        "dot_partials: whole-array launch differs from the shards")
+    nbytes, ops = 2 * n * 4 + 4, 2 * n
+    b, by = bound(nbytes, ops)
+    out["dot_partials"] = dict(
+        shape=[br, lanes], max_abs_err=float((whole - want).abs().max()),
+        max_rel_err_of_abs_sum=rel, whole_equals_shards=True,
+        ms=graph_ms(lambda i: dot_partials(shard(X, i, br), shard(Y, i, br),
+                                           br), 40),
+        eager_ms=cuda_ms(lambda: dot_partials(X[:br], Y[:br], br), 40),
+        plain_ms=graph_ms(lambda i: dot_partials_ref(
+            shard(X, i, br), shard(Y, i, br), br), 10),
+        bound_ms=b, bound_by=by,
+        library_ms=graph_ms(lambda i: torch.dot(
+            shard(X, i, br).reshape(-1), shard(Y, i, br).reshape(-1)), 40),
+        library="torch.dot on one block", bytes=nbytes, ops=ops,
+        device_kernels=device_kernels(
+            lambda: dot_partials(X[:br], Y[:br], br)))
+    del X, Y
+
+    # gemv: one thread block per row, its sum independent of M.
+    M, N = GEMV_SPEC["rows"], GEMV_SPEC["lanes"]
+    gbr = M // S
+    A = torch.randn(M, N, device=dev, generator=gen)
+    xv = torch.randn(1, N, device=dev, generator=gen)
+    whole = gemv(A, xv, gbr)
+    want = gemv_ref(A, xv, gbr)
+    rel = sum_err(whole, want, (A * xv).abs().sum(1, keepdim=True))
+    require(rel <= 1e-6, f"gemv err {rel:.3e} of sum|A*x|")
+    require(torch.equal(whole, per_shard(lambda m: gemv(m, xv, gbr), A)),
+            "gemv: whole-array launch differs from the shards")
+    nbytes, ops = 4 * (gbr * N + N + gbr), 2 * gbr * N
+    b, by = bound(nbytes, ops)
+    out["gemv"] = dict(
+        shape=[gbr, N], max_abs_err=float((whole - want).abs().max()),
+        max_rel_err_of_abs_sum=rel, whole_equals_shards=True,
+        ms=graph_ms(lambda i: gemv(shard(A, i, gbr), xv, gbr), 40),
+        eager_ms=cuda_ms(lambda: gemv(A[:gbr], xv, gbr), 40),
+        plain_ms=graph_ms(lambda i: gemv_ref(shard(A, i, gbr), xv, gbr),
+                          10),
+        bound_ms=b, bound_by=by,
+        library_ms=graph_ms(lambda i: torch.mv(shard(A, i, gbr), xv[0]),
+                            40),
+        library="torch.mv", bytes=nbytes, ops=ops,
+        device_kernels=device_kernels(lambda: gemv(A[:gbr], xv, gbr)))
+    return out
+
+
 # -- phase 4: the main path --------------------------------------------------
 
-def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
+def compile_and_bind(app: str, graph_args: tuple, spec: dict, **options):
+    """(graph, design, binding, compile_s, bind_s): ``app`` compiled onto a
+    4-FPGA ring with the smoke's options and bound on the card."""
     from repro_torch.apps import APPS
     from repro_torch.compiler import CompileOptions, compile
     from repro_torch.core import fpga_ring_cluster
-    from repro_torch.exec import bind_programs, execute
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.exec import bind_programs
 
-    mod = APPS[app]
-    graph = mod.build_graph(*graph_args)
+    graph = APPS[app].build_graph(*graph_args)
     t0 = time.perf_counter()
     design = compile(graph, fpga_ring_cluster(4),
-                     CompileOptions(**SMOKE_OPTIONS))
+                     CompileOptions(**SMOKE_OPTIONS, **options))
     compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     binding = bind_programs(graph, spec)             # on cuda
     torch.cuda.synchronize()
-    bind_s = time.perf_counter() - t0
+    return graph, design, binding, compile_s, time.perf_counter() - t0
+
+
+def timed_execute(design, binding, **kw):
+    """(result, wall s, launches, peak device bytes) of one execute(),
+    with the launch counts zeroed just before it and read just after."""
+    from repro_torch.exec import execute
+    from repro_torch.kernels import launch_counts, reset_launch_counts
 
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    result = execute(design, binding, fabric=None)
+    result = execute(design, binding, fabric=None, **kw)
     torch.cuda.synchronize()
-    exec_s = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t0
+    return (result, wall, launch_counts(),
+            torch.cuda.max_memory_allocated())
+
+
+def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
+    graph, design, binding, compile_s, bind_s = compile_and_bind(
+        app, graph_args, spec)
+    result, exec_s, launches, peak = timed_execute(design, binding)
 
     expected = binding.reference()
     got = result.outputs
@@ -321,6 +507,61 @@ def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
     require(not rep.starvation_events, f"{app}: starvation")
     require(launches[kernel] > 0,
             f"{app}: kernel {kernel} never launched during execute")
+    return row
+
+
+def hbm_path_phase(app: str, spec: dict, kernels: tuple) -> dict:
+    """One HBM app at full width: bank path, ideal path, reference."""
+    from repro_torch.mem import MemConfig
+
+    graph, design, binding, compile_s, bind_s = compile_and_bind(
+        app, (4,), spec, mem=MemConfig())
+    banked, bank_s, launches, peak = timed_execute(design, binding)
+    ideal, ideal_s, ideal_launches, _ = timed_execute(design, binding,
+                                                      mem=None)
+    expected = binding.reference()
+    out = banked.outputs
+    require(out.shape == expected.shape, f"{app} output shape")
+    require(bool(torch.isfinite(out).all()), f"{app} output not finite")
+    bank_eq_ideal = torch.equal(out, ideal.outputs)
+    bank_eq_ref = torch.equal(out, expected)
+    rep, irep = banked.report, ideal.report
+    agree, iagree = rep.agreement(), irep.agreement()
+    fb = design.pass_record("memory_feedback").detail
+    row = {"app": app, "graph": graph.name, "tasks": len(graph.tasks),
+           "shape": [spec["rows"], spec["lanes"]],
+           "streams": spec["streams"], "compile_s": compile_s,
+           "bind_s": bind_s, "execute_s": bank_s,
+           "ideal_execute_s": ideal_s, "sweeps": rep.sweeps,
+           "ideal_sweeps": irep.sweeps,
+           "firings": sum(rep.device_fired.values()),
+           "mem_waits": sum(rep.task_mem_waits.values()),
+           "ideal_mem_waits": sum(irep.task_mem_waits.values()),
+           "bank_bursts": sum(b.bursts for b in rep.mem_contention.banks),
+           "bank_bytes": rep.mem_bank_bytes,
+           "max_bank_utilization": rep.mem_contention.max_utilization,
+           "bank_model_s": rep.mem_model_s,
+           "projected_max_utilization": fb["max_utilization_after"],
+           "remapped": fb["remapped"], "repartitioned": fb["repartitioned"],
+           "peak_device_bytes": peak, "bank_equals_ideal": bank_eq_ideal,
+           "bank_equals_reference": bank_eq_ref, "atol": binding.atol,
+           "agreement": agree, "ideal_agreement": iagree,
+           "starvation_events": rep.starvation_events,
+           "launches": launches, "ideal_launches": ideal_launches,
+           "partition": design.partition.stats.method}
+    print(f"[path] {json.dumps(row)}", flush=True)
+    require(bank_eq_ideal, f"{app}: bank path differs from the ideal path")
+    require(bank_eq_ref, f"{app}: bank path differs from reference()")
+    require(all(agree.values()) and all(iagree.values()),
+            f"{app}: agreement {agree} / ideal {iagree}")
+    require(agree.get("mem_delivery_match") and
+            agree.get("bank_conservation"), f"{app}: no bank accounting")
+    require(rep.mem_contention.max_utilization <= 1.0 + 1e-12,
+            f"{app}: measured bank utilization above 1")
+    require(not rep.starvation_events, f"{app}: starvation")
+    for k in kernels:
+        require(launches[k] > 0 and ideal_launches[k] > 0,
+                f"{app}: kernel {k} never launched during execute")
     return row
 
 
@@ -359,13 +600,26 @@ def main() -> int:
     ]
     launches = {k: p["launches"][k]
                 for p, k in zip(paths, ("dilate", "matmul", "knn"))}
+    for app, spec, ks in (("axpy", VEC_SPEC, ("axpy",)),
+                          ("dot", VEC_SPEC, ("dot_partials",)),
+                          ("gemv", GEMV_SPEC, ("gemv",)),
+                          ("axpydot", VEC_SPEC, ("axpy", "dot_partials"))):
+        row = hbm_path_phase(app, spec, ks)
+        for k in ks:                 # the bank path is the main path
+            launches[k] = launches.get(k, 0) + row["launches"][k]
+        torch.cuda.empty_cache()
 
+    blas = "src/repro/kernels/hbm_blas/kernel.py"
     sources = {"dilate": ("src/repro_torch/csrc/dilate.cu",
                           "src/repro/kernels/stencil_dilate/kernel.py:52"),
                "matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/systolic_matmul/kernel.py:42"),
                "knn": ("src/repro_torch/csrc/knn.cu",
-                       "src/repro/kernels/knn/kernel.py:72")}
+                       "src/repro/kernels/knn/kernel.py:72"),
+               "axpy": ("src/repro_torch/csrc/hbm_blas.cu", f"{blas}:23"),
+               "dot_partials": ("src/repro_torch/csrc/hbm_blas.cu",
+                                f"{blas}:48"),
+               "gemv": ("src/repro_torch/csrc/hbm_blas.cu", f"{blas}:97")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": repl, "launches": launches[name],
                 "max_abs_err": rows[name]["max_abs_err"],

@@ -57,7 +57,7 @@ class CompiledDesign:
     # Typed loosely so the compiler stays importable without repro.net.
     fabric: Optional[object] = None          # net.fabric.Fabric
     congestion: Optional[object] = None      # net.congestion.CongestionReport
-    # HBM bank model (repro.mem) the design was compiled against, the
+    # HBM bank model (repro_torch.mem) the design was compiled against, the
     # memory_feedback pass's projected per-bank demand, and the task→bank
     # map it settled on.  None when compiled without a bank model (reads
     # are ideal: every response ready the sweep it is issued).

@@ -92,7 +92,7 @@ class CompileOptions:
     # drop the balance band so traffic may consolidate off hot links.
     congestion_relax_balance: bool = True
 
-    # -- memory_feedback pass (repro.mem) ---------------------------------
+    # -- memory_feedback pass (repro_torch.mem) ---------------------------
     # HBM bank model.  When set, compile() appends the memory_feedback
     # pass after partition (and after congestion_feedback when a fabric is
     # also set), the artifact carries the MemConfig + task→bank map, and

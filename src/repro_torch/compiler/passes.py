@@ -339,7 +339,7 @@ def run_congestion_feedback(state: CompileState):
 
 # ---------------------------------------------------------------------------
 # memory_feedback — HBM bank-bandwidth demand charged into the partition
-# (repro.mem).  Same deferred-import shape as congestion_feedback.
+# (repro_torch.mem).  Deferred import: avoids a compiler<->mem import cycle.
 # ---------------------------------------------------------------------------
 
 @register_pass("memory_feedback")
@@ -347,12 +347,7 @@ def run_memory_feedback(state: CompileState):
     if state.partition is None:
         raise CompileError(
             "memory_feedback pass requires a partition pass first")
-    try:
-        from ..mem.calibrate import memory_feedback_pass
-    except ImportError as e:
-        raise CompileError(
-            "memory_feedback needs repro_torch.mem, which is not yet "
-            "ported: compile without a bank model") from e
+    from ..mem.calibrate import memory_feedback_pass
     try:
         return memory_feedback_pass(state)
     except RuntimeError as e:

@@ -1,0 +1,264 @@
+// Memory-bound BLAS kernels of the HBM workload set: axpy, per-block dot
+// partials, gemv.  fp32 throughout.
+//
+// Replaces: src/repro/kernels/hbm_blas/kernel.py, `axpy` (`_axpy_kernel`),
+// `dot_partials` (`_dot_partials_kernel`) and `gemv` (`_gemv_kernel`), the
+// TPU kernels whose grid steps each take one [block_rows, C] row block,
+// the same block the app graphs hand each shard task.
+//
+// Bound on the card: all three read each operand once and do one or two
+// operations per 4-byte element, so device memory bounds them (3.35 TB/s
+// on an H100 SXM against 67 TFLOP/s fp32): axpy moves 12 bytes per
+// element, dot 8, gemv 4 per element of A.  The designs aim for 16-byte
+// loads and enough loads in flight to fill the memory pipe.
+//
+// The contract that shapes them: an app's shard task runs the op on its
+// own [br, C] slice, while the app's reference runs it once over the whole
+// [R, C] array with block_rows = br, and the two must agree bit for bit.
+// So the value computed for a row block (dot) or a row (gemv) depends only
+// on that block's or row's contents: never on the grid, the array's row
+// count, the SM count, or any size chosen from the device.  No atomics.
+//
+// * axpy: out = fmaf(a, x, y), one rounding, as the reference computes it
+//   (torch's `a * x + y` rounds twice).  Elementwise, so any grid gives the
+//   same bits; each thread takes float4s where the pointers and the length
+//   allow, with a scalar tail.
+// * dot_partials: two passes.  Pass 1 cuts each row block (block_rows * C
+//   contiguous elements) into chunks of kDotChunk elements, a constant of
+//   this file; one thread block of kDotThreads sums one chunk: thread t
+//   takes the groups of four elements 4 * (k * kDotThreads + t), k in
+//   0..kDotVecPerThread-1, and accumulates them in that order with fmaf
+//   (float4 loads when aligned, four scalar loads otherwise: the same
+//   order either way); then a fixed butterfly over the warp's lanes and a
+//   left fold over the warps, written as the chunk's partial.  Pass 2 gives
+//   each row block one warp: lane l adds the block's chunk partials l,
+//   l + 32, ... in index order, then the same fixed butterfly.
+// * gemv: one thread block of kGemvThreads per row.  Thread t takes the
+//   groups of four lanes 4 * (t + j * kGemvThreads) in order, accumulating
+//   A * x with fmaf; then a warp butterfly and a left fold over the warps.
+//   A row's result depends on the row and x only.  x ([1, N], 32 KB on the
+//   main path) is re-read by every row and left to the L1 and L2 caches.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kAxpyThreads = 256;
+constexpr int kDotThreads = 256;
+constexpr int kDotVecPerThread = 8;
+constexpr int kDotChunk = 4 * kDotThreads * kDotVecPerThread;  // 8192
+constexpr int kFoldThreads = 32;
+constexpr int kGemvThreads = 128;
+constexpr int kGemvBatch = 8;
+constexpr int64_t kMaxGrid = 2147483647;
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum of the per-warp values in warp order (thread 0's result).
+template <int kWarps>
+__device__ __forceinline__ float block_sum(float v, float* smem) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  float s = smem[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) s += smem[w];
+  return s;
+}
+
+__global__ void __launch_bounds__(kAxpyThreads)
+axpy_kernel(float a, const float* __restrict__ x,
+            const float* __restrict__ y, float* __restrict__ out,
+            int64_t n, bool vec) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  int64_t done = 0;
+  if (vec) {
+    const int64_t n4 = n / 4;
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const float4* y4 = reinterpret_cast<const float4*>(y);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (int64_t i = tid; i < n4; i += stride) {
+      const float4 xv = x4[i], yv = y4[i];
+      float4 r;
+      r.x = fmaf(a, xv.x, yv.x);
+      r.y = fmaf(a, xv.y, yv.y);
+      r.z = fmaf(a, xv.z, yv.z);
+      r.w = fmaf(a, xv.w, yv.w);
+      o4[i] = r;
+    }
+    done = n4 * 4;
+  }
+  for (int64_t i = done + tid; i < n; i += stride)
+    out[i] = fmaf(a, x[i], y[i]);
+}
+
+// Pass 1: one partial per (row block, chunk), at part[g] for the flat
+// block index g = row_block * chunks + chunk.
+__global__ void __launch_bounds__(kDotThreads)
+dot_chunks_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                  float* __restrict__ part, int64_t block_elems, int chunks,
+                  bool vec) {
+  __shared__ float smem[kDotThreads / 32];
+  const int64_t g = blockIdx.x;
+  const int64_t blk = g / chunks, chunk = g % chunks;
+  const float* xb = x + blk * block_elems;
+  const float* yb = y + blk * block_elems;
+  const int64_t c0 = chunk * kDotChunk;
+  const int64_t cend = c0 + kDotChunk < block_elems ? c0 + kDotChunk
+                                                     : block_elems;
+  float acc = 0.0f;
+  if (vec) {  // block_elems % 4 == 0: a group is wholly in or out
+    float4 xv[kDotVecPerThread], yv[kDotVecPerThread];
+#pragma unroll
+    for (int k = 0; k < kDotVecPerThread; ++k) {
+      const int64_t e = c0 + 4 * (static_cast<int64_t>(k) * kDotThreads +
+                                  threadIdx.x);
+      if (e < cend) {
+        xv[k] = *reinterpret_cast<const float4*>(xb + e);
+        yv[k] = *reinterpret_cast<const float4*>(yb + e);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kDotVecPerThread; ++k) {
+      const int64_t e = c0 + 4 * (static_cast<int64_t>(k) * kDotThreads +
+                                  threadIdx.x);
+      if (e < cend) {
+        acc = fmaf(xv[k].x, yv[k].x, acc);
+        acc = fmaf(xv[k].y, yv[k].y, acc);
+        acc = fmaf(xv[k].z, yv[k].z, acc);
+        acc = fmaf(xv[k].w, yv[k].w, acc);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kDotVecPerThread; ++k) {
+      const int64_t e = c0 + 4 * (static_cast<int64_t>(k) * kDotThreads +
+                                  threadIdx.x);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (e + q < cend) acc = fmaf(xb[e + q], yb[e + q], acc);
+    }
+  }
+  const float s = block_sum<kDotThreads / 32>(acc, smem);
+  if (threadIdx.x == 0) part[g] = s;
+}
+
+// Pass 2: one warp per row block folds its chunk partials.
+__global__ void __launch_bounds__(kFoldThreads)
+dot_fold_kernel(const float* __restrict__ part, float* __restrict__ out,
+                int chunks) {
+  const float* p = part + static_cast<int64_t>(blockIdx.x) * chunks;
+  float acc = 0.0f;
+  for (int c = threadIdx.x; c < chunks; c += kFoldThreads) acc += p[c];
+  acc = warp_sum(acc);
+  if (threadIdx.x == 0) out[blockIdx.x] = acc;
+}
+
+__global__ void __launch_bounds__(kGemvThreads)
+gemv_kernel(const float* __restrict__ A, const float* __restrict__ x,
+            float* __restrict__ out, int64_t N, bool vec) {
+  __shared__ float smem[kGemvThreads / 32];
+  const float* a = A + static_cast<int64_t>(blockIdx.x) * N;
+  float acc = 0.0f;
+  if (vec) {  // N % 4 == 0
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const int64_t n4 = N / 4;
+    // kGemvBatch groups' loads are issued before their FMAs, so that many
+    // loads are in flight; the groups are still taken in index order.
+    for (int64_t g0 = threadIdx.x; g0 < n4;
+         g0 += static_cast<int64_t>(kGemvThreads) * kGemvBatch) {
+      float4 av[kGemvBatch], xv[kGemvBatch];
+#pragma unroll
+      for (int u = 0; u < kGemvBatch; ++u) {
+        const int64_t g = g0 + static_cast<int64_t>(u) * kGemvThreads;
+        if (g < n4) {
+          av[u] = a4[g];
+          xv[u] = x4[g];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGemvBatch; ++u) {
+        const int64_t g = g0 + static_cast<int64_t>(u) * kGemvThreads;
+        if (g < n4) {
+          acc = fmaf(av[u].x, xv[u].x, acc);
+          acc = fmaf(av[u].y, xv[u].y, acc);
+          acc = fmaf(av[u].z, xv[u].z, acc);
+          acc = fmaf(av[u].w, xv[u].w, acc);
+        }
+      }
+    }
+  } else {
+    for (int64_t e = 4 * static_cast<int64_t>(threadIdx.x); e < N;
+         e += 4 * kGemvThreads) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (e + q < N) acc = fmaf(a[e + q], x[e + q], acc);
+    }
+  }
+  const float s = block_sum<kGemvThreads / 32>(acc, smem);
+  if (threadIdx.x == 0) out[blockIdx.x] = s;
+}
+
+}  // namespace
+
+// out[i] = fmaf(a, x[i], y[i]) over n contiguous fp32 elements.
+// Returns the cudaError_t of the launch (0 = cudaSuccess).
+extern "C" int repro_axpy_f32(float a, const float* x, const float* y,
+                              float* out, long long n, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(out);
+  const int64_t work = vec ? (n / 4 > 0 ? n / 4 : n) : n;
+  int64_t blocks = (work + kAxpyThreads - 1) / kAxpyThreads;
+  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
+  axpy_kernel<<<static_cast<unsigned>(blocks), kAxpyThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(a, x, y, out, n, vec);
+  return cudaGetLastError();
+}
+
+// Elements per pass-1 chunk (the wrapper sizes the partials buffer).
+extern "C" int repro_dot_chunk() { return kDotChunk; }
+
+// out[b] = sum over row block b of x * y, for nblk contiguous row blocks of
+// block_elems fp32 elements each; part holds nblk * ceil(block_elems /
+// kDotChunk) chunk partials.  Returns the cudaError_t of the launches.
+extern "C" int repro_dot_partials_f32(const float* x, const float* y,
+                                      float* part, float* out, int nblk,
+                                      long long block_elems, void* stream) {
+  if (nblk <= 0 || block_elems <= 0) return cudaErrorInvalidValue;
+  const int64_t chunks = (block_elems + kDotChunk - 1) / kDotChunk;
+  if (chunks * nblk > kMaxGrid) return cudaErrorInvalidConfiguration;
+  const bool vec = aligned16(x) && aligned16(y) && block_elems % 4 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dot_chunks_kernel<<<static_cast<unsigned>(chunks * nblk), kDotThreads, 0,
+                      s>>>(x, y, part, block_elems,
+                           static_cast<int>(chunks), vec);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dot_fold_kernel<<<nblk, kFoldThreads, 0, s>>>(part, out,
+                                                static_cast<int>(chunks));
+  return cudaGetLastError();
+}
+
+// out[r] = sum_j A[r, j] * x[j] for row-major contiguous A [M, N], x [N].
+// Returns the cudaError_t of the launch.
+extern "C" int repro_gemv_f32(const float* A, const float* x, float* out,
+                              int M, long long N, void* stream) {
+  if (M <= 0 || N <= 0) return cudaErrorInvalidValue;
+  const bool vec = aligned16(A) && aligned16(x) && N % 4 == 0;
+  gemv_kernel<<<M, kGemvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      A, x, out, N, vec);
+  return cudaGetLastError();
+}

@@ -28,10 +28,18 @@ cross devices, their measured bytes, the Eq. 2 agreement).  After each
 firing the executor synchronizes the device, so ``busy_s`` is the firing's
 device time, not its enqueue time.
 
-This slice runs the ideal transfer path only.  The network fabric
-(``fabric=``), the HBM bank model (``mem=`` and ``mem_reads`` streams),
-tenant sharing and snapshots belong to layers that are not yet ported;
-asking for one raises :class:`NotImplementedError`.
+Memory: a binding's ``mem_reads`` streams become
+:class:`~repro_torch.mem.channels.AsyncMemChannel` s on the task's logical
+device and its compiled (or default) bank.  With a bank model
+(``mem=``, default the design's ``MemConfig``) the host-side
+:class:`~repro_torch.mem.banks.MemorySystem` decides when each response
+arrives; with ``mem=None`` every response is there at once (the ideal
+path).  Either way the payloads are the binding's own tensors, so both
+paths compute the same bits.
+
+The network fabric (``fabric=``), tenant sharing and snapshots belong to
+layers that are not yet ported; asking for the fabric raises
+:class:`NotImplementedError`.
 
 Detection:
 
@@ -115,19 +123,10 @@ class ExecutionState:
             raise NotImplementedError(
                 "the fabric transfer path needs repro_torch.net, which is "
                 "not yet ported: pass fabric=None for the ideal path")
-        mem_config = design.mem_config if mem is FROM_DESIGN else mem
-        if mem_config is not None:
-            raise NotImplementedError(
-                "the HBM bank model needs repro_torch.mem, which is not yet "
-                "ported: pass mem=None for the ideal memory path")
         self.device = resolve_device(device)
         if binding is None:
             binding = bind_programs(design.graph, inputs,
                                     device=self.device)
-        if binding.mem_reads:
-            raise NotImplementedError(
-                "mem_reads streams need repro_torch.mem, which is not yet "
-                "ported")
         self.design = design
         self.binding = binding
         self.tracer = coerce_tracer(tracer)
@@ -167,6 +166,37 @@ class ExecutionState:
                       if not any(not fc.is_back for fc in self.out_chs[t])]
 
         self.iterations = T = binding.iterations
+
+        # Async memory channels (repro_torch.mem) — one per declared
+        # mem_reads stream, placed on the task's logical device and its
+        # compiled (or default) bank.  memsys None is the ideal path: same
+        # channels, immediate responses.
+        mem_config = design.mem_config if mem is FROM_DESIGN else mem
+        self.mem_channels: List[Any] = []
+        self.mem_chs: Dict[str, List[Any]] = {t: [] for t in graph.tasks}
+        memsys = None
+        if binding.mem_reads:
+            # Deferred: repro_torch.mem imports exec.channels.
+            from ..mem.banks import MemorySystem
+            from ..mem.channels import AsyncMemChannel
+            from ..mem.contention import default_bank_map
+            bank_map = dict(design.bank_map or {})
+            if mem_config is not None:
+                memsys = MemorySystem(design.partition.num_devices(),
+                                      mem_config, tracer=self.tracer)
+                if not bank_map:
+                    bank_map = default_bank_map(graph, assign, mem_config)
+            for task in sorted(binding.mem_reads):
+                for stream in sorted(binding.mem_reads[task]):
+                    mc = AsyncMemChannel(
+                        len(self.mem_channels), task, stream,
+                        binding.mem_reads[task][stream], T,
+                        device=assign[task], bank=bank_map.get(task, 0),
+                        memsys=memsys, tracer=self.tracer)
+                    self.mem_channels.append(mc)
+                    self.mem_chs[task].append(mc)
+        self.memsys = memsys
+
         self.order = list(reversed(graph.topo_order()))
         max_lat = max((fc.latency for fc in self.channels), default=1)
         if max_sweeps is None:
@@ -174,6 +204,11 @@ class ExecutionState:
             # T firings advances at least one task per sweep barring
             # throttling.
             max_sweeps = 64 + 4 * (T + len(graph.tasks)) * (1 + max_lat)
+            if memsys is not None:
+                # Banks serve >= 1 burst per sweep while queued, so the
+                # total burst demand bounds the extra memory-induced sweeps.
+                max_sweeps += 256 + 4 * sum(mc.total_bursts()
+                                            for mc in self.mem_channels)
         self.max_sweeps = max_sweeps
         self.starve_limit = starve_limit
         self.check_starvation = check_starvation
@@ -181,6 +216,8 @@ class ExecutionState:
         self.fired: Dict[str, int] = {t: 0 for t in graph.tasks}
         self.starve_events: Dict[str, int] = {}
         self.starve_detail: List[Dict[str, Any]] = []
+        self.mem_waits: Dict[str, int] = {}
+        self.mem_model_s = 0.0          # host time in the bank model
         self.sink_outputs: Dict[str, List[Any]] = {t: [] for t in self.sinks}
         self.busy_s: Dict[int, float] = {}
         self.dev_fired: Dict[int, int] = {}
@@ -201,9 +238,15 @@ class ExecutionState:
 
     def has_pending(self, sweep: int) -> bool:
         """Progress is still coming without any task firing: a token is
-        ripening in a FIFO."""
-        return any(vis > sweep for fc in self.channels
-                   for vis in fc.pending_visibility())
+        ripening in a FIFO, a response in the reorder window, or a request
+        is in the bank pipe."""
+        if any(vis > sweep for fc in self.channels
+               for vis in fc.pending_visibility()):
+            return True
+        if any(vis > sweep for mc in self.mem_channels
+               for vis in mc.pending_visibility()):
+            return True
+        return self.memsys is not None and self.memsys.active
 
     def blockers(self, task: str, sweep: int) -> List[str]:
         why = []
@@ -215,6 +258,11 @@ class ExecutionState:
             if fc.full:
                 why.append(f"output {task}->{fc.dst} full "
                            f"(depth {fc.capacity})")
+        for mc in self.mem_chs[task]:
+            if mc.stats.consumed < mc.count and not mc.response_ready(sweep):
+                why.append(f"memory {task}.{mc.stream} response pending "
+                           f"({mc.stats.consumed}/{mc.count} consumed, "
+                           f"{mc.outstanding} outstanding)")
         return why
 
     def deadlock(self, sweep: int) -> DeadlockError:
@@ -226,13 +274,24 @@ class ExecutionState:
             "dataflow deadlock at sweep %d — no task can fire and "
             "no token is in flight:\n%s" % (sweep, "\n".join(lines)))
 
+    def mem_deliver(self, chan_index: int, rid: int, sweep: int) -> None:
+        self.mem_channels[chan_index].on_complete(rid, sweep)
+
     # -- one sweep of task firing --------------------------------------------
     def advance(self, sweep: int) -> int:
         """Fire every ready task once (reverse topo order); returns the
-        firing count."""
+        firing count.  Does not step the memory system — :meth:`run`
+        does, after the firings."""
         binding, T = self.binding, self.iterations
         tr, flow = self.tracer, 0        # flow 0: one design per run
         fired_this_sweep = 0
+        t0 = time.perf_counter()
+        for mc in self.mem_channels:
+            # Issue reads ahead of consumption, up to the credit bound —
+            # the multiple-outstanding-transactions loop of async_mmap.
+            mc.pump(sweep)
+        if self.memsys is not None:
+            self.mem_model_s += time.perf_counter() - t0
         for v in self.order:
             if self.fired[v] >= T:
                 continue
@@ -285,10 +344,20 @@ class ExecutionState:
                     tr.task_wait(sweep, v, self.assign[v], "backpressure",
                                  flow)
                 continue
+            if self.mem_chs[v] and not all(mc.response_ready(sweep)
+                                           for mc in self.mem_chs[v]):
+                # The graph is ready but a memory response is still in the
+                # bank pipe — read_data.empty() on the async_mmap side.
+                self.mem_waits[v] = self.mem_waits.get(v, 0) + 1
+                if tr.enabled:
+                    tr.task_wait(sweep, v, self.assign[v], "mem", flow)
+                continue
             token_in: Dict[str, Any] = {fc.src: fc.pop(sweep)
                                         for fc in in_chs}
             if not in_chs and v in binding.source_inputs:
                 token_in[SOURCE_KEY] = binding.source_inputs[v][self.fired[v]]
+            for mc in self.mem_chs[v]:
+                token_in[mc.stream] = mc.consume(sweep)
             dev = self.assign[v]
             t0 = time.perf_counter()
             out = binding.programs[v](token_in)
@@ -321,7 +390,9 @@ class ExecutionState:
             wall_time_s=wall_time_s, device_busy_s=self.busy_s,
             device_fired=self.dev_fired,
             starvation_events=self.starve_events,
-            starvation_detail=self.starve_detail, tracer=self.tracer)
+            starvation_detail=self.starve_detail, memsys=self.memsys,
+            mem_channels=self.mem_channels, mem_waits=self.mem_waits,
+            mem_model_s=self.mem_model_s, tracer=self.tracer)
         outputs = (self.binding.finalize(self.sink_outputs)
                    if self.binding.finalize is not None
                    else self.sink_outputs)
@@ -331,11 +402,17 @@ class ExecutionState:
 
     # -- the solo loop -------------------------------------------------------
     def run(self) -> ExecutionResult:
-        """Drive this state to completion."""
+        """Drive this state to completion, stepping the bank model."""
+        memsys = self.memsys
         t_start = time.perf_counter()
         sweep, done = 0, False
         while sweep < self.max_sweeps:
             fired_this_sweep = self.advance(sweep)
+            if memsys is not None:
+                t0 = time.perf_counter()
+                for rid, ch_index in memsys.step(sweep):
+                    self.mem_deliver(ch_index, rid, sweep)
+                self.mem_model_s += time.perf_counter() - t0
             done = self.done
             if done:
                 break
@@ -349,6 +426,12 @@ class ExecutionState:
                 f"executor exceeded max_sweeps={self.max_sweeps} "
                 f"(fired {self.firings} of {self.total_firings} "
                 f"firings) — throughput collapse; check FIFO depths")
+        if memsys is not None and memsys.active:
+            # Every firing consumed its response, so the banks are normally
+            # dry here — drain defensively so Σ bank bytes == Σ channel
+            # bytes holds even if a program under-consumed.
+            for rid, ch_index in memsys.drain(sweep + 1):
+                self.mem_deliver(ch_index, rid, sweep)
         wall = time.perf_counter() - t_start
         return self.build_result(sweep + 1, wall)
 
@@ -370,9 +453,12 @@ def execute(design: CompiledDesign,
     that hook's numeric spec (shapes / iteration counts / seeds).
     ``device`` is the one device every logical device maps onto: ``cuda``
     by default, ``"cpu"`` only when asked.  A caller-supplied ``binding``
-    must already hold its tensors on that device.  ``fabric`` and ``mem``
-    default to the design's settings and must resolve to None in this
-    slice (the ideal paths).  ``tracer`` is any object with the
+    must already hold its tensors on that device.  ``fabric`` defaults to
+    the design's fabric and must resolve to None in this slice (the ideal
+    transfer path).  ``mem`` defaults to the design's bank model
+    (``CompileOptions.mem``); pass ``mem=None`` for the ideal memory path
+    or a :class:`~repro_torch.mem.banks.MemConfig` to override.
+    ``tracer`` is any object with the
     :class:`~repro_torch.obs.trace.NullTracer` methods (None → the no-op
     tracer).
     """

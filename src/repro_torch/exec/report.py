@@ -29,7 +29,7 @@ The ``net`` block of :meth:`summary` carries the per-link
 :class:`~repro.net.congestion.CongestionReport` (utilization, queue highs,
 stalls) next to those identities.
 
-With an HBM bank model (``repro.mem``), two more:
+With an HBM bank model (``repro_torch.mem``), two more:
 
 * ``mem_delivery_match`` — every memory stream issued exactly its firing
   count of requests and consumed every response (requested bytes ==
@@ -39,7 +39,7 @@ With an HBM bank model (``repro.mem``), two more:
   multiplier — each request is served by exactly one bank).
 
 The ``mem`` block carries the measured per-bank
-:class:`~repro.mem.contention.MemContentionReport` next to those.
+:class:`~repro_torch.mem.contention.MemContentionReport` next to those.
 """
 from __future__ import annotations
 
@@ -155,6 +155,9 @@ class ExecutionReport:
     mem_channels: List[MemChannelTrace] = dataclasses.field(
         default_factory=list)
     task_mem_waits: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # Host seconds the executor spent in the bank model (pumping requests
+    # and serving bursts); 0.0 on the ideal memory path.
+    mem_model_s: float = 0.0
     # Observability (repro.obs): the recorded trace, when one was attached.
     trace: Optional[Any] = None                # obs.Tracer (None if untraced)
 
@@ -328,6 +331,7 @@ def build_report(*, design, channels: Sequence[FifoChannel],
                  memsys=None,
                  mem_channels: Sequence[Any] = (),
                  mem_waits: Optional[Mapping[str, int]] = None,
+                 mem_model_s: float = 0.0,
                  tracer=None
                  ) -> ExecutionReport:
     """Assemble the report from live channels + the design's analytics."""
@@ -373,18 +377,18 @@ def build_report(*, design, channels: Sequence[FifoChannel],
                 # Eq. 2 re-evaluated per routed link (§4.3 calibration).
                 route_cost += fabric.route_cost(
                     fc.net_src_dev, fc.net_dst_dev, gch.width_bits)
-    # The fabric (net.congestion) and bank (mem.contention) measurements
-    # are not yet ported; the executor refuses both before it gets here.
+    # The fabric measurement (net.congestion) is not yet ported; the
+    # executor refuses a fabric before it gets here.
     if transport is not None:
         raise NotImplementedError(
             "a fabric transport needs repro_torch.net.congestion, which is "
             "not yet ported")
-    if memsys is not None:
-        raise NotImplementedError(
-            "a memory system needs repro_torch.mem.contention, which is not "
-            "yet ported")
-    congestion = goodput_hop = mem_contention = None
+    congestion = goodput_hop = None
     retransmit = 0
+    mem_contention = None
+    if memsys is not None:
+        from ..mem.contention import measure as _mem_measure
+        mem_contention = _mem_measure(memsys)
     mem_traces = [MemChannelTrace(
         task=mc.task, stream=mc.stream, device=mc.device, bank=mc.bank,
         count=mc.count, issued=mc.stats.issued, consumed=mc.stats.consumed,
@@ -420,4 +424,5 @@ def build_report(*, design, channels: Sequence[FifoChannel],
         mem_contention=mem_contention,
         mem_channels=mem_traces,
         task_mem_waits=dict(mem_waits or {}),
+        mem_model_s=mem_model_s,
         trace=tracer if getattr(tracer, "enabled", False) else None)

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the paper's compute hot spots.
+"""Hand-written Hopper kernels for the paper's compute hot spots and the
+memory-bound HBM workload set.
 
 Each kernel directory holds ``ref.py`` (the plain PyTorch version),
 ``kernel.py`` (the ``ctypes`` wrapper of a CUDA source in
@@ -8,6 +9,9 @@ op: the kernel for a CUDA tensor, the plain version for a CPU tensor).
 """
 from typing import Dict
 
+from .hbm_blas import kernel as _hbm_kernel
+from .hbm_blas.ops import (axpy_op, axpydot_op, dot_op, dot_partials_op,
+                           fold_partials, gemv_op)
 from .knn import kernel as _knn_kernel
 from .knn.ops import knn_op
 from .stencil_dilate import kernel as _dilate_kernel
@@ -18,7 +22,10 @@ from .systolic_matmul.ops import conv_op, matmul_op
 #: Every kernel's launch counter, by kernel name.
 COUNTERS = {c.name: c for c in (_dilate_kernel.LAUNCHES,
                                 _matmul_kernel.LAUNCHES,
-                                _knn_kernel.LAUNCHES)}
+                                _knn_kernel.LAUNCHES,
+                                _hbm_kernel.AXPY_LAUNCHES,
+                                _hbm_kernel.DOT_PARTIALS_LAUNCHES,
+                                _hbm_kernel.GEMV_LAUNCHES)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -30,5 +37,6 @@ def reset_launch_counts() -> None:
         c.count = 0
 
 
-__all__ = ["COUNTERS", "conv_op", "dilate_op", "knn_op", "launch_counts",
-           "matmul_op", "reset_launch_counts"]
+__all__ = ["COUNTERS", "axpy_op", "axpydot_op", "conv_op", "dilate_op",
+           "dot_op", "dot_partials_op", "fold_partials", "gemv_op", "knn_op",
+           "launch_counts", "matmul_op", "reset_launch_counts"]

@@ -28,7 +28,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("dilate.cu", "matmul.cu", "knn.cu")
+SOURCES = ("dilate.cu", "matmul.cu", "knn.cu", "hbm_blas.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,6 +115,7 @@ def build() -> BuildInfo:
 
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
+_I64, _F32 = ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "repro_dilate_f32": [_VP, _VP, _INT, _INT, _INT, _VP],
     "repro_dilate_smem_bytes": [_INT],
@@ -122,6 +123,10 @@ _SIGNATURES = {
     "repro_knn_f32": [_VP, _VP, _VP, _VP, _VP, _VP,
                       _INT, _INT, _INT, _INT, _INT, _INT, _VP],
     "repro_knn_tile": [],
+    "repro_axpy_f32": [_F32, _VP, _VP, _VP, _I64, _VP],
+    "repro_dot_chunk": [],
+    "repro_dot_partials_f32": [_VP, _VP, _VP, _VP, _INT, _I64, _VP],
+    "repro_gemv_f32": [_VP, _VP, _VP, _INT, _I64, _VP],
 }
 
 

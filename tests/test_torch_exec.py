@@ -3,7 +3,7 @@
 * the port's executor never runs on the CPU unless asked (``device="cpu"``);
 * an op on a device with no kernel raises, and a kernel wrapper refuses a
   CPU tensor — nothing falls back;
-* layers that are not yet ported fail loudly;
+* layers that are not yet ported fail loudly, and the bank model runs;
 * ``repro_torch``, ``chip_smoke.py`` and the port's profiling script
   import no JAX and nothing of ``repro``.
 """
@@ -21,8 +21,10 @@ from repro_torch.apps import APPS
 from repro_torch.compiler import CompileError, CompileOptions, compile
 from repro_torch.core import fpga_ring_cluster
 from repro_torch.exec import FifoChannel, bind_programs, execute, token_bytes
-from repro_torch.kernels import (conv_op, dilate_op, knn_op, launch_counts,
-                                 matmul_op)
+from repro_torch.kernels import (axpy_op, conv_op, dilate_op,
+                                 dot_partials_op, gemv_op, knn_op,
+                                 launch_counts, matmul_op)
+from repro_torch.kernels.hbm_blas.kernel import axpy, dot_partials, gemv
 from repro_torch.kernels.knn.kernel import knn
 from repro_torch.kernels.stencil_dilate.kernel import dilate
 from repro_torch.kernels.systolic_matmul.kernel import matmul
@@ -86,6 +88,9 @@ def test_cpu_run_launches_no_kernel(stencil_design):
     lambda t: conv_op(t.reshape(4, 4, 1), torch.empty(3, 3, 1, 2,
                                                       device="meta")),
     lambda t: knn_op(t, t, 2),
+    lambda t: axpy_op(1.0, t, t, block_rows=4),
+    lambda t: dot_partials_op(t, t, block_rows=4),
+    lambda t: gemv_op(t, t[:1], block_rows=4),
 ])
 def test_ops_raise_on_a_device_without_kernel(call):
     with pytest.raises(ValueError, match="no kernel"):
@@ -96,6 +101,9 @@ def test_ops_raise_on_a_device_without_kernel(call):
     lambda t: dilate(t, torch.empty_like(t)),
     lambda t: matmul(t, t),
     lambda t: knn(t, t, 2),
+    lambda t: axpy(1.0, t, t, 4),
+    lambda t: dot_partials(t, t, 4),
+    lambda t: gemv(t, t[:1], 4),
 ])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
@@ -105,13 +113,20 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
 def test_unported_layers_fail_loudly(stencil_design):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         execute(stencil_design, device="cpu", fabric=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        execute(stencil_design, device="cpu", mem=object())
-    for extra in ("congestion_feedback", "memory_feedback"):
-        with pytest.raises(CompileError, match="not yet ported"):
-            compile(APPS["stencil"].build_graph(2), fpga_ring_cluster(2),
-                    CompileOptions(passes=("normalize_units", "partition",
-                                           extra)))
+    with pytest.raises(CompileError, match="not yet ported"):
+        compile(APPS["stencil"].build_graph(2), fpga_ring_cluster(2),
+                CompileOptions(passes=("normalize_units", "partition",
+                                       "congestion_feedback")))
+    # The bank model is ported: its pass compiles, and a binding without
+    # memory streams runs as before under a bank model.
+    from repro_torch.mem import MemConfig
+    design = compile(APPS["stencil"].build_graph(2), fpga_ring_cluster(2),
+                     CompileOptions(passes=("normalize_units", "partition",
+                                            "memory_feedback"),
+                                    mem=MemConfig()))
+    assert design.bank_map == {"stage0": 0, "stage1": 0}
+    res = execute(stencil_design, device="cpu", mem=MemConfig())
+    assert res.report.mem_contention is None and not res.report.mem_channels
 
 
 def _imports(path: pathlib.Path):
@@ -127,6 +142,7 @@ def test_port_sources_import_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py"]
     assert len(files) > 30
+    assert {"mem", "hbm_blas"} <= {part for f in files for part in f.parts}
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -137,6 +153,7 @@ def test_port_path_loads_no_jax_and_no_repro():
     code = (
         "import sys\n"
         "import repro_torch.apps, repro_torch.compiler, repro_torch.exec\n"
+        "import repro_torch.mem, repro_torch.mem.smoke\n"
         "from repro_torch.apps import APPS\n"
         "from repro_torch.compiler import CompileOptions, compile\n"
         "from repro_torch.core import fpga_ring_cluster\n"
@@ -144,6 +161,10 @@ def test_port_path_loads_no_jax_and_no_repro():
         "            CompileOptions())\n"
         "r = d.execute({'h': 16, 'w': 16}, device='cpu')\n"
         "assert all(r.report.agreement().values())\n"
+        "d = compile(APPS['axpy'].build_graph(2), fpga_ring_cluster(2),\n"
+        "            CompileOptions(mem=repro_torch.mem.MemConfig()))\n"
+        "r = d.execute(device='cpu')\n"
+        "assert r.report.agreement()['bank_conservation']\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,5 +1,7 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
-version, the launch counters, and a small compile → execute on ``cuda``.
+version (the BLAS kernels also whole array against shards, bit for bit),
+the launch counters, and a small compile → execute on ``cuda`` (the HBM
+apps through the bank model and the ideal path).
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided in the fixture, never at import).  On a machine with one:
@@ -13,12 +15,18 @@ import torch
 from repro_torch.apps import APPS
 from repro_torch.compiler import CompileOptions, compile
 from repro_torch.core import fpga_ring_cluster
-from repro_torch.kernels import (conv_op, dilate_op, knn_op, launch_counts,
-                                 matmul_op, reset_launch_counts)
+from repro_torch.exec import bind_programs, execute
+from repro_torch.kernels import (axpy_op, conv_op, dilate_op, dot_op,
+                                 dot_partials_op, gemv_op, knn_op,
+                                 launch_counts, matmul_op,
+                                 reset_launch_counts)
+from repro_torch.kernels.hbm_blas.ref import (axpy_ref, dot_partials_ref,
+                                              gemv_ref)
 from repro_torch.kernels.knn.ref import knn_ref
 from repro_torch.kernels.stencil_dilate.ref import dilate_iters_ref
 from repro_torch.kernels.systolic_matmul.ref import (conv_im2col_ref,
                                                      matmul_ref)
+from repro_torch.mem import MemConfig
 
 pytestmark = pytest.mark.gpu
 
@@ -88,27 +96,118 @@ def test_knn_kernel_ties_go_to_the_lower_index(cuda):
     assert torch.equal(gi, ri)
 
 
+# The BLAS shapes: ragged ones, a shard of the main path ([65536, 128],
+# gemv [1024, 8192]) and the whole main-path array with block_rows = br.
+BLAS_SHAPES = [(16, 128, 4), (37, 53, 37), (100, 7, 25), (3, 1, 1),
+               (65, 4099, 13), (65536, 128, 65536), (524288, 128, 65536)]
+SUM_REL = 1e-6     # of Σ|terms|: two fp32 summation orders
+
+
+def _sum_err(got, want, terms):
+    return float(((got - want).abs() / terms.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("R,C,br", BLAS_SHAPES)
+def test_axpy_kernel_is_exact(cuda, R, C, br):
+    x, y = _randn(cuda, R, C, seed=6), _randn(cuda, R, C, seed=7)
+    assert torch.equal(axpy_op(1.5, x, y, block_rows=br),
+                       axpy_ref(1.5, x, y, block_rows=br))
+
+
+@pytest.mark.parametrize("R,C,br", BLAS_SHAPES)
+def test_dot_partials_kernel(cuda, R, C, br):
+    x, y = _randn(cuda, R, C, seed=8), _randn(cuda, R, C, seed=9)
+    got = dot_partials_op(x, y, block_rows=br)
+    want = dot_partials_ref(x, y, block_rows=br)
+    terms = (x * y).abs().reshape(R // br, -1).sum(1, keepdim=True)
+    assert got.shape == want.shape
+    assert _sum_err(got, want, terms) <= SUM_REL
+
+
+@pytest.mark.parametrize("R,C,br", BLAS_SHAPES[:-2] + [(8192, 8192, 1024)])
+def test_gemv_kernel(cuda, R, C, br):
+    A, x = _randn(cuda, R, C, seed=10), _randn(cuda, 1, C, seed=11)
+    got = gemv_op(A, x, block_rows=br)
+    want = gemv_ref(A, x, block_rows=br)
+    assert got.shape == want.shape == (R, 1)
+    assert _sum_err(got, want, (A * x).abs().sum(1, keepdim=True)) \
+        <= SUM_REL
+
+
+@pytest.mark.parametrize("op", ["axpy", "dot_partials", "gemv"])
+@pytest.mark.parametrize("R,C,br", [(96, 40, 24), (48, 4099, 16),
+                                    (524288, 128, 65536)])
+def test_blas_whole_array_equals_shards(cuda, op, R, C, br):
+    """Bit for bit: the op over the whole array with block_rows = br and
+    the op over each [br, C] shard, views and copies alike."""
+    x, y = _randn(cuda, R, C, seed=12), _randn(cuda, R, C, seed=13)
+    vec = _randn(cuda, 1, C, seed=14)
+    calls = {"axpy": lambda a, b: axpy_op(1.5, a, b, block_rows=br),
+             "dot_partials": lambda a, b: dot_partials_op(a, b,
+                                                          block_rows=br),
+             "gemv": lambda a, b: gemv_op(a, vec, block_rows=br)}
+    whole = calls[op](x, y)
+    for copy in (False, True):
+        parts = [(x[i:i + br], y[i:i + br]) for i in range(0, R, br)]
+        if copy:
+            parts = [(a.clone(), b.clone()) for a, b in parts]
+        assert torch.equal(whole, torch.cat([calls[op](a, b)
+                                             for a, b in parts]))
+
+
+def test_dot_kernel_unaligned_operands(cuda):
+    base = _randn(cuda, 1, 4097, seed=15)
+    x = base[0, 1:].reshape(16, 256)            # 4-byte aligned only
+    y = _randn(cuda, 16, 256, seed=16)
+    got = dot_partials_op(x, y, block_rows=4)
+    want = dot_partials_ref(x, y, block_rows=4)
+    terms = (x * y).abs().reshape(4, -1).sum(1, keepdim=True)
+    assert _sum_err(got, want, terms) <= SUM_REL
+    xc = x.clone()                               # 16-byte aligned copy
+    assert torch.equal(got, dot_partials_op(xc, y, block_rows=4))
+
+
 def test_launch_counters(cuda):
     reset_launch_counts()
     img = _randn(cuda, 64, 64)
     dilate_op(img, iters=3)
     matmul_op(_randn(cuda, 8, 8), _randn(cuda, 8, 8))
     knn_op(_randn(cuda, 4, 4), _randn(cuda, 40, 4), 3)
-    assert launch_counts() == {"dilate": 3, "matmul": 1, "knn": 1}
+    v = _randn(cuda, 8, 8)
+    axpy_op(2.0, v, v, block_rows=4)
+    dot_op(v, v, block_rows=2)
+    gemv_op(v, v[:1], block_rows=8)
+    gemv_op(v, v[:1], block_rows=8)
+    assert launch_counts() == {"dilate": 3, "matmul": 1, "knn": 1,
+                               "axpy": 1, "dot_partials": 1, "gemv": 2}
 
 
-@pytest.mark.parametrize("app", ["stencil", "cnn", "knn"])
+HBM_APPS = ["axpy", "dot", "gemv", "axpydot"]
+
+
+@pytest.mark.parametrize("app", ["stencil", "cnn", "knn"] + HBM_APPS)
 def test_execute_on_cuda(cuda, app):
     graph = APPS[app].build_graph(2)
+    mem = (MemConfig(banks_per_device=4, bank_bandwidth_Bps=2e9, credits=4,
+                     burst_bytes=512) if app in HBM_APPS else None)
     design = compile(graph, fpga_ring_cluster(2),
                      CompileOptions(balance_kind="LUT", balance_tol=0.8,
-                                    floorplan_devices=()))
+                                    floorplan_devices=(), mem=mem))
     on_gpu = design.execute(fabric=None)
     on_cpu = design.execute(fabric=None, device="cpu")
     got, want = on_gpu.outputs, on_cpu.outputs
     if isinstance(got, tuple):
         assert torch.equal(got[1].cpu(), want[1])
         got, want = got[0], want[0]
+    assert got.is_cuda
     assert float((got.cpu() - want).abs().max()) <= 2e-4
     assert on_gpu.report.sweeps == on_cpu.report.sweeps
     assert on_gpu.report.agreement() == on_cpu.report.agreement()
+    assert all(on_gpu.report.agreement().values())
+    if app in HBM_APPS:
+        binding = bind_programs(graph)
+        banked = execute(design, binding)
+        ideal = execute(design, binding, mem=None)
+        assert torch.equal(banked.outputs, ideal.outputs)
+        assert torch.equal(banked.outputs, binding.reference())
+        assert banked.report.sweeps > ideal.report.sweeps

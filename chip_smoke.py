@@ -12,17 +12,16 @@ Phases (any failure exits non-zero before the final line):
    the card, at the shapes the main path gives it (dilate exact; matmul
    within 2e-4 of the output's scale; knn distances within 1e-4, indices
    equal wherever the neighbours' distances differ by more than that;
-   axpy within 1 ulp, exact in practice; dot_partials and gemv within
-   1e-6 of the sum of the absolute terms, and bit for bit equal between
-   the whole-array launch with ``block_rows = br`` and the per-shard
+   axpy within 1 ulp, exact in practice; gemv within 1e-6 and
+   dot_partials within ``dot_tol`` (6.5e-9 at a main-path block) of the
+   sum of the absolute terms; all three bit for bit equal between the
+   whole-array launch with ``block_rows = br`` and the per-shard
    launches).  Timed beside the plain version, the one-call PyTorch
    yardstick where one exists, and the bound the card's data-sheet rates
    give (3.35 TB/s, 67 TFLOP/s fp32).  ``ms``, ``plain_ms`` and
    ``library_ms`` are device times: many calls captured in one CUDA graph
    and replayed between CUDA events, so the host's launch overhead is left
-   out; ``eager_ms`` is the kernel's time in back-to-back eager calls,
-   which is the host's time per call where the host is the slower.  Each
-   row also carries ``device_kernels``: the mean device time of every
+   out.  Each row also carries ``device_kernels``: the mean device time of every
    ``__global__`` the wrapper launched, from ``torch.profiler`` (knn and
    dot_partials launch two passes).  KNN's general path (D > 64 or
    k > 32) is checked too, at small shapes.
@@ -45,6 +44,7 @@ Prints the ``kernels`` JSON line, then the card line, and last
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -199,11 +199,9 @@ def kernel_phase(dev) -> dict:
         return dilate(img, out, block_rows=min(128, h))
 
     ms = graph_ms(lambda i: one_pass(), 50)
-    eager = cuda_ms(one_pass, 50)
     plain = graph_ms(lambda i: dilate_ref(img), 10)
     b, by = bound(2 * h * w * 4, 12 * h * w)
     rows["dilate"] = dict(shape=[h, w], max_abs_err=0.0, ms=ms,
-                          eager_ms=eager,
                           plain_ms=plain, bound_ms=b, bound_by=by,
                           library_ms=None, bytes=2 * h * w * 4,
                           ops=12 * h * w,
@@ -231,14 +229,13 @@ def kernel_phase(dev) -> dict:
     require(conv_err <= 2e-4, f"conv err {conv_err:.3e}")
     from repro_torch.kernels.systolic_matmul.kernel import matmul
     ms = graph_ms(lambda i: matmul(cols, wt), 200)
-    eager = cuda_ms(lambda: matmul(cols, wt), 200)
     plain = graph_ms(lambda i: matmul_ref(cols, wt), 200)
     lib = graph_ms(lambda i: torch.matmul(cols, wt), 200)
     nbytes = 4 * (M * K + K * cpc + M * cpc)
     ops = 2 * M * K * cpc
     b, by = bound(nbytes, ops)
     rows["matmul"] = dict(shape=[M, K, cpc], max_abs_err=errs[cpc], ms=ms,
-                          eager_ms=eager, plain_ms=plain, bound_ms=b,
+                          plain_ms=plain, bound_ms=b,
                           bound_by=by,
                           library_ms=lib, bytes=nbytes, ops=ops,
                           max_abs_err_reference_shape=errs[20 * cpc],
@@ -280,7 +277,6 @@ def kernel_phase(dev) -> dict:
     from repro_torch.kernels.knn.kernel import knn
     shard = data[:shard_n]
     ms = graph_ms(lambda i: knn(queries, shard, k), 100)
-    eager = cuda_ms(lambda: knn(queries, shard, k), 100)
     plain = graph_ms(lambda i: knn_ref(queries, shard, k), 20)
     ms_full = cuda_ms(lambda: knn(queries, data, k), 10)
     plain_full = cuda_ms(lambda: knn_ref(queries, data, k), 3)
@@ -296,7 +292,7 @@ def kernel_phase(dev) -> dict:
     b_full, by_full = bound(fb, fops)
     rows["knn"] = dict(shape=[q, shard_n, dim, k],
                        max_abs_err=checks["shard"][0], ms=ms,
-                       eager_ms=eager, plain_ms=plain, bound_ms=b,
+                       plain_ms=plain, bound_ms=b,
                        bound_by=by,
                        library_ms=None, bytes=nbytes, ops=ops,
                        index_diffs_at_ties=checks["shard"][1],
@@ -326,6 +322,15 @@ def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
 def sum_err(got, want, terms) -> float:
     """Largest |got - want| over the sum of the absolute terms."""
     return float(((got - want).abs() / terms.clamp_min(1e-30)).max())
+
+
+def dot_tol(n: int) -> float:
+    """dot_partials' limit, as a share of the sum of the absolute terms,
+    for blocks of ``n`` random-sign products: fp32 rounding of such a sum
+    grows like sqrt(n log n) while the sum of the absolute terms grows
+    like n, so 64 ulps of that scale.  6.5e-9 at a main-path block (8.4 M
+    terms), where one dropped or doubled term is 1.2e-7."""
+    return 64 * 2.0 ** -24 * math.sqrt(math.log2(n) + 1) / math.sqrt(n)
 
 
 def blas_kernel_rows(dev, gen) -> dict:
@@ -371,7 +376,6 @@ def blas_kernel_rows(dev, gen) -> dict:
         max_ulp=err_ulp, whole_equals_shards=True,
         ms=graph_ms(lambda i: axpy(a, shard(X, i, br), shard(Y, i, br),
                                    br), 40),
-        eager_ms=cuda_ms(lambda: axpy(a, X[:br], Y[:br], br), 40),
         plain_ms=graph_ms(lambda i: axpy_ref(a, shard(X, i, br),
                                              shard(Y, i, br), br), 10),
         bound_ms=b, bound_by=by,
@@ -386,7 +390,8 @@ def blas_kernel_rows(dev, gen) -> dict:
     want = dot_partials_ref(X, Y, br)
     terms = (X * Y).abs().reshape(S, -1).sum(1, keepdim=True)
     rel = sum_err(whole, want, terms)
-    require(rel <= 1e-6, f"dot_partials err {rel:.3e} of sum|x*y|")
+    require(rel <= dot_tol(n),
+            f"dot_partials err {rel:.3e} of sum|x*y| > {dot_tol(n):.3e}")
     require(torch.equal(whole, per_shard(
         lambda x, y: dot_partials(x, y, br), X, Y)),
         "dot_partials: whole-array launch differs from the shards")
@@ -394,10 +399,10 @@ def blas_kernel_rows(dev, gen) -> dict:
     b, by = bound(nbytes, ops)
     out["dot_partials"] = dict(
         shape=[br, lanes], max_abs_err=float((whole - want).abs().max()),
-        max_rel_err_of_abs_sum=rel, whole_equals_shards=True,
+        max_rel_err_of_abs_sum=rel, rel_err_limit=dot_tol(n),
+        whole_equals_shards=True,
         ms=graph_ms(lambda i: dot_partials(shard(X, i, br), shard(Y, i, br),
                                            br), 40),
-        eager_ms=cuda_ms(lambda: dot_partials(X[:br], Y[:br], br), 40),
         plain_ms=graph_ms(lambda i: dot_partials_ref(
             shard(X, i, br), shard(Y, i, br), br), 10),
         bound_ms=b, bound_by=by,
@@ -425,7 +430,6 @@ def blas_kernel_rows(dev, gen) -> dict:
         shape=[gbr, N], max_abs_err=float((whole - want).abs().max()),
         max_rel_err_of_abs_sum=rel, whole_equals_shards=True,
         ms=graph_ms(lambda i: gemv(shard(A, i, gbr), xv, gbr), 40),
-        eager_ms=cuda_ms(lambda: gemv(A[:gbr], xv, gbr), 40),
         plain_ms=graph_ms(lambda i: gemv_ref(shard(A, i, gbr), xv, gbr),
                           10),
         bound_ms=b, bound_by=by,

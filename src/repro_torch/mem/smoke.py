@@ -14,7 +14,9 @@ memory path — and checks:
 Writes the per-bank utilization JSON::
 
     PYTHONPATH=src python -m repro_torch.mem.smoke [--app axpy] [--ndev 4] \
-        [--rows 16] [--lanes 128] [--device cpu] [--out results/...json]
+        [--device cpu] [--out results/...json]
+
+The app runs at its binder's default spec (16 rows of 128 lanes).
 
 It runs on the CUDA card (the hand-written kernels) unless ``--device cpu``
 asks for the kernels' plain versions.
@@ -31,8 +33,6 @@ def main(argv=None) -> int:
     ap.add_argument("--app", default="axpy",
                     choices=["axpy", "dot", "gemv", "axpydot"])
     ap.add_argument("--ndev", type=int, default=4)
-    ap.add_argument("--rows", type=int, default=16)
-    ap.add_argument("--lanes", type=int, default=128)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -61,10 +61,9 @@ def main(argv=None) -> int:
         mem=config,
         passes=("normalize_units", "partition", "memory_feedback",
                 "pipeline_interconnect", "schedule")))
-    spec = {"rows": args.rows, "lanes": args.lanes}
-    binding = bind_programs(graph, spec, device=device)
+    binding = bind_programs(graph, device=device)
     result = execute(design, binding, device=device)
-    ideal = execute(design, bind_programs(graph, spec, device=device),
+    ideal = execute(design, bind_programs(graph, device=device),
                     device=device, mem=None)
 
     expected = binding.reference()
@@ -94,8 +93,6 @@ def main(argv=None) -> int:
         "app": app,
         "ndev": ndev,
         "device": str(device),
-        "rows": args.rows,
-        "lanes": args.lanes,
         "agreement": agree,
         "bit_identical": True,
         "sweeps": report.sweeps,

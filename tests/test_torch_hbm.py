@@ -292,8 +292,7 @@ def test_rows_must_split_into_shards():
 @pytest.mark.parametrize("app", ["axpydot", "gemv"])
 def test_mem_smoke_on_cpu(app, tmp_path):
     out = tmp_path / "mem_smoke.json"
-    assert mem_smoke.main(["--app", app, "--ndev", "2", "--rows", "32",
-                           "--lanes", "64", "--device", "cpu",
+    assert mem_smoke.main(["--app", app, "--ndev", "2", "--device", "cpu",
                            "--out", str(out)]) == 0
     import json
     rec = json.loads(out.read_text())

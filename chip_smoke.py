@@ -37,12 +37,35 @@ Phases (any failure exits non-zero before the final line):
    executed twice, through the bank model and on the ideal memory path;
    both must equal ``reference()`` bit for bit, with every ``agreement()``
    value true, and each kernel of the app must launch in each run.
+5. LM serving path: qwen3-4b at its published width and depth (``full()``,
+   bf16, weights from ``init_params`` with a seeded generator on the card).
+   (a) ``build_prefill_step`` over 4 prompts of 2048 tokens, once to warm
+   up and once timed, each launching ``flash_attention`` exactly 36 times
+   (once per layer; counts zeroed just before each call, read just after);
+   (b) a ``ServingEngine(batch_slots=4, max_len=128)`` answering 4
+   requests of 32 prompt tokens with 32 greedy new tokens.  Checks finite
+   logits, tokens in range, the first token equal to the argmax of the
+   sequential prefill.  Then the card's form of the prefill-against-decode
+   parity: the same 32-token prompts through the prefill step (the kernel)
+   and ``ServingEngine.prefill`` (sequential decode) in fp32 with
+   ``num_superblocks = 4`` must agree within 1e-4 of the logits' largest
+   magnitude; the same comparison in bf16 at full depth is printed, not
+   gated.
+
+The flash attention kernel row (phase 3) holds the kernel at the prefill
+step's shape (bf16, causal) against its plain version within
+atol = rtol = 2e-2, and at small fp32 shapes (GQA, MQA, Sq < Sk, ragged
+lengths, window, softcap, both, non-causal, a fully masked leading block)
+within 2e-5; its yardstick is ``F.scaled_dot_product_attention``
+(``is_causal=True, enable_gqa=True``), its bound the bf16 tensor-core rate
+(989 TFLOP/s) over the visible (query, key) pairs.
 
 Prints the ``kernels`` JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``.  Needs no network and one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -50,6 +73,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -58,6 +82,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # Data-sheet peaks of one H100 SXM (dense, at the full 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12          # tensor cores, dense
 
 SMOKE_OPTIONS = dict(balance_kind="LUT", balance_tol=0.8,
                      floorplan_devices=(0,), exact_limit=1500)
@@ -73,6 +98,27 @@ KNN_SPEC = {"n": 4_000_000, "dim": 16, "q": 128, "k": 10, "streams": 2,
 VEC_SPEC = {"rows": 524288, "lanes": 128, "streams": 3, "seed": 0}
 GEMV_SPEC = {"rows": 8192, "lanes": 8192, "streams": 3, "seed": 0}
 HBM_SHARDS = 8
+# The LM serving path: qwen3-4b's prefill step over 4 prompts of 2048
+# tokens gives the flash kernel q [4, 32, 2048, 128] and k, v
+# [4, 8, 2048, 128] (bf16, causal); the engine serves 4 requests of 32
+# prompt tokens with 32 new tokens.
+LM_ARCH = "qwen3-4b"
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
+SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 32, 32, 128
+PARITY_SUPERBLOCKS = 4
+FLASH_FP32_CASES = (
+    ((1, 2, 2, 128, 128, 64), {}),
+    ((2, 4, 2, 64, 64, 32), {}),                 # GQA
+    ((1, 8, 1, 128, 128, 64), {}),               # MQA
+    ((1, 2, 2, 64, 256, 64), {}),                # Sq < Sk
+    ((1, 2, 2, 100, 200, 64), {}),               # unaligned
+    ((2, 4, 2, 70, 70, 128), {}),                # unaligned, d = 128
+    ((1, 2, 2, 128, 128, 64), {"window": 32}),
+    ((1, 2, 2, 128, 128, 64), {"softcap": 50.0}),
+    ((1, 2, 2, 128, 128, 64), {"window": 64, "softcap": 30.0}),
+    ((1, 2, 2, 128, 128, 64), {"causal": False}),
+    ((1, 4, 2, 64, 256, 64), {"window": 40}),    # fully masked lead block
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -148,9 +194,42 @@ def device_kernels(fn, reps: int = 20) -> list:
             if e.count and e.device_time_total > 0]
 
 
-def bound(nbytes: float, ops: float):
+def device_breakdown(fn, top: int = 6) -> dict:
+    """Device time of one call of ``fn``, from ``torch.profiler``: the sum
+    over every kernel, and the ``top`` kernels by their summed time as
+    ``[name, count, ms]``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(([e.key[:90], e.count, e.device_time_total / 1e3]
+                   for e in prof.key_averages()
+                   if e.count and e.device_time_total > 0),
+                  key=lambda r: -r[2])
+    return {"device_ms": sum(r[2] for r in rows), "top": rows[:top]}
+
+
+def aten_ops(fn) -> int:
+    """ATen operators that ``fn`` dispatches: each costs the host a pass
+    through PyTorch's dispatcher, and most launch a kernel."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -307,9 +386,70 @@ def kernel_phase(dev) -> dict:
                                  device_kernels=device_kernels(
                                      lambda: knn(queries, data, k), 5)))
     rows.update(blas_kernel_rows(dev, gen))
+    rows["flash_attention"] = flash_kernel_row(dev, gen)
     for name, row in rows.items():
         print(f"[kernel] {name} {json.dumps(row)}", flush=True)
     return rows
+
+
+def visible_pairs(Sq: int, Sk: int, causal: bool = True) -> int:
+    """(query, key) pairs that causal end-aligned masking leaves."""
+    if not causal:
+        return Sq * Sk
+    delta = Sk - Sq
+    return sum(max(0, min(Sk, i + delta + 1)) for i in range(Sq))
+
+
+def flash_kernel_row(dev, gen) -> dict:
+    """flash_attention at the prefill step's shape in bf16 (causal), and
+    at small fp32 shapes over every feature."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    small = {}
+    for (B, H, K, Sq, Sk, d), kw in FLASH_FP32_CASES:
+        q = torch.randn(B, H, Sq, d, device=dev, generator=gen)
+        k = torch.randn(B, K, Sk, d, device=dev, generator=gen)
+        v = torch.randn(B, K, Sk, d, device=dev, generator=gen)
+        err = float((flash_attention(q, k, v, **kw)
+                     - attention_ref(q, k, v, **kw)).abs().max())
+        label = f"B{B} H{H} K{K} Sq{Sq} Sk{Sk} d{d} {kw}"
+        require(err <= 2e-5, f"flash_attention fp32 {label}: err {err:.3e}")
+        small[label] = err
+
+    # As the model gives them: [B, S, H, d] seen as [B, H, S, d].
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    H, K, d = 32, 8, 128
+    bf = torch.bfloat16
+    q = torch.randn(B, S, H, d, device=dev, generator=gen).to(bf)
+    k = torch.randn(B, S, K, d, device=dev, generator=gen).to(bf)
+    v = torch.randn(B, S, K, d, device=dev, generator=gen).to(bf)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    got = flash_attention(q, k, v).float()
+    ref = attention_ref(q, k, v).float()
+    err = float((got - ref).abs().max())
+    excess = float(((got - ref).abs() - 2e-2 * ref.abs()).max())
+    require(excess <= 2e-2, f"flash_attention bf16 main shape: |got - ref| "
+            f"exceeds 2e-2 + 2e-2 |ref| by {excess - 2e-2:.3e}")
+    del got, ref
+    nbytes = 2 * 2 * (q.numel() + k.numel())          # q, o; k, v
+    ops = 4 * B * H * d * visible_pairs(S, S)
+    b, by = bound(nbytes, ops, PEAK_BF16_PER_S)
+    ms = graph_ms(lambda i: flash_attention(q, k, v), 10, replays=3)
+    plain = cuda_ms(lambda: attention_ref(q, k, v), 3, warmup=1)
+    lib = graph_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20, replays=3)
+    return dict(shape=[B, H, K, S, S, d], dtype="bf16", causal=True,
+                max_abs_err=err, atol=2e-2, rtol=2e-2,
+                fp32_max_abs_err=small, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib,
+                library="F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True), bf16",
+                bytes=nbytes, ops=ops,
+                device_kernels=device_kernels(
+                    lambda: flash_attention(q, k, v), 5))
 
 
 def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -569,6 +709,132 @@ def hbm_path_phase(app: str, spec: dict, kernels: tuple) -> dict:
     return row
 
 
+def lm_path_phase(dev) -> dict:
+    """qwen3-4b at full width and depth: the prefill step (flash kernel)
+    and the ServingEngine; then prefill-against-decode parity."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import init_params, param_count
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = get_arch(LM_ARCH).full()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    require(n_params == param_count(cfg), "qwen3-4b parameter count")
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+    rng = np.random.default_rng(0)
+    long_prompts = rng.integers(1, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN))
+    prompts = rng.integers(1, cfg.vocab, (PREFILL_BATCH, SERVE_PROMPT))
+
+    prefill = build_prefill_step(cfg)                 # on cuda
+    runs = []
+    for _ in range(2):                                # warm-up, timed
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"tokens": long_prompts})
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, launch_counts()))
+    prefill_s, launches = runs[1]
+    for _, counts in runs:
+        require(counts["flash_attention"] == cfg.num_layers,
+                f"prefill launched flash_attention "
+                f"{counts['flash_attention']} times, not {cfg.num_layers}")
+    require(logits.shape == (PREFILL_BATCH, cfg.vocab)
+            and bool(torch.isfinite(logits).all()),
+            "prefill logits: shape or not finite")
+    prefill_profile = device_breakdown(
+        lambda: prefill(params, {"tokens": long_prompts}))
+
+    engine = ServingEngine(params, cfg, ServeConfig(
+        batch_slots=PREFILL_BATCH, max_len=SERVE_MAX_LEN))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    seq_logits, _ = engine.prefill(prompts)
+    torch.cuda.synchronize()
+    seq_prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    engine_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # Device time of the engine's steps: a generate of 4 new tokens runs
+    # SERVE_PROMPT + 4 serve_steps.
+    step_profile = device_breakdown(
+        lambda: engine.generate(prompts, max_new=4), top=3)
+    step_device_ms = step_profile["device_ms"] / (SERVE_PROMPT + 4)
+    step_ops = aten_ops(lambda: engine.generate(prompts, max_new=4)) / (
+        SERVE_PROMPT + 4)
+    step_wall_ms = generate_s * 1e3 / (SERVE_PROMPT + SERVE_NEW)
+    require(out.shape == (PREFILL_BATCH, SERVE_NEW) and out.dtype == np.int32
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            "generated tokens: shape, dtype or range")
+    require(bool(torch.isfinite(seq_logits).all()), "decode logits")
+    require(np.array_equal(out[:, 0],
+                            seq_logits.argmax(-1).cpu().numpy()),
+            "first greedy token is not the argmax of the prefill logits")
+    kern_logits = prefill(params, {"tokens": prompts})
+    bf16_rel = float((kern_logits - seq_logits).abs().max()
+                     / seq_logits.abs().max())
+    bf16_argmax = int((kern_logits.argmax(-1)
+                       == seq_logits.argmax(-1)).sum())
+    del params, engine, logits, kern_logits, seq_logits
+    torch.cuda.empty_cache()
+
+    # Parity on the card, fp32, full width, 4 layers.
+    cfg32 = dataclasses.replace(cfg, num_superblocks=PARITY_SUPERBLOCKS,
+                                dtype=torch.float32,
+                                param_dtype=torch.float32)
+    params32 = init_params(torch.Generator(dev).manual_seed(1), cfg32)
+    reset_launch_counts()
+    kern = build_prefill_step(cfg32)(params32, {"tokens": prompts})
+    parity_launches = launch_counts()["flash_attention"]
+    dec, _ = ServingEngine(params32, cfg32, ServeConfig(
+        batch_slots=PREFILL_BATCH, max_len=SERVE_MAX_LEN)).prefill(prompts)
+    fp32_rel = float((kern - dec).abs().max() / dec.abs().max())
+    del params32
+    torch.cuda.empty_cache()
+
+    new_tokens = PREFILL_BATCH * SERVE_NEW
+    row = {"app": LM_ARCH, "params": n_params, "param_bytes": param_bytes,
+           "layers": cfg.num_layers, "init_s": init_s,
+           "prefill_shape": [PREFILL_BATCH, PREFILL_LEN],
+           "prefill_s": prefill_s, "prefill_warmup_s": runs[0][0],
+           "prefill_tok_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+           "prefill_device_ms": prefill_profile["device_ms"],
+           "prefill_top_kernels": prefill_profile["top"],
+           "launches": launches,
+           "serve_requests": PREFILL_BATCH, "serve_prompt": SERVE_PROMPT,
+           "serve_new": SERVE_NEW, "engine_prefill_s": seq_prefill_s,
+           "generate_s": generate_s,
+           "decode_tok_per_s": new_tokens / (generate_s - seq_prefill_s),
+           "step_wall_ms": step_wall_ms, "step_device_ms": step_device_ms,
+           "step_device_busy": step_device_ms / step_wall_ms,
+           "step_aten_ops": step_ops,
+           "step_top_kernels": step_profile["top"],
+           "engine_launches": engine_launches,
+           "peak_device_bytes": peak,
+           "tokens_head": out[:, :8].tolist(),
+           "fp32_parity_superblocks": PARITY_SUPERBLOCKS,
+           "fp32_parity_rel_err": fp32_rel,
+           "fp32_parity_flash_launches": parity_launches,
+           "bf16_full_depth_rel_err": bf16_rel,
+           "bf16_full_depth_argmax_equal": bf16_argmax}
+    print(f"[path] {json.dumps(row)}", flush=True)
+    require(parity_launches == PARITY_SUPERBLOCKS,
+            f"fp32 parity prefill launched flash_attention "
+            f"{parity_launches} times")
+    require(fp32_rel <= 1e-4, f"fp32 prefill step against sequential "
+            f"decode: {fp32_rel:.3e} of the logits' scale > 1e-4")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -612,6 +878,8 @@ def main() -> int:
         for k in ks:                 # the bank path is the main path
             launches[k] = launches.get(k, 0) + row["launches"][k]
         torch.cuda.empty_cache()
+    lm = lm_path_phase(dev)
+    launches["flash_attention"] = lm["launches"]["flash_attention"]
 
     blas = "src/repro/kernels/hbm_blas/kernel.py"
     sources = {"dilate": ("src/repro_torch/csrc/dilate.cu",
@@ -623,7 +891,10 @@ def main() -> int:
                "axpy": ("src/repro_torch/csrc/hbm_blas.cu", f"{blas}:23"),
                "dot_partials": ("src/repro_torch/csrc/hbm_blas.cu",
                                 f"{blas}:48"),
-               "gemv": ("src/repro_torch/csrc/hbm_blas.cu", f"{blas}:97")}
+               "gemv": ("src/repro_torch/csrc/hbm_blas.cu", f"{blas}:97"),
+               "flash_attention": (
+                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:99")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": repl, "launches": launches[name],
                 "max_abs_err": rows[name]["max_abs_err"],

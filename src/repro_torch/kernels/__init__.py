@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels for the paper's compute hot spots and the
-memory-bound HBM workload set.
+"""Hand-written Hopper kernels for the paper's compute hot spots, the
+memory-bound HBM workload set and the LM side's attention.
 
 Each kernel directory holds ``ref.py`` (the plain PyTorch version),
 ``kernel.py`` (the ``ctypes`` wrapper of a CUDA source in
@@ -9,6 +9,8 @@ op: the kernel for a CUDA tensor, the plain version for a CPU tensor).
 """
 from typing import Dict
 
+from .flash_attention import kernel as _flash_kernel
+from .flash_attention.ops import flash_attention_op
 from .hbm_blas import kernel as _hbm_kernel
 from .hbm_blas.ops import (axpy_op, axpydot_op, dot_op, dot_partials_op,
                            fold_partials, gemv_op)
@@ -25,7 +27,8 @@ COUNTERS = {c.name: c for c in (_dilate_kernel.LAUNCHES,
                                 _knn_kernel.LAUNCHES,
                                 _hbm_kernel.AXPY_LAUNCHES,
                                 _hbm_kernel.DOT_PARTIALS_LAUNCHES,
-                                _hbm_kernel.GEMV_LAUNCHES)}
+                                _hbm_kernel.GEMV_LAUNCHES,
+                                _flash_kernel.LAUNCHES)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -38,5 +41,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["COUNTERS", "axpy_op", "axpydot_op", "conv_op", "dilate_op",
-           "dot_op", "dot_partials_op", "fold_partials", "gemv_op", "knn_op",
+           "dot_op", "dot_partials_op", "flash_attention_op",
+           "fold_partials", "gemv_op", "knn_op",
            "launch_counts", "matmul_op", "reset_launch_counts"]

@@ -28,7 +28,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("dilate.cu", "matmul.cu", "knn.cu", "hbm_blas.cu")
+SOURCES = ("dilate.cu", "matmul.cu", "knn.cu", "hbm_blas.cu",
+           "flash_attention.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -127,6 +128,9 @@ _SIGNATURES = {
     "repro_dot_chunk": [],
     "repro_dot_partials_f32": [_VP, _VP, _VP, _VP, _INT, _I64, _VP],
     "repro_gemv_f32": [_VP, _VP, _VP, _INT, _I64, _VP],
+    "repro_flash_attention": [_INT, _VP, _VP, _VP, _VP, _VP,
+                              _INT, _INT, _INT, _INT, _INT, _INT,
+                              _F32, _F32, _INT, _INT, _INT, _VP],
 }
 
 

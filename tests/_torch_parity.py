@@ -7,6 +7,7 @@ numerics are compared.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -58,3 +59,26 @@ def scaled_err(got, want) -> float:
 def channel_bytes(report):
     return [(c.src, c.dst, c.inter_device, c.tokens, c.measured_bytes)
             for c in report.channels]
+
+
+def np_tree(tree):
+    """A JAX parameter tree as nested dicts of float32 numpy arrays (numpy
+    has no bfloat16; ``params_from_jax`` casts back)."""
+    import jax
+
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def torch_model_config(jcfg):
+    """The port's ModelConfig with every field of the JAX one ``jcfg``."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro_torch.models import LayerSpec, ModelConfig
+
+    kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
+    for key in ("pattern", "extra_layers"):
+        kw[key] = tuple(LayerSpec(**dataclasses.asdict(s)) for s in kw[key])
+    for key in ("dtype", "param_dtype"):
+        kw[key] = getattr(torch, jnp.dtype(kw[key]).name)
+    return ModelConfig(**kw)

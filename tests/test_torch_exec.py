@@ -142,7 +142,8 @@ def test_port_sources_import_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py"]
     assert len(files) > 30
-    assert {"mem", "hbm_blas"} <= {part for f in files for part in f.parts}
+    assert {"mem", "hbm_blas", "models", "serving", "launch",
+            "flash_attention"} <= {part for f in files for part in f.parts}
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -165,6 +166,18 @@ def test_port_path_loads_no_jax_and_no_repro():
         "            CompileOptions(mem=repro_torch.mem.MemConfig()))\n"
         "r = d.execute(device='cpu')\n"
         "assert r.report.agreement()['bank_conservation']\n"
+        "import torch\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.serving, repro_torch.launch.serve\n"
+        "from repro_torch.launch.steps import build_prefill_step\n"
+        "cfg = repro_torch.configs.get_arch('qwen3-4b').smoke()\n"
+        "p = repro_torch.models.init_params(torch.Generator(), cfg)\n"
+        "c = repro_torch.models.init_cache(cfg, 2, 8, device='cpu')\n"
+        "c, lg = repro_torch.models.serve_step(\n"
+        "    p, cfg, c, torch.zeros(2, 1, dtype=torch.long), 0)\n"
+        "assert lg.shape == (2, cfg.vocab)\n"
+        "lg = build_prefill_step(cfg, 'cpu')(p, {'tokens': [[1, 2, 3]]})\n"
+        "assert lg.shape == (1, cfg.vocab)\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

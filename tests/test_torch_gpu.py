@@ -1,7 +1,8 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
 version (the BLAS kernels also whole array against shards, bit for bit),
-the launch counters, and a small compile → execute on ``cuda`` (the HBM
-apps through the bank model and the ideal path).
+the launch counters, a small compile → execute on ``cuda`` (the HBM apps
+through the bank model and the ideal path), and the LM serving side's
+prefill (flash attention kernel) against its cached decode.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided in the fixture, never at import).  On a machine with one:
@@ -19,9 +20,11 @@ from repro_torch.compiler import CompileOptions, compile
 from repro_torch.core import fpga_ring_cluster
 from repro_torch.exec import bind_programs, execute
 from repro_torch.kernels import (axpy_op, conv_op, dilate_op, dot_op,
-                                 dot_partials_op, gemv_op, knn_op,
+                                 dot_partials_op, flash_attention_op,
+                                 gemv_op, knn_op,
                                  launch_counts, matmul_op,
                                  reset_launch_counts)
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.hbm_blas.ref import (axpy_ref, dot_partials_ref,
                                               gemv_ref)
 from repro_torch.kernels.knn.ref import knn_ref
@@ -188,8 +191,11 @@ def test_launch_counters(cuda):
     dot_op(v, v, block_rows=2)
     gemv_op(v, v[:1], block_rows=8)
     gemv_op(v, v[:1], block_rows=8)
+    q = _randn(cuda, 1, 2, 8, 16)
+    flash_attention_op(q, q, q)
     assert launch_counts() == {"dilate": 3, "matmul": 1, "knn": 1,
-                               "axpy": 1, "dot_partials": 1, "gemv": 2}
+                               "axpy": 1, "dot_partials": 1, "gemv": 2,
+                               "flash_attention": 1}
 
 
 HBM_APPS = ["axpy", "dot", "gemv", "axpydot"]
@@ -221,3 +227,104 @@ def test_execute_on_cuda(cuda, app):
         assert torch.equal(banked.outputs, ideal.outputs)
         assert torch.equal(banked.outputs, binding.reference())
         assert banked.report.sweeps > ideal.report.sweeps
+
+
+# -- flash attention ----------------------------------------------------------
+
+FLASH_SHAPES = [
+    (1, 2, 2, 128, 128, 64),
+    (2, 4, 2, 64, 64, 32),       # GQA
+    (1, 8, 1, 128, 128, 64),     # MQA
+    (1, 2, 2, 64, 256, 64),      # decode-style Sq<Sk
+    (1, 2, 2, 100, 200, 64),     # unaligned
+    (2, 4, 2, 70, 70, 128),      # unaligned, d = 128
+    (1, 4, 4, 33, 90, 8),        # small head dim
+]
+FLASH_FEATURES = [{}, {"window": 32}, {"softcap": 50.0}, {"causal": False},
+                  {"window": 64, "softcap": 30.0}]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(dev, B, H, K, Sq, Sk, d, dtype, seed=0):
+    return (_randn(dev, B, H, Sq, d, seed=seed).to(dtype),
+            _randn(dev, B, K, Sk, d, seed=seed + 1).to(dtype),
+            _randn(dev, B, K, Sk, d, seed=seed + 2).to(dtype))
+
+
+def _flash_err(q, k, v, **kw):
+    got = flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    return float((got.float() - attention_ref(q, k, v, **kw).float()
+                  ).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,Sq,Sk,d", FLASH_SHAPES)
+def test_flash_attention_kernel_shapes(cuda, B, H, K, Sq, Sk, d, dtype):
+    assert _flash_err(*_qkv(cuda, B, H, K, Sq, Sk, d, dtype)) <= \
+        FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kwargs", FLASH_FEATURES[1:])
+def test_flash_attention_kernel_features(cuda, kwargs, dtype):
+    assert _flash_err(*_qkv(cuda, 1, 2, 2, 128, 128, 64, dtype),
+                      **kwargs) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_fully_masked_leading_block(cuda, dtype):
+    """Window 40 with Sk - Sq = 192: the first kv tiles of the last query
+    rows are fully masked (the -1e30 rule, wiped by alpha = 0)."""
+    q, k, v = _qkv(cuda, 1, 4, 2, 64, 256, 64, dtype)
+    assert _flash_err(q, k, v, window=40) <= FLASH_TOL[dtype]
+    assert _flash_err(q, k, v, window=3, softcap=5.0) <= FLASH_TOL[dtype]
+
+
+def test_flash_attention_strided_views(cuda):
+    """[B,S,H,d] tensors seen as [B,H,S,d]: read through strides, the output
+    laid out like q; a misaligned view takes the scalar loads."""
+    q = _randn(cuda, 2, 96, 8, 64).transpose(1, 2)
+    k = _randn(cuda, 2, 96, 4, 64, seed=1).transpose(1, 2)
+    v = _randn(cuda, 2, 96, 4, 64, seed=2).transpose(1, 2)
+    got = flash_attention_op(q, k, v)
+    assert got.transpose(1, 2).is_contiguous()
+    assert float((got - attention_ref(q, k, v)).abs().max()) <= 2e-5
+    base = _randn(cuda, 1, 2, 40, 65)
+    qm = base[..., 1:]                       # rows 4 bytes off 16
+    assert _flash_err(qm, qm, qm, window=7) <= 2e-5
+
+
+def test_flash_attention_refuses_what_it_cannot_take(cuda):
+    q = _randn(cuda, 1, 2, 8, 16)
+    with pytest.raises(TypeError):
+        flash_attention_op(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="d <= 128"):
+        flash_attention_op(*(_randn(cuda, 1, 1, 4, 192),) * 3)
+    with pytest.raises(ValueError, match="H % K"):
+        flash_attention_op(q, _randn(cuda, 1, 3, 8, 16),
+                           _randn(cuda, 1, 3, 8, 16))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b"])
+def test_prefill_step_on_cuda_matches_decode(cuda, arch):
+    """The smoke() model on the card: the prefill step (one flash kernel
+    launch per attention layer) agrees with the ServingEngine's sequential
+    prefill, and with the prefill step on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = get_arch(arch).smoke()
+    params = init_params(torch.Generator(cuda).manual_seed(0), cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 12))
+    reset_launch_counts()
+    got = build_prefill_step(cfg)(params, {"tokens": toks})
+    assert launch_counts()["flash_attention"] == cfg.num_layers
+    dec, _ = ServingEngine(params, cfg, ServeConfig(3, 16)).prefill(toks)
+    cpu = build_prefill_step(cfg, "cpu")(params.to("cpu"), {"tokens": toks})
+    scale = float(dec.abs().max())
+    assert float((got - dec).abs().max()) <= 1e-4 * scale
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-4 * scale

@@ -7,7 +7,8 @@ Phases (any failure exits non-zero before the final line):
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
 2. Build: compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` (one
    ``nvcc`` per source, in parallel) and prints ``ptxas -v`` on a fresh
-   build.
+   build; counts the ``HGMMA`` instructions that ``cuobjdump -sass`` finds
+   in each tensor-core flash attention kernel (none is a failure).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main path gives it (dilate exact; matmul
    within 2e-4 of the output's scale; knn distances within 1e-4, indices
@@ -41,7 +42,8 @@ Phases (any failure exits non-zero before the final line):
    bf16, weights from ``init_params`` with a seeded generator on the card).
    (a) ``build_prefill_step`` over 4 prompts of 2048 tokens, once to warm
    up and once timed, each launching ``flash_attention`` exactly 36 times
-   (once per layer; counts zeroed just before each call, read just after);
+   (once per layer), all 36 on the tensor cores (``flash_attention_tc``;
+   counts zeroed just before each call, read just after);
    (b) a ``ServingEngine(batch_slots=4, max_len=128)`` answering 4
    requests of 32 prompt tokens with 32 greedy new tokens.  Checks finite
    logits, tokens in range, the first token equal to the argmax of the
@@ -49,16 +51,26 @@ Phases (any failure exits non-zero before the final line):
    parity: the same 32-token prompts through the prefill step (the kernel)
    and ``ServingEngine.prefill`` (sequential decode) in fp32 with
    ``num_superblocks = 4`` must agree within 1e-4 of the logits' largest
-   magnitude; the same comparison in bf16 at full depth is printed, not
-   gated.
+   magnitude, its 4 launches on the CUDA cores; the same comparison in
+   bf16 at full depth is printed, not gated.
 
-The flash attention kernel row (phase 3) holds the kernel at the prefill
-step's shape (bf16, causal) against its plain version within
-atol = rtol = 2e-2, and at small fp32 shapes (GQA, MQA, Sq < Sk, ragged
-lengths, window, softcap, both, non-causal, a fully masked leading block)
-within 2e-5; its yardstick is ``F.scaled_dot_product_attention``
+The flash attention row (phase 3) holds both kernels, on the same bf16
+inputs, to their plain version at the prefill step's shape (causal) and at
+the feature cases of ``kernels/flash_attention/cases.py`` (GQA, MQA,
+Sq < Sk, ragged lengths, window, softcap, both, non-causal, a fully masked
+leading block) at d = 128 and d = 64: elementwise within
+atol = rtol = 2e-2, each row within 1e-2 of its norm, and the tensor cores
+no further than twice the CUDA-core kernel's error from the fp32 plain
+version.  Two planted faults at the main shape (the last query block
+without its first or its diagonal key tile) must fail the row check.  The
+same cases in fp32 at d = 32, 64 and 128 go to the CUDA cores (within
+2e-5).  It also times the CUDA-core kernel and a non-causal call at the
+main shape.  Its yardstick is ``F.scaled_dot_product_attention``
 (``is_causal=True, enable_gqa=True``), its bound the bf16 tensor-core rate
-(989 TFLOP/s) over the visible (query, key) pairs.
+(989 TFLOP/s) over the visible (query, key) pairs.  The matmul row names
+the kernel each of its two shapes takes (narrow at N = 4, tiled at
+N = 80), checks that two runs agree bit for bit, and times the tiled
+kernel at N = 4 beside the narrow one.
 
 Prints the ``kernels`` JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``.  Needs no network and one card.
@@ -106,19 +118,10 @@ LM_ARCH = "qwen3-4b"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 32, 32, 128
 PARITY_SUPERBLOCKS = 4
-FLASH_FP32_CASES = (
-    ((1, 2, 2, 128, 128, 64), {}),
-    ((2, 4, 2, 64, 64, 32), {}),                 # GQA
-    ((1, 8, 1, 128, 128, 64), {}),               # MQA
-    ((1, 2, 2, 64, 256, 64), {}),                # Sq < Sk
-    ((1, 2, 2, 100, 200, 64), {}),               # unaligned
-    ((2, 4, 2, 70, 70, 128), {}),                # unaligned, d = 128
-    ((1, 2, 2, 128, 128, 64), {"window": 32}),
-    ((1, 2, 2, 128, 128, 64), {"softcap": 50.0}),
-    ((1, 2, 2, 128, 128, 64), {"window": 64, "softcap": 30.0}),
-    ((1, 2, 2, 128, 128, 64), {"causal": False}),
-    ((1, 4, 2, 64, 256, 64), {"window": 40}),    # fully masked lead block
-)
+# The flash feature cases run in fp32 at these head dims (the CUDA cores)
+# and in bf16 at the tensor cores' two.
+FLASH_FP32_DIMS = (32, 64, 128)
+FLASH_BF16_DIMS = (128, 64)
 
 
 class SmokeFailure(RuntimeError):
@@ -227,6 +230,23 @@ def aten_ops(fn) -> int:
     return Count.n
 
 
+def hgmma_counts(lib_path: Path) -> dict:
+    """HGMMA (wgmma) instructions in each kernel of the built library whose
+    SASS has any, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = line.split("Function :")[1].strip()
+        elif current is not None and "HGMMA" in line:
+            counts[current] = counts.get(current, 0) + 1
+    return counts
+
+
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -252,6 +272,7 @@ def kernel_phase(dev) -> dict:
     from repro_torch.kernels import conv_op, dilate_op, knn_op, matmul_op
     from repro_torch.kernels.knn.ref import knn_ref
     from repro_torch.kernels.stencil_dilate.ref import dilate_ref
+    from repro_torch.kernels.systolic_matmul.kernel import route as mm_route
     from repro_torch.kernels.systolic_matmul.ref import im2col3x3, matmul_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False     # full fp32 yardstick
@@ -291,23 +312,32 @@ def kernel_phase(dev) -> dict:
     x = torch.randn(hh, hh, cin, device=dev, generator=gen)
     cols = im2col3x3(x)                                # [1024, 576]
     M, K = cols.shape
-    errs = {}
+    errs, routes = {}, {}
     for N in (cpc, 20 * cpc):
         wt = torch.randn(K, N, device=dev, generator=gen) * 0.05
         got = matmul_op(cols, wt)
         ref = matmul_ref(cols, wt)
         err = float((got - ref).abs().max())
         errs[N] = err
+        routes[f"[{M},{K}]x[{K},{N}]"] = mm_route(M, K, N)
         scale = max(1.0, float(ref.abs().max()))
         require(err <= 2e-4 * scale,
                 f"matmul [{M},{K}]x[{K},{N}] err {err:.3e} > 2e-4*{scale:.2f}")
+        require(torch.equal(got, matmul_op(cols, wt)),
+                f"matmul [{M},{K}]x[{K},{N}]: two runs differ")
+    require(mm_route(M, K, cpc) == "narrow"
+            and mm_route(M, K, 20 * cpc) == "tiled",
+            f"matmul routes {routes}: the CNN's N = {cpc} goes to the narrow "
+            f"kernel, N = {20 * cpc} to the tiled one")
     wt = torch.randn(K, cpc, device=dev, generator=gen) * 0.05
     wconv = wt.reshape(3, 3, cin, cpc)
     conv_err = float((conv_op(x, wconv)
                       - matmul_ref(cols, wt).reshape(hh, hh, cpc)).abs().max())
     require(conv_err <= 2e-4, f"conv err {conv_err:.3e}")
-    from repro_torch.kernels.systolic_matmul.kernel import matmul
+    from repro_torch.kernels.systolic_matmul.kernel import (_launch_tiled,
+                                                            matmul)
     ms = graph_ms(lambda i: matmul(cols, wt), 200)
+    tiled_ms = graph_ms(lambda i: _launch_tiled(cols, wt), 200)
     plain = graph_ms(lambda i: matmul_ref(cols, wt), 200)
     lib = graph_ms(lambda i: torch.matmul(cols, wt), 200)
     nbytes = 4 * (M * K + K * cpc + M * cpc)
@@ -317,6 +347,8 @@ def kernel_phase(dev) -> dict:
                           plain_ms=plain, bound_ms=b,
                           bound_by=by,
                           library_ms=lib, bytes=nbytes, ops=ops,
+                          routes=routes, two_runs_equal=True,
+                          tiled_ms=tiled_ms,
                           max_abs_err_reference_shape=errs[20 * cpc],
                           device_kernels=device_kernels(
                               lambda: matmul(cols, wt)))
@@ -401,50 +433,130 @@ def visible_pairs(Sq: int, Sk: int, causal: bool = True) -> int:
 
 
 def flash_kernel_row(dev, gen) -> dict:
-    """flash_attention at the prefill step's shape in bf16 (causal), and
-    at small fp32 shapes over every feature."""
+    """flash_attention at the prefill step's shape in bf16 (causal) on the
+    tensor cores, with two planted faults that its row gate must reject;
+    each feature case in fp32 on the CUDA cores and in bf16 on the tensor
+    cores."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.kernel import (
+        _launch_cuda_core, flash_attention, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    small = {}
-    for (B, H, K, Sq, Sk, d), kw in FLASH_FP32_CASES:
-        q = torch.randn(B, H, Sq, d, device=dev, generator=gen)
-        k = torch.randn(B, K, Sk, d, device=dev, generator=gen)
-        v = torch.randn(B, K, Sk, d, device=dev, generator=gen)
-        err = float((flash_attention(q, k, v, **kw)
-                     - attention_ref(q, k, v, **kw)).abs().max())
-        label = f"B{B} H{H} K{K} Sq{Sq} Sk{Sk} d{d} {kw}"
-        require(err <= 2e-5, f"flash_attention fp32 {label}: err {err:.3e}")
-        small[label] = err
+    def max_abs(got, want) -> float:
+        return float((got.float() - want.float()).abs().max())
+
+    def norm_rel(got, want) -> float:
+        return float((got.float() - want.float()).norm()
+                     / want.float().norm())
+
+    def bf16_check(label, q, k, v, **kw) -> tuple:
+        """Both kernels on the same bf16 inputs, each held to the plain
+        version elementwise and row by row; the tensor cores at most twice
+        the CUDA cores' error from the fp32 plain version (both round p
+        and the output at the same places)."""
+        require(route(q, k, v) == "tensor_core",
+                f"flash_attention bf16 {label} not on the tensor cores")
+        want = attention_ref(q, k, v, **kw)
+        exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+        out, reading = None, {}
+        for name, launch in (("tc", flash_attention),
+                             ("cc", _launch_cuda_core)):
+            got = launch(q, k, v, **kw)
+            r = dict(max_abs_err=max_abs(got, want),
+                     row_rel_err=cases.row_rel_err(got, want),
+                     norm_rel_err=norm_rel(got, want),
+                     vs_fp32=max_abs(got, exact))
+            excess = cases.excess(got, want)
+            require(excess <= cases.ATOL,
+                    f"flash_attention bf16 {label} ({name}): |got - ref| "
+                    f"exceeds {cases.ATOL} + {cases.RTOL} |ref| by "
+                    f"{excess - cases.ATOL:.3e}")
+            require(r["row_rel_err"] <= cases.ROW_REL_LIMIT,
+                    f"flash_attention bf16 {label} ({name}): a row is "
+                    f"{r['row_rel_err']:.3e} of its norm from the plain "
+                    f"version > {cases.ROW_REL_LIMIT}")
+            reading[name] = r
+            out = got if out is None else out
+        require(reading["tc"]["vs_fp32"] <= 2 * reading["cc"]["vs_fp32"],
+                f"flash_attention bf16 {label}: tensor cores "
+                f"{reading['tc']['vs_fp32']:.3e} from fp32, CUDA cores "
+                f"{reading['cc']['vs_fp32']:.3e}")
+        return reading, out, want
+
+    fp32_cases, bf16_cases = {}, {}
+    for name, (B, H, K, Sq, Sk), kw in cases.FEATURE_CASES:
+        for d in FLASH_FP32_DIMS:
+            q = torch.randn(B, H, Sq, d, device=dev, generator=gen)
+            k = torch.randn(B, K, Sk, d, device=dev, generator=gen)
+            v = torch.randn(B, K, Sk, d, device=dev, generator=gen)
+            label = f"{name} d{d}"
+            require(route(q, k, v) == "cuda_core",
+                    f"flash_attention fp32 {label} routed to the tensor "
+                    f"cores")
+            err = max_abs(flash_attention(q, k, v, **kw),
+                          attention_ref(q, k, v, **kw))
+            require(err <= cases.FP32_ATOL,
+                    f"flash_attention fp32 {label}: err {err:.3e}")
+            fp32_cases[label] = err
+        for d in FLASH_BF16_DIMS:
+            q, k, v = (torch.randn(B, n, S, d, device=dev,
+                                   generator=gen).to(torch.bfloat16)
+                       for n, S in ((H, Sq), (K, Sk), (K, Sk)))
+            label = f"{name} d{d}"
+            bf16_cases[label] = bf16_check(label, q, k, v, **kw)[0]
 
     # As the model gives them: [B, S, H, d] seen as [B, H, S, d].
     B, S = PREFILL_BATCH, PREFILL_LEN
     H, K, d = 32, 8, 128
-    bf = torch.bfloat16
-    q = torch.randn(B, S, H, d, device=dev, generator=gen).to(bf)
-    k = torch.randn(B, S, K, d, device=dev, generator=gen).to(bf)
-    v = torch.randn(B, S, K, d, device=dev, generator=gen).to(bf)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-    got = flash_attention(q, k, v).float()
-    ref = attention_ref(q, k, v).float()
-    err = float((got - ref).abs().max())
-    excess = float(((got - ref).abs() - 2e-2 * ref.abs()).max())
-    require(excess <= 2e-2, f"flash_attention bf16 main shape: |got - ref| "
-            f"exceeds 2e-2 + 2e-2 |ref| by {excess - 2e-2:.3e}")
-    del got, ref
+    q, k, v = (torch.randn(B, S, n, d, device=dev,
+                           generator=gen).to(torch.bfloat16).transpose(1, 2)
+               for n in (H, K, K))
+    main, got, want = bf16_check("main shape", q, k, v)
+    # Planted faults: the tensor cores' output with the last query block's
+    # rows recomputed without one of their key tiles, as a kernel that
+    # skipped that tile would give them.  The row gate must reject each;
+    # the elementwise gate's reading is printed beside it.
+    T = 128
+    planted = {}
+    for name, (kk, vv, causal) in {
+            "skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
+            "skips_diagonal_tile": (k[:, :, :S - T], v[:, :, :S - T],
+                                    False)}.items():
+        bad = got.clone()
+        bad[:, :, S - T:] = attention_ref(q[:, :, S - T:], kk, vv,
+                                          causal=causal)
+        planted[name] = dict(row_rel_err=cases.row_rel_err(bad, want),
+                             norm_rel_err=norm_rel(bad, want),
+                             excess=cases.excess(bad, want))
+        require(planted[name]["row_rel_err"] > cases.ROW_REL_LIMIT,
+                f"flash_attention: the row gate passes the planted fault "
+                f"{name} ({planted[name]})")
+    del got, want, bad
     nbytes = 2 * 2 * (q.numel() + k.numel())          # q, o; k, v
     ops = 4 * B * H * d * visible_pairs(S, S)
     b, by = bound(nbytes, ops, PEAK_BF16_PER_S)
     ms = graph_ms(lambda i: flash_attention(q, k, v), 10, replays=3)
+    cuda_core_ms = graph_ms(lambda i: _launch_cuda_core(q, k, v), 4,
+                            replays=2)
+    # Without the mask every block walks all 16 key tiles: the time per
+    # tile without the short causal blocks' fixed costs.
+    noncausal_ms = graph_ms(
+        lambda i: flash_attention(q, k, v, causal=False), 10, replays=3)
     plain = cuda_ms(lambda: attention_ref(q, k, v), 3, warmup=1)
     lib = graph_ms(lambda i: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20, replays=3)
     return dict(shape=[B, H, K, S, S, d], dtype="bf16", causal=True,
-                max_abs_err=err, atol=2e-2, rtol=2e-2,
-                fp32_max_abs_err=small, ms=ms, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib,
+                kernel=route(q, k, v),
+                max_abs_err=main["tc"]["max_abs_err"], main=main,
+                atol=cases.ATOL, rtol=cases.RTOL,
+                row_rel_limit=cases.ROW_REL_LIMIT, planted_faults=planted,
+                bf16_cases=bf16_cases, fp32_max_abs_err=fp32_cases, ms=ms,
+                tflops=ops / ms / 1e9, cuda_core_ms=cuda_core_ms,
+                noncausal_ms=noncausal_ms,
+                noncausal_tflops=4 * B * H * d * S * S / noncausal_ms / 1e9,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
                 library="F.scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True), bf16",
                 bytes=nbytes, ops=ops,
@@ -745,6 +857,10 @@ def lm_path_phase(dev) -> dict:
         require(counts["flash_attention"] == cfg.num_layers,
                 f"prefill launched flash_attention "
                 f"{counts['flash_attention']} times, not {cfg.num_layers}")
+        require(counts["flash_attention_tc"] == cfg.num_layers,
+                f"prefill launched the tensor-core flash_attention "
+                f"{counts['flash_attention_tc']} times, not "
+                f"{cfg.num_layers}")
     require(logits.shape == (PREFILL_BATCH, cfg.vocab)
             and bool(torch.isfinite(logits).all()),
             "prefill logits: shape or not finite")
@@ -794,7 +910,8 @@ def lm_path_phase(dev) -> dict:
     params32 = init_params(torch.Generator(dev).manual_seed(1), cfg32)
     reset_launch_counts()
     kern = build_prefill_step(cfg32)(params32, {"tokens": prompts})
-    parity_launches = launch_counts()["flash_attention"]
+    parity_counts = launch_counts()
+    parity_launches = parity_counts["flash_attention"]
     dec, _ = ServingEngine(params32, cfg32, ServeConfig(
         batch_slots=PREFILL_BATCH, max_len=SERVE_MAX_LEN)).prefill(prompts)
     fp32_rel = float((kern - dec).abs().max() / dec.abs().max())
@@ -824,12 +941,15 @@ def lm_path_phase(dev) -> dict:
            "fp32_parity_superblocks": PARITY_SUPERBLOCKS,
            "fp32_parity_rel_err": fp32_rel,
            "fp32_parity_flash_launches": parity_launches,
+           "fp32_parity_tc_launches": parity_counts["flash_attention_tc"],
            "bf16_full_depth_rel_err": bf16_rel,
            "bf16_full_depth_argmax_equal": bf16_argmax}
     print(f"[path] {json.dumps(row)}", flush=True)
     require(parity_launches == PARITY_SUPERBLOCKS,
             f"fp32 parity prefill launched flash_attention "
             f"{parity_launches} times")
+    require(parity_counts["flash_attention_tc"] == 0,
+            "fp32 parity prefill took the tensor-core flash_attention")
     require(fp32_rel <= 1e-4, f"fp32 prefill step against sequential "
             f"decode: {fp32_rel:.3e} of the logits' scale > 1e-4")
     return row
@@ -860,6 +980,12 @@ def main() -> int:
     if info.built:
         print(info.log.rstrip(), flush=True)
     build.library()
+    hgmma = hgmma_counts(info.path)
+    print(f"sass: HGMMA instructions per kernel {json.dumps(hgmma)}",
+          flush=True)
+    tc_kernels = [n for n in hgmma if "flash_sm90_kernel" in n]
+    require(len(tc_kernels) == 2 and all(hgmma[n] > 0 for n in tc_kernels),
+            "cuobjdump finds no HGMMA in the tensor-core flash kernels")
 
     rows = kernel_phase(dev)
 
@@ -879,7 +1005,7 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + row["launches"][k]
         torch.cuda.empty_cache()
     lm = lm_path_phase(dev)
-    launches["flash_attention"] = lm["launches"]["flash_attention"]
+    launches["flash_attention"] = lm["launches"]["flash_attention_tc"]
 
     blas = "src/repro/kernels/hbm_blas/kernel.py"
     sources = {"dilate": ("src/repro_torch/csrc/dilate.cu",
@@ -893,7 +1019,7 @@ def main() -> int:
                                 f"{blas}:48"),
                "gemv": ("src/repro_torch/csrc/hbm_blas.cu", f"{blas}:97"),
                "flash_attention": (
-                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro_torch/csrc/flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": repl, "launches": launches[name],

@@ -28,7 +28,8 @@ COUNTERS = {c.name: c for c in (_dilate_kernel.LAUNCHES,
                                 _hbm_kernel.AXPY_LAUNCHES,
                                 _hbm_kernel.DOT_PARTIALS_LAUNCHES,
                                 _hbm_kernel.GEMV_LAUNCHES,
-                                _flash_kernel.LAUNCHES)}
+                                _flash_kernel.LAUNCHES,
+                                _flash_kernel.TC_LAUNCHES)}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -29,7 +29,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("dilate.cu", "matmul.cu", "knn.cu", "hbm_blas.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_sm90.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,6 +121,7 @@ _SIGNATURES = {
     "repro_dilate_f32": [_VP, _VP, _INT, _INT, _INT, _VP],
     "repro_dilate_smem_bytes": [_INT],
     "repro_matmul_f32": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    "repro_matmul_narrow_f32": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     "repro_knn_f32": [_VP, _VP, _VP, _VP, _VP, _VP,
                       _INT, _INT, _INT, _INT, _INT, _INT, _VP],
     "repro_knn_tile": [],
@@ -131,6 +132,9 @@ _SIGNATURES = {
     "repro_flash_attention": [_INT, _VP, _VP, _VP, _VP, _VP,
                               _INT, _INT, _INT, _INT, _INT, _INT,
                               _F32, _F32, _INT, _INT, _INT, _VP],
+    "repro_flash_attention_sm90": [_VP, _VP, _VP, _VP, _VP, _VP,
+                                   _INT, _INT, _INT, _INT, _INT, _INT,
+                                   _F32, _F32, _INT, _INT, _VP],
 }
 
 

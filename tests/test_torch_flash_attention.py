@@ -1,7 +1,9 @@
 """The port's flash attention op on the CPU (its plain version) against the
 JAX package's ``flash_attention_op`` in interpret mode, on the same numpy
 inputs: every case of ``tests/test_kernels.py``'s flash attention tests,
-fp32 within 2e-5 and bf16 within 2e-2.
+fp32 within 2e-5 and bf16 within 2e-2; the card's feature cases in bf16
+under the gates that hold the CUDA kernels on the card; and the row gate's
+power against a key tile skipped at the prefill step's length.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -11,7 +13,9 @@ import torch
 from repro.kernels.flash_attention.ops import \
     flash_attention_op as jax_flash_attention_op
 from repro_torch.kernels import flash_attention_op, launch_counts
+from repro_torch.kernels.flash_attention import cases
 from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
 
 
 def _qkv(B, H, K, Sq, Sk, d, seed=0):
@@ -80,3 +84,36 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_other_devices():
     meta = [t.to("meta") for t in (q, k, v)]
     with pytest.raises(ValueError, match="no kernel"):
         flash_attention_op(*meta)
+
+
+@pytest.mark.parametrize("shape,kwargs",
+                         [case[1:] for case in cases.FEATURE_CASES],
+                         ids=[case[0] for case in cases.FEATURE_CASES])
+def test_feature_cases_in_bf16_pass_the_card_gates(shape, kwargs):
+    """The JAX kernel rounds p to bf16 where the CUDA kernels do; against
+    the port's plain version (which does not) it passes the gates that
+    hold them on the card: elementwise and row by row."""
+    B, H, K, Sq, Sk = shape
+    jax_out, plain = (torch.from_numpy(a) for a in _both(
+        _qkv(B, H, K, Sq, Sk, 64), jnp.bfloat16, torch.bfloat16, **kwargs))
+    assert cases.excess(jax_out, plain) <= cases.ATOL
+    assert cases.row_rel_err(jax_out, plain) <= cases.ROW_REL_LIMIT
+
+
+@pytest.mark.parametrize("fault", ["skips_first_tile", "skips_diagonal_tile"])
+def test_row_gate_rejects_a_skipped_key_tile(fault):
+    """At the prefill step's length (2048 keys, d = 128, causal, bf16) the
+    last query block's outputs are ~0.02: a key tile dropped from those
+    rows alone fails the row gate by a wide margin."""
+    S, T = 2048, 128
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 2, 1, S, S, 128))
+    want = attention_ref(q, k, v)
+    kk, vv, causal = {
+        "skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
+        "skips_diagonal_tile": (k[:, :, :S - T], v[:, :, :S - T], False),
+    }[fault]
+    bad = want.clone()
+    bad[:, :, S - T:] = attention_ref(q[:, :, S - T:], kk, vv, causal=causal)
+    assert cases.row_rel_err(want, want) == 0.0
+    assert cases.row_rel_err(bad, want) > 10 * cases.ROW_REL_LIMIT

@@ -24,11 +24,14 @@ from repro_torch.kernels import (axpy_op, conv_op, dilate_op, dot_op,
                                  gemv_op, knn_op,
                                  launch_counts, matmul_op,
                                  reset_launch_counts)
+from repro_torch.kernels.flash_attention import cases as flash_cases
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.hbm_blas.ref import (axpy_ref, dot_partials_ref,
                                               gemv_ref)
 from repro_torch.kernels.knn.ref import knn_ref
 from repro_torch.kernels.stencil_dilate.ref import dilate_iters_ref
+from repro_torch.kernels.systolic_matmul.kernel import route as matmul_route
 from repro_torch.kernels.systolic_matmul.ref import (conv_im2col_ref,
                                                      matmul_ref)
 from repro_torch.mem import MemConfig
@@ -62,6 +65,10 @@ def test_dilate_kernel_is_exact(cuda, h, w, iters, br):
 @pytest.mark.parametrize("M,K,N", [
     (1024, 576, 4), (1024, 576, 80), (300, 200, 150), (1, 1, 1),
     (65, 17, 129),
+    # The narrow kernel (N <= 16): N = 1, 4, 16; ragged M; K % 4 != 0
+    # (scalar loads of A).
+    (1024, 576, 1), (1024, 576, 16), (1001, 576, 4), (1024, 575, 4),
+    (37, 1001, 3),
 ])
 def test_matmul_kernel(cuda, M, K, N):
     a, b = _randn(cuda, M, K, seed=1), _randn(cuda, K, N, seed=2)
@@ -69,6 +76,8 @@ def test_matmul_kernel(cuda, M, K, N):
     got = matmul_op(a, b)
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 2e-4 * scale
+    assert matmul_route(M, K, N) == ("narrow" if N <= 16 else "tiled")
+    assert torch.equal(got, matmul_op(a, b))       # deterministic
 
 
 def test_conv_kernel(cuda):
@@ -192,10 +201,13 @@ def test_launch_counters(cuda):
     gemv_op(v, v[:1], block_rows=8)
     gemv_op(v, v[:1], block_rows=8)
     q = _randn(cuda, 1, 2, 8, 16)
-    flash_attention_op(q, q, q)
+    flash_attention_op(q, q, q)                     # the CUDA cores
+    qb = _randn(cuda, 1, 2, 8, 64).bfloat16()
+    flash_attention_op(qb, qb, qb)                  # the tensor cores
     assert launch_counts() == {"dilate": 3, "matmul": 1, "knn": 1,
                                "axpy": 1, "dot_partials": 1, "gemv": 2,
-                               "flash_attention": 1}
+                               "flash_attention": 2,
+                               "flash_attention_tc": 1}
 
 
 HBM_APPS = ["axpy", "dot", "gemv", "axpydot"]
@@ -240,8 +252,6 @@ FLASH_SHAPES = [
     (2, 4, 2, 70, 70, 128),      # unaligned, d = 128
     (1, 4, 4, 33, 90, 8),        # small head dim
 ]
-FLASH_FEATURES = [{}, {"window": 32}, {"softcap": 50.0}, {"causal": False},
-                  {"window": 64, "softcap": 30.0}]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -251,12 +261,35 @@ def _qkv(dev, B, H, K, Sq, Sk, d, dtype, seed=0):
             _randn(dev, B, K, Sk, d, seed=seed + 2).to(dtype))
 
 
+def _max_abs(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
 def _flash_err(q, k, v, **kw):
+    """The kernel's largest error from the plain version.  The call takes
+    the kernel that ``route`` names (read on the counters).  A bf16 call is
+    also held row by row; on the tensor cores, the CUDA-core kernel on the
+    same inputs is held to the same limits, and the tensor cores may lie at
+    most twice its error from the fp32 plain version (both round p and the
+    output at the same places)."""
+    reset_launch_counts()
     got = flash_attention_op(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == q.dtype and got.shape == q.shape
-    return float((got.float() - attention_ref(q, k, v, **kw).float()
-                  ).abs().max())
+    on_tc = flash_kernel.route(q, k, v) == "tensor_core"
+    assert launch_counts()["flash_attention"] == 1
+    assert launch_counts()["flash_attention_tc"] == int(on_tc)
+    want = attention_ref(q, k, v, **kw)
+    if q.dtype == torch.bfloat16:
+        assert flash_cases.row_rel_err(got, want) <= flash_cases.ROW_REL_LIMIT
+    if on_tc:
+        cuda_core = flash_kernel._launch_cuda_core(q, k, v, **kw)
+        assert flash_cases.excess(cuda_core, want) <= flash_cases.ATOL
+        assert flash_cases.row_rel_err(cuda_core, want) <= \
+            flash_cases.ROW_REL_LIMIT
+        exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+        assert _max_abs(got, exact) <= 2 * _max_abs(cuda_core, exact)
+    return _max_abs(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -267,10 +300,17 @@ def test_flash_attention_kernel_shapes(cuda, B, H, K, Sq, Sk, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kwargs", FLASH_FEATURES[1:])
-def test_flash_attention_kernel_features(cuda, kwargs, dtype):
-    assert _flash_err(*_qkv(cuda, 1, 2, 2, 128, 128, 64, dtype),
-                      **kwargs) <= FLASH_TOL[dtype]
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape,kwargs",
+                         [case[1:] for case in flash_cases.FEATURE_CASES],
+                         ids=[case[0] for case in flash_cases.FEATURE_CASES])
+def test_flash_attention_kernel_features(cuda, shape, kwargs, d, dtype):
+    """Every feature case in fp32 (the CUDA cores) and bf16 (the tensor
+    cores, at both of their head dims)."""
+    q, k, v = _qkv(cuda, *shape, d, dtype)
+    assert flash_kernel.route(q, k, v) == \
+        ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
+    assert _flash_err(q, k, v, **kwargs) <= FLASH_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -282,18 +322,23 @@ def test_flash_attention_fully_masked_leading_block(cuda, dtype):
     assert _flash_err(q, k, v, window=3, softcap=5.0) <= FLASH_TOL[dtype]
 
 
-def test_flash_attention_strided_views(cuda):
-    """[B,S,H,d] tensors seen as [B,H,S,d]: read through strides, the output
-    laid out like q; a misaligned view takes the scalar loads."""
-    q = _randn(cuda, 2, 96, 8, 64).transpose(1, 2)
-    k = _randn(cuda, 2, 96, 4, 64, seed=1).transpose(1, 2)
-    v = _randn(cuda, 2, 96, 4, 64, seed=2).transpose(1, 2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_strided_views(cuda, dtype):
+    """[B,S,H,d] tensors seen as [B,H,S,d]: read through strides (bf16 by
+    TMA), the output laid out like q; a misaligned view takes the CUDA
+    cores' scalar loads."""
+    q = _randn(cuda, 2, 96, 8, 64).to(dtype).transpose(1, 2)
+    k = _randn(cuda, 2, 96, 4, 64, seed=1).to(dtype).transpose(1, 2)
+    v = _randn(cuda, 2, 96, 4, 64, seed=2).to(dtype).transpose(1, 2)
+    assert flash_kernel.route(q, k, v) == \
+        ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
     got = flash_attention_op(q, k, v)
     assert got.transpose(1, 2).is_contiguous()
-    assert float((got - attention_ref(q, k, v)).abs().max()) <= 2e-5
-    base = _randn(cuda, 1, 2, 40, 65)
-    qm = base[..., 1:]                       # rows 4 bytes off 16
-    assert _flash_err(qm, qm, qm, window=7) <= 2e-5
+    assert _flash_err(q, k, v) <= FLASH_TOL[dtype]
+    base = _randn(cuda, 1, 2, 40, 65).to(dtype)
+    qm = base[..., 1:]                       # rows 2 or 4 bytes off 16
+    assert flash_kernel.route(qm, qm, qm) == "cuda_core"
+    assert _flash_err(qm, qm, qm, window=7) <= FLASH_TOL[dtype]
 
 
 def test_flash_attention_refuses_what_it_cannot_take(cuda):
@@ -305,6 +350,8 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="H % K"):
         flash_attention_op(q, _randn(cuda, 1, 3, 8, 16),
                            _randn(cuda, 1, 3, 8, 16))
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        flash_kernel._launch_tensor_core(q, q, q)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b"])

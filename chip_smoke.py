@@ -17,9 +17,14 @@ Phases (any failure exits non-zero before the final line):
    dot_partials within ``dot_tol`` (6.5e-9 at a main-path block) of the
    sum of the absolute terms; all three bit for bit equal between the
    whole-array launch with ``block_rows = br`` and the per-shard
-   launches).  Timed beside the plain version, the one-call PyTorch
-   yardstick where one exists, and the bound the card's data-sheet rates
-   give (3.35 TB/s, 67 TFLOP/s fp32).  ``ms``, ``plain_ms`` and
+   launches; gemv's main-path shard on its 16-byte loads).  Timed beside
+   the plain version, the one-call PyTorch yardstick where one exists, and
+   the bound the card's data-sheet rates give (3.35 TB/s, 67 TFLOP/s
+   fp32).  The three BLAS kernels and their calls are timed in 5
+   alternating rounds (kernel, call, kernel, ...): ``ms`` and
+   ``library_ms`` are the medians, each beside its min and max, and
+   ``slower_than_library`` is true only when the kernel's fastest round is
+   slower than the call's slowest.  ``ms``, ``plain_ms`` and
    ``library_ms`` are device times: many calls captured in one CUDA graph
    and replayed between CUDA events, so the host's launch overhead is left
    out.  Each row also carries ``device_kernels``: the mean device time of every
@@ -585,13 +590,29 @@ def dot_tol(n: int) -> float:
     return 64 * 2.0 ** -24 * math.sqrt(math.log2(n) + 1) / math.sqrt(n)
 
 
+def alternating_ms(kernel, library, rounds: int = 5, reps: int = 40) -> dict:
+    """``graph_ms`` of a kernel and of its library call in ``rounds``
+    alternating rounds (kernel, call, kernel, call, ...).  ``ms`` and
+    ``library_ms`` are each one's median, beside its min and max;
+    ``slower_than_library`` says whether the kernel's fastest round is
+    slower than the call's slowest, i.e. slower outside the spread."""
+    k, lib = [], []
+    for _ in range(rounds):
+        k.append(graph_ms(kernel, reps))
+        lib.append(graph_ms(library, reps))
+    return dict(ms=float(np.median(k)), ms_min_max=[min(k), max(k)],
+                library_ms=float(np.median(lib)),
+                library_ms_min_max=[min(lib), max(lib)],
+                slower_than_library=min(k) > max(lib))
+
+
 def blas_kernel_rows(dev, gen) -> dict:
     """axpy, dot_partials and gemv on one shard of the HBM apps' arrays
     (the shard tasks' call) and on the whole array with block_rows = br
     (the reference's call).  Timed calls walk the shards in turn, so each
     finds its operands cold in the 50 MB L2, as a firing does."""
     from repro_torch.kernels.hbm_blas.kernel import (axpy, dot_partials,
-                                                     gemv)
+                                                     gemv, gemv_vector_loads)
     from repro_torch.kernels.hbm_blas.ref import (axpy_ref,
                                                   dot_partials_ref, gemv_ref)
 
@@ -626,14 +647,12 @@ def blas_kernel_rows(dev, gen) -> dict:
     out["axpy"] = dict(
         shape=[br, lanes], max_abs_err=float((whole - want).abs().max()),
         max_ulp=err_ulp, whole_equals_shards=True,
-        ms=graph_ms(lambda i: axpy(a, shard(X, i, br), shard(Y, i, br),
-                                   br), 40),
+        **alternating_ms(
+            lambda i: axpy(a, shard(X, i, br), shard(Y, i, br), br),
+            lambda i: torch.add(shard(Y, i, br), shard(X, i, br), alpha=a)),
         plain_ms=graph_ms(lambda i: axpy_ref(a, shard(X, i, br),
                                              shard(Y, i, br), br), 10),
         bound_ms=b, bound_by=by,
-        library_ms=graph_ms(lambda i: torch.add(shard(Y, i, br),
-                                                shard(X, i, br), alpha=a),
-                            40),
         library="torch.add(y, x, alpha=a)", bytes=nbytes, ops=ops,
         device_kernels=device_kernels(lambda: axpy(a, X[:br], Y[:br], br)))
 
@@ -653,19 +672,20 @@ def blas_kernel_rows(dev, gen) -> dict:
         shape=[br, lanes], max_abs_err=float((whole - want).abs().max()),
         max_rel_err_of_abs_sum=rel, rel_err_limit=dot_tol(n),
         whole_equals_shards=True,
-        ms=graph_ms(lambda i: dot_partials(shard(X, i, br), shard(Y, i, br),
-                                           br), 40),
+        **alternating_ms(
+            lambda i: dot_partials(shard(X, i, br), shard(Y, i, br), br),
+            lambda i: torch.dot(shard(X, i, br).reshape(-1),
+                                shard(Y, i, br).reshape(-1))),
         plain_ms=graph_ms(lambda i: dot_partials_ref(
             shard(X, i, br), shard(Y, i, br), br), 10),
         bound_ms=b, bound_by=by,
-        library_ms=graph_ms(lambda i: torch.dot(
-            shard(X, i, br).reshape(-1), shard(Y, i, br).reshape(-1)), 40),
         library="torch.dot on one block", bytes=nbytes, ops=ops,
         device_kernels=device_kernels(
             lambda: dot_partials(X[:br], Y[:br], br)))
     del X, Y
 
-    # gemv: one thread block per row, its sum independent of M.
+    # gemv: one thread block per row, its sum independent of M; the vector
+    # path on the main path's aligned shards.
     M, N = GEMV_SPEC["rows"], GEMV_SPEC["lanes"]
     gbr = M // S
     A = torch.randn(M, N, device=dev, generator=gen)
@@ -674,6 +694,8 @@ def blas_kernel_rows(dev, gen) -> dict:
     want = gemv_ref(A, xv, gbr)
     rel = sum_err(whole, want, (A * xv).abs().sum(1, keepdim=True))
     require(rel <= 1e-6, f"gemv err {rel:.3e} of sum|A*x|")
+    require(gemv_vector_loads(A[:gbr], xv),
+            "gemv: the main path's shard does not take 16-byte loads")
     require(torch.equal(whole, per_shard(lambda m: gemv(m, xv, gbr), A)),
             "gemv: whole-array launch differs from the shards")
     nbytes, ops = 4 * (gbr * N + N + gbr), 2 * gbr * N
@@ -681,12 +703,12 @@ def blas_kernel_rows(dev, gen) -> dict:
     out["gemv"] = dict(
         shape=[gbr, N], max_abs_err=float((whole - want).abs().max()),
         max_rel_err_of_abs_sum=rel, whole_equals_shards=True,
-        ms=graph_ms(lambda i: gemv(shard(A, i, gbr), xv, gbr), 40),
+        vector_loads=True,
+        **alternating_ms(lambda i: gemv(shard(A, i, gbr), xv, gbr),
+                         lambda i: torch.mv(shard(A, i, gbr), xv[0])),
         plain_ms=graph_ms(lambda i: gemv_ref(shard(A, i, gbr), xv, gbr),
                           10),
         bound_ms=b, bound_by=by,
-        library_ms=graph_ms(lambda i: torch.mv(shard(A, i, gbr), xv[0]),
-                            40),
         library="torch.mv", bytes=nbytes, ops=ops,
         device_kernels=device_kernels(lambda: gemv(A[:gbr], xv, gbr)))
     return out

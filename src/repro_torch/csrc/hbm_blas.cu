@@ -33,11 +33,24 @@
 //   left fold over the warps, written as the chunk's partial.  Pass 2 gives
 //   each row block one warp: lane l adds the block's chunk partials l,
 //   l + 32, ... in index order, then the same fixed butterfly.
-// * gemv: one thread block of kGemvThreads per row.  Thread t takes the
-//   groups of four lanes 4 * (t + j * kGemvThreads) in order, accumulating
-//   A * x with fmaf; then a warp butterfly and a left fold over the warps.
-//   A row's result depends on the row and x only.  x ([1, N], 32 KB on the
-//   main path) is re-read by every row and left to the L1 and L2 caches.
+// * gemv: one thread block of kGemvThreads (8 warps) per row.  Thread t
+//   takes the groups of four lanes 4 * (t + j * kGemvThreads) in order,
+//   accumulating A * x with fmaf; then a warp butterfly and a left fold
+//   over the warps.  A row's result depends on the row, x and N only: not
+//   on M, the grid or the SM count.  On the vector path (the wrapper's
+//   `gemv_vector_loads`: N % 4 == 0, A and x 16-byte aligned) each thread
+//   issues kGemvBatch float4 loads of its row before any FMA (`hold`
+//   keeps the compiler from interleaving them), so at the main path's
+//   N = 8192 a block has its whole 32 KB row in flight at once, and five
+//   blocks fit an SM.  A streams past L1 (`ld.global.nc.L1::no_allocate`),
+//   so x (32 KB, read by every row) stays there; x is loaded after A's
+//   loads are issued.  Otherwise the scalar path takes the same groups in
+//   the same order, four 4-byte loads each.  Measured against the
+//   alternatives (a warp per row with x staged in shared memory; a
+//   persistent grid fed by a TMA bulk-copy ring; persistent blocks; a row
+//   split over 1, 2, 4 or 16 warps; 2 to 16 loads in flight) by
+//   scripts/gemv_variants.py: the fastest that keeps the row's order
+//   fixed (PERF.md).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -48,8 +61,9 @@ constexpr int kDotThreads = 256;
 constexpr int kDotVecPerThread = 8;
 constexpr int kDotChunk = 4 * kDotThreads * kDotVecPerThread;  // 8192
 constexpr int kFoldThreads = 32;
-constexpr int kGemvThreads = 128;
+constexpr int kGemvThreads = 256;
 constexpr int kGemvBatch = 8;
+constexpr int kGemvMinBlocks = 5;  // at most 51 registers: 40 warps an SM
 constexpr int64_t kMaxGrid = 2147483647;
 
 bool aligned16(const void* p) {
@@ -166,46 +180,59 @@ dot_fold_kernel(const float* __restrict__ part, float* __restrict__ out,
   if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
-__global__ void __launch_bounds__(kGemvThreads)
+// A 16-byte load that leaves L1 alone: each element of A is read once.
+__device__ __forceinline__ float4 load_streaming(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0,%1,%2,%3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
+// Pins v here in the instruction stream: nothing that reads it moves above
+// this point, and it stays below the loads issued before it.  Without it
+// the compiler may put each FMA right after its load, leaving one load in
+// flight per thread (measured 10% slower).
+__device__ __forceinline__ void hold(float4& v) {
+  asm volatile("" : "+f"(v.x), "+f"(v.y), "+f"(v.z), "+f"(v.w));
+}
+
+__global__ void __launch_bounds__(kGemvThreads, kGemvMinBlocks)
 gemv_kernel(const float* __restrict__ A, const float* __restrict__ x,
             float* __restrict__ out, int64_t N, bool vec) {
   __shared__ float smem[kGemvThreads / 32];
   const float* a = A + static_cast<int64_t>(blockIdx.x) * N;
+  const int64_t groups = (N + 3) / 4;
   float acc = 0.0f;
-  if (vec) {  // N % 4 == 0
-    const float4* a4 = reinterpret_cast<const float4*>(a);
+  if (vec) {
     const float4* x4 = reinterpret_cast<const float4*>(x);
-    const int64_t n4 = N / 4;
-    // kGemvBatch groups' loads are issued before their FMAs, so that many
-    // loads are in flight; the groups are still taken in index order.
-    for (int64_t g0 = threadIdx.x; g0 < n4;
+    for (int64_t g0 = threadIdx.x; g0 < groups;
          g0 += static_cast<int64_t>(kGemvThreads) * kGemvBatch) {
-      float4 av[kGemvBatch], xv[kGemvBatch];
+      float4 av[kGemvBatch];
 #pragma unroll
       for (int u = 0; u < kGemvBatch; ++u) {
         const int64_t g = g0 + static_cast<int64_t>(u) * kGemvThreads;
-        if (g < n4) {
-          av[u] = a4[g];
-          xv[u] = x4[g];
-        }
+        av[u] = g < groups ? load_streaming(a + 4 * g)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
 #pragma unroll
+      for (int u = 0; u < kGemvBatch; ++u) hold(av[u]);
+#pragma unroll
       for (int u = 0; u < kGemvBatch; ++u) {
         const int64_t g = g0 + static_cast<int64_t>(u) * kGemvThreads;
-        if (g < n4) {
-          acc = fmaf(av[u].x, xv[u].x, acc);
-          acc = fmaf(av[u].y, xv[u].y, acc);
-          acc = fmaf(av[u].z, xv[u].z, acc);
-          acc = fmaf(av[u].w, xv[u].w, acc);
+        if (g < groups) {
+          const float4 xv = __ldg(x4 + g);
+          acc = fmaf(av[u].x, xv.x, acc);
+          acc = fmaf(av[u].y, xv.y, acc);
+          acc = fmaf(av[u].z, xv.z, acc);
+          acc = fmaf(av[u].w, xv.w, acc);
         }
       }
     }
   } else {
-    for (int64_t e = 4 * static_cast<int64_t>(threadIdx.x); e < N;
-         e += 4 * kGemvThreads) {
+    for (int64_t g = threadIdx.x; g < groups; g += kGemvThreads) {
 #pragma unroll
       for (int q = 0; q < 4; ++q)
-        if (e + q < N) acc = fmaf(a[e + q], x[e + q], acc);
+        if (4 * g + q < N) acc = fmaf(a[4 * g + q], x[4 * g + q], acc);
     }
   }
   const float s = block_sum<kGemvThreads / 32>(acc, smem);
@@ -253,12 +280,14 @@ extern "C" int repro_dot_partials_f32(const float* x, const float* y,
 }
 
 // out[r] = sum_j A[r, j] * x[j] for row-major contiguous A [M, N], x [N].
-// Returns the cudaError_t of the launch.
+// vec picks the 16-byte loads (the wrapper's rule); a call whose operands
+// cannot take them is refused.  Returns the cudaError_t of the launch.
 extern "C" int repro_gemv_f32(const float* A, const float* x, float* out,
-                              int M, long long N, void* stream) {
+                              int M, long long N, int vec, void* stream) {
   if (M <= 0 || N <= 0) return cudaErrorInvalidValue;
-  const bool vec = aligned16(A) && aligned16(x) && N % 4 == 0;
+  if (vec && !(aligned16(A) && aligned16(x) && N % 4 == 0))
+    return cudaErrorInvalidValue;
   gemv_kernel<<<M, kGemvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, x, out, N, vec);
+      A, x, out, N, vec != 0);
   return cudaGetLastError();
 }

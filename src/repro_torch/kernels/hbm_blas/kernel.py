@@ -77,6 +77,16 @@ def dot_partials(x: torch.Tensor, y: torch.Tensor,
     return out
 
 
+def gemv_vector_loads(A: torch.Tensor, x: torch.Tensor) -> bool:
+    """Whether the gemv kernel reads A [M, N] and x [1, N] (contiguous fp32)
+    in 16-byte loads: N % 4 == 0 and both start 16-byte aligned, so that
+    every row does.  Otherwise every row takes the scalar path, which sums
+    in the same order.  Reads shapes and pointers only, never M or the
+    device."""
+    return (A.shape[1] % 4 == 0 and A.data_ptr() % 16 == 0
+            and x.data_ptr() % 16 == 0)
+
+
 def gemv(A: torch.Tensor, x: torch.Tensor,
          block_rows: int = 256) -> torch.Tensor:
     """A @ x by rows: A [M, N], x [1, N] fp32 → [M, 1]."""
@@ -91,7 +101,8 @@ def gemv(A: torch.Tensor, x: torch.Tensor,
         return out.zero_()
     lib = build.library()
     err = lib.repro_gemv_f32(A.data_ptr(), x.data_ptr(), out.data_ptr(), M,
-                             N, build.stream_handle(A.device))
+                             N, int(gemv_vector_loads(A, x)),
+                             build.stream_handle(A.device))
     build.check(err, "gemv")
     GEMV_LAUNCHES.count += 1
     return out

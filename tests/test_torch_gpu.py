@@ -27,6 +27,7 @@ from repro_torch.kernels import (axpy_op, conv_op, dilate_op, dot_op,
 from repro_torch.kernels.flash_attention import cases as flash_cases
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.hbm_blas.kernel import gemv_vector_loads
 from repro_torch.kernels.hbm_blas.ref import (axpy_ref, dot_partials_ref,
                                               gemv_ref)
 from repro_torch.kernels.knn.ref import knn_ref
@@ -146,14 +147,31 @@ def test_dot_partials_kernel(cuda, R, C, br):
     assert _sum_err(got, want, terms) <= _dot_tol(br * C)
 
 
-@pytest.mark.parametrize("R,C,br", BLAS_SHAPES[:-2] + [(8192, 8192, 1024)])
-def test_gemv_kernel(cuda, R, C, br):
-    A, x = _randn(cuda, R, C, seed=10), _randn(cuda, 1, C, seed=11)
+# gemv's edges beside the BLAS shapes: the main path; M = 1; M below the
+# SM count; M odd; N = 65536, several batches of loads a thread.
+GEMV_SHAPES = BLAS_SHAPES[:-2] + [(8192, 8192, 1024), (1, 8192, 1),
+                                  (100, 8192, 25), (37, 1000, 37),
+                                  (64, 65536, 16)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("R,C,br", GEMV_SHAPES)
+def test_gemv_kernel(cuda, R, C, br, offset):
+    """Within SUM_REL of the plain version, the whole array equal to its
+    shards bit for bit; ``offset = 1`` puts A 4 bytes past an aligned
+    start (the scalar path), bit for bit equal to its aligned copy."""
+    A = _randn(cuda, R * C + offset, seed=10)[offset:].view(R, C)
+    x = _randn(cuda, 1, C, seed=11)
+    assert gemv_vector_loads(A, x) == (offset == 0 and C % 4 == 0)
     got = gemv_op(A, x, block_rows=br)
     want = gemv_ref(A, x, block_rows=br)
     assert got.shape == want.shape == (R, 1)
     assert _sum_err(got, want, (A * x).abs().sum(1, keepdim=True)) \
         <= SUM_REL
+    assert torch.equal(got, torch.cat([gemv_op(A[i:i + br], x, block_rows=br)
+                                       for i in range(0, R, br)]))
+    if offset:
+        assert torch.equal(got, gemv_op(A.clone(), x, block_rows=br))
 
 
 @pytest.mark.parametrize("op", ["axpy", "dot_partials", "gemv"])

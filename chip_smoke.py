@@ -42,7 +42,11 @@ Phases (any failure exits non-zero before the final line):
    with a bank model (``MemConfig()``, so ``memory_feedback`` runs) and
    executed twice, through the bank model and on the ideal memory path;
    both must equal ``reference()`` bit for bit, with every ``agreement()``
-   value true, and each kernel of the app must launch in each run.
+   value true, and each kernel of the app must launch in each run.  Each
+   path row gives the peak device bytes of its ``execute()`` beside the
+   bytes already allocated when it began (``held_before_bytes``); the
+   cuBLAS workspaces the kernel phase leaves are freed before the first
+   path.
 5. LM serving path: qwen3-4b at its published width and depth (``full()``,
    bf16, weights from ``init_params`` with a seeded generator on the card).
    (a) ``build_prefill_step`` over 4 prompts of 2048 tokens, once to warm
@@ -83,6 +87,8 @@ Prints the ``kernels`` JSON line, then the card line, and last
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import json
 import math
 import subprocess
@@ -161,12 +167,20 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+@functools.cache
+def side_stream() -> torch.cuda.Stream:
+    """The one stream that warms up every graph before its capture.  A new
+    stream per timing would cost a cuBLAS workspace each (32 MiB on the
+    H100), held until the process ends."""
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, reps: int, replays: int = 5) -> float:
     """Mean device time of one call of ``fn``: ``fn(0) .. fn(reps - 1)``
     captured in one CUDA graph, replayed ``replays`` times between CUDA
     events.  The host's launch overhead is left out; ``fn(i)`` may pick
     its operands by ``i`` (so a call can find them cold in L2)."""
-    side = torch.cuda.Stream()
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(2):
@@ -736,11 +750,13 @@ def compile_and_bind(app: str, graph_args: tuple, spec: dict, **options):
 
 
 def timed_execute(design, binding, **kw):
-    """(result, wall s, launches, peak device bytes) of one execute(),
-    with the launch counts zeroed just before it and read just after."""
+    """(result, wall s, launches, peak device bytes, device bytes held
+    before it) of one execute(), with the launch counts zeroed just before
+    it and read just after."""
     from repro_torch.exec import execute
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -748,13 +764,13 @@ def timed_execute(design, binding, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return (result, wall, launch_counts(),
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), held)
 
 
 def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
     graph, design, binding, compile_s, bind_s = compile_and_bind(
         app, graph_args, spec)
-    result, exec_s, launches, peak = timed_execute(design, binding)
+    result, exec_s, launches, peak, held = timed_execute(design, binding)
 
     expected = binding.reference()
     got = result.outputs
@@ -774,7 +790,8 @@ def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
            "compile_s": compile_s, "bind_s": bind_s, "execute_s": exec_s,
            "sweeps": rep.sweeps, "firings": sum(rep.device_fired.values()),
            "measured_inter_bytes": rep.measured_inter_bytes,
-           "peak_device_bytes": peak, "parity_max_err": err,
+           "peak_device_bytes": peak, "held_before_bytes": held,
+           "parity_max_err": err,
            "atol": binding.atol, "agreement": agree,
            "starvation_events": rep.starvation_events,
            "launches": launches,
@@ -794,9 +811,9 @@ def hbm_path_phase(app: str, spec: dict, kernels: tuple) -> dict:
 
     graph, design, binding, compile_s, bind_s = compile_and_bind(
         app, (4,), spec, mem=MemConfig())
-    banked, bank_s, launches, peak = timed_execute(design, binding)
-    ideal, ideal_s, ideal_launches, _ = timed_execute(design, binding,
-                                                      mem=None)
+    banked, bank_s, launches, peak, held = timed_execute(design, binding)
+    ideal, ideal_s, ideal_launches, _, _ = timed_execute(design, binding,
+                                                         mem=None)
     expected = binding.reference()
     out = banked.outputs
     require(out.shape == expected.shape, f"{app} output shape")
@@ -821,7 +838,8 @@ def hbm_path_phase(app: str, spec: dict, kernels: tuple) -> dict:
            "bank_model_s": rep.mem_model_s,
            "projected_max_utilization": fb["max_utilization_after"],
            "remapped": fb["remapped"], "repartitioned": fb["repartitioned"],
-           "peak_device_bytes": peak, "bank_equals_ideal": bank_eq_ideal,
+           "peak_device_bytes": peak, "held_before_bytes": held,
+           "bank_equals_ideal": bank_eq_ideal,
            "bank_equals_reference": bank_eq_ref, "atol": binding.atol,
            "agreement": agree, "ideal_agreement": iagree,
            "starvation_events": rep.starvation_events,
@@ -977,6 +995,21 @@ def lm_path_phase(dev) -> dict:
     return row
 
 
+def release_kernel_phase() -> None:
+    """Frees what the kernel phase leaves allocated, so that no path's peak
+    counts it: cuBLAS keeps a workspace for every stream it ran on.
+    Prints the bytes allocated before and after."""
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    print(f"kernel phase: {before} device bytes still allocated after it, "
+          f"{after} after freeing the cuBLAS workspaces", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1010,6 +1043,7 @@ def main() -> int:
             "cuobjdump finds no HGMMA in the tensor-core flash kernels")
 
     rows = kernel_phase(dev)
+    release_kernel_phase()
 
     paths = [
         path_phase("stencil", STENCIL_SPEC, (4, 64), "dilate"),

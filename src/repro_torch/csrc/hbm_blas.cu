@@ -48,9 +48,8 @@
 //   the same order, four 4-byte loads each.  Measured against the
 //   alternatives (a warp per row with x staged in shared memory; a
 //   persistent grid fed by a TMA bulk-copy ring; persistent blocks; a row
-//   split over 1, 2, 4 or 16 warps; 2 to 16 loads in flight) by
-//   scripts/gemv_variants.py: the fastest that keeps the row's order
-//   fixed (PERF.md).
+//   split over 1, 2, 4 or 16 warps; 2 to 16 loads in flight), it was the
+//   fastest that keeps the row's order fixed (times in PERF.md).
 #include <cstdint>
 #include <cuda_runtime.h>
 

@@ -1,5 +1,4 @@
-"""The gemv kernel's launch rule on the CPU, and the port's gemv against the
-JAX package at the shapes that exercise the kernel's edges.
+"""The gemv kernel's launch rule on the CPU.
 
 The kernel (``csrc/hbm_blas.cu``) gives each row of A one block of 8 warps
 and sums it in a fixed order.  ``gemv_vector_loads(A, x)`` decides whether
@@ -7,21 +6,12 @@ the call reads A and x in 16-byte loads; otherwise every row takes the
 scalar path, which adds the same products in the same order.  The rule
 reads N and the two pointers only, so a row's path, like its sum, never
 depends on M, the row's place in the array or the card: these tests show
-it on CPU tensors, whose pointers answer as the card's would.  The parity
-cases hold the port's plain version to ``jk.gemv_op`` within ``SUM_REL``
-of Σ|A·x| (two fp32 summation orders), as ``tests/test_torch_hbm.py``
-does.
+it on CPU tensors, whose pointers answer as the card's would.
 """
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
-import repro.kernels as jk
-from repro_torch.kernels import gemv_op
 from repro_torch.kernels.hbm_blas.kernel import gemv_vector_loads
-
-SUM_REL = 1e-6
 
 
 def _view(shape, offset_floats=0):
@@ -92,23 +82,3 @@ def test_the_rule_never_asks_the_device(monkeypatch):
     assert gemv_vector_loads(_view((8, 64)), _view((1, 64)))
     assert not gemv_vector_loads(_view((8, 64), 1), _view((1, 64)))
 
-
-def _rand(seed, *shape):
-    return np.random.default_rng(seed).standard_normal(shape,
-                                                       dtype=np.float32)
-
-
-@pytest.mark.parametrize("R,C,br", [
-    (1, 8192, 1),          # M = 1
-    (100, 2048, 25),       # M below the SM count
-    (37, 1000, 37),        # M odd
-    (8, 65536, 4),         # N = 65536: several batches of loads a thread
-    (48, 4099, 16),        # N % 4 != 0: the scalar path
-])
-def test_gemv_edges_match_jax(R, C, br):
-    A, x = _rand(20, R, C), _rand(21, 1, C)
-    want = jk.gemv_op(jnp.asarray(A), jnp.asarray(x), block_rows=br)
-    got = gemv_op(torch.from_numpy(A), torch.from_numpy(x), block_rows=br)
-    assert got.shape == (R, 1) == tuple(np.shape(want))
-    err = np.abs(got.numpy().astype(np.float64) - np.asarray(want))
-    assert float((err.reshape(-1) / np.abs(A * x).sum(1)).max()) <= SUM_REL

@@ -99,7 +99,12 @@ def test_dot_partials_matches_jax(R, C, br):
                     terms.sum()) <= SUM_REL
 
 
-@pytest.mark.parametrize("R,C,br", SHAPES)
+# gemv's edges: M = 1, M below the SM count, M odd, N = 65536, N % 4 != 0.
+GEMV_EDGES = [(1, 8192, 1), (100, 2048, 25), (37, 1000, 37), (8, 65536, 4),
+              (48, 4099, 16)]
+
+
+@pytest.mark.parametrize("R,C,br", SHAPES + GEMV_EDGES)
 def test_gemv_matches_jax(R, C, br):
     A, x = _rand(4, R, C), _rand(5, 1, C)
     want = jk.gemv_op(jnp.asarray(A), jnp.asarray(x), block_rows=br)

@@ -29,8 +29,10 @@ Phases (any failure exits non-zero before the final line):
    and replayed between CUDA events, so the host's launch overhead is left
    out.  Each row also carries ``device_kernels``: the mean device time of every
    ``__global__`` the wrapper launched, from ``torch.profiler`` (knn and
-   dot_partials launch two passes).  KNN's general path (D > 64 or
-   k > 32) is checked too, at small shapes.
+   dot_partials launch two passes); the knn row gives each pass's time as
+   ``pass_ms`` and the bytes of the candidate lists pass 1 writes as
+   ``partial_bytes``, at the shard and on the whole array.  KNN's general
+   path (D > 64 or k > 32) is checked too, at small shapes.
 4. Path: stencil, CNN and KNN each built at the app's own size, compiled
    onto a 4-FPGA ring with the executor smoke's options, and executed
    through ``compile()`` → ``execute()`` on the card.  Checks parity with
@@ -285,10 +287,18 @@ def knn_index_check(q, data, got_i, ref_d, ref_i, tol) -> int:
     return int(bad.sum())
 
 
+def knn_pass_ms(kernels: list) -> dict:
+    """Mean device time of each KNN pass, from ``device_kernels`` rows."""
+    passes = {"knn_range_kernel": "range_pass", "knn_merge_kernel": "merge"}
+    return {label: ms for key, label in passes.items()
+            for name, _, ms in kernels if key in name}
+
+
 # -- phase 3: kernels against their plain versions ---------------------------
 
 def kernel_phase(dev) -> dict:
-    from repro_torch.kernels import conv_op, dilate_op, knn_op, matmul_op
+    from repro_torch.kernels import (build, conv_op, dilate_op, knn_op,
+                                     matmul_op)
     from repro_torch.kernels.knn.ref import knn_ref
     from repro_torch.kernels.stencil_dilate.ref import dilate_ref
     from repro_torch.kernels.systolic_matmul.kernel import route as mm_route
@@ -404,7 +414,7 @@ def kernel_phase(dev) -> dict:
         bad = knn_index_check(gqs, gx, gi, rd, ri, 1e-4)
         require(bad == 0, f"knn general D{gdim} k{gk}: {bad} indices differ")
         general[f"Q{gq} N{gn} D{gdim} k{gk}"] = derr
-    from repro_torch.kernels.knn.kernel import knn
+    from repro_torch.kernels.knn.kernel import knn, partial_bytes
     shard = data[:shard_n]
     ms = graph_ms(lambda i: knn(queries, shard, k), 100)
     plain = graph_ms(lambda i: knn_ref(queries, shard, k), 20)
@@ -420,22 +430,29 @@ def kernel_phase(dev) -> dict:
     b, by = bound(nbytes, ops)
     fb, fops = knn_cost(n)
     b_full, by_full = bound(fb, fops)
+    shard_kernels = device_kernels(lambda: knn(queries, shard, k))
+    full_kernels = device_kernels(lambda: knn(queries, data, k), 5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tile = build.library().repro_knn_tile()
     rows["knn"] = dict(shape=[q, shard_n, dim, k],
                        max_abs_err=checks["shard"][0], ms=ms,
                        plain_ms=plain, bound_ms=b,
                        bound_by=by,
                        library_ms=None, bytes=nbytes, ops=ops,
                        index_diffs_at_ties=checks["shard"][1],
-                       device_kernels=device_kernels(
-                           lambda: knn(queries, shard, k)),
+                       device_kernels=shard_kernels,
+                       pass_ms=knn_pass_ms(shard_kernels),
+                       partial_bytes=partial_bytes(shard_n, q, k, sms, tile),
                        general_path_max_abs_err=general,
                        full=dict(shape=[q, n, dim, k],
                                  max_abs_err=checks["full"][0],
                                  index_diffs_at_ties=checks["full"][1],
                                  ms=ms_full, plain_ms=plain_full,
                                  bound_ms=b_full, bound_by=by_full,
-                                 device_kernels=device_kernels(
-                                     lambda: knn(queries, data, k), 5)))
+                                 device_kernels=full_kernels,
+                                 pass_ms=knn_pass_ms(full_kernels),
+                                 partial_bytes=partial_bytes(n, q, k, sms,
+                                                             tile)))
     rows.update(blas_kernel_rows(dev, gen))
     rows["flash_attention"] = flash_kernel_row(dev, gen)
     for name, row in rows.items():

@@ -21,8 +21,14 @@
 //
 // * axpy: out = fmaf(a, x, y), one rounding, as the reference computes it
 //   (torch's `a * x + y` rounds twice).  Elementwise, so any grid gives the
-//   same bits; each thread takes float4s where the pointers and the length
-//   allow, with a scalar tail.
+//   same bits.  Each block takes one chunk of kAxpyChunk elements: where
+//   the three pointers are 16-byte aligned and n % 4 == 0, each thread
+//   loads kAxpyBatch float4s of x and of y before its first FMA;
+//   otherwise each thread takes 4 * kAxpyBatch scalars.  Measured against
+//   the alternatives (1, 2 or 8 float4s a thread, 128 to 1024 threads a
+//   block, streaming loads or stores, a grid of whole waves with a
+//   grid-stride loop, a scalar tail in the vector kernel, which cost
+//   1.6%), it was the fastest (times in PERF.md).
 // * dot_partials: two passes.  Pass 1 cuts each row block (block_rows * C
 //   contiguous elements) into chunks of kDotChunk elements, a constant of
 //   this file; one thread block of kDotThreads sums one chunk: thread t
@@ -56,6 +62,8 @@
 namespace {
 
 constexpr int kAxpyThreads = 256;
+constexpr int kAxpyBatch = 4;  // float4s of each operand a thread loads
+constexpr int kAxpyChunk = 4 * kAxpyThreads * kAxpyBatch;  // elements
 constexpr int kDotThreads = 256;
 constexpr int kDotVecPerThread = 8;
 constexpr int kDotChunk = 4 * kDotThreads * kDotVecPerThread;  // 8192
@@ -89,32 +97,45 @@ __device__ __forceinline__ float block_sum(float v, float* smem) {
   return s;
 }
 
+// Block b takes elements [b * kAxpyChunk, (b + 1) * kAxpyChunk).
 __global__ void __launch_bounds__(kAxpyThreads)
 axpy_kernel(float a, const float* __restrict__ x,
             const float* __restrict__ y, float* __restrict__ out,
             int64_t n, bool vec) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  int64_t done = 0;
-  if (vec) {
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kAxpyChunk;
+  if (vec) {  // n % 4 == 0
     const int64_t n4 = n / 4;
     const float4* x4 = reinterpret_cast<const float4*>(x);
     const float4* y4 = reinterpret_cast<const float4*>(y);
     float4* o4 = reinterpret_cast<float4*>(out);
-    for (int64_t i = tid; i < n4; i += stride) {
-      const float4 xv = x4[i], yv = y4[i];
-      float4 r;
-      r.x = fmaf(a, xv.x, yv.x);
-      r.y = fmaf(a, xv.y, yv.y);
-      r.z = fmaf(a, xv.z, yv.z);
-      r.w = fmaf(a, xv.w, yv.w);
-      o4[i] = r;
+    float4 xv[kAxpyBatch], yv[kAxpyBatch];
+#pragma unroll
+    for (int u = 0; u < kAxpyBatch; ++u) {
+      const int64_t i = c0 / 4 + u * kAxpyThreads + threadIdx.x;
+      if (i < n4) {
+        xv[u] = x4[i];
+        yv[u] = y4[i];
+      }
     }
-    done = n4 * 4;
+#pragma unroll
+    for (int u = 0; u < kAxpyBatch; ++u) {
+      const int64_t i = c0 / 4 + u * kAxpyThreads + threadIdx.x;
+      if (i < n4) {
+        float4 r;
+        r.x = fmaf(a, xv[u].x, yv[u].x);
+        r.y = fmaf(a, xv[u].y, yv[u].y);
+        r.z = fmaf(a, xv[u].z, yv[u].z);
+        r.w = fmaf(a, xv[u].w, yv[u].w);
+        o4[i] = r;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4 * kAxpyBatch; ++u) {
+      const int64_t i = c0 + u * kAxpyThreads + threadIdx.x;
+      if (i < n) out[i] = fmaf(a, x[i], y[i]);
+    }
   }
-  for (int64_t i = done + tid; i < n; i += stride)
-    out[i] = fmaf(a, x[i], y[i]);
 }
 
 // Pass 1: one partial per (row block, chunk), at part[g] for the flat
@@ -245,10 +266,10 @@ gemv_kernel(const float* __restrict__ A, const float* __restrict__ x,
 extern "C" int repro_axpy_f32(float a, const float* x, const float* y,
                               float* out, long long n, void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
-  const bool vec = aligned16(x) && aligned16(y) && aligned16(out);
-  const int64_t work = vec ? (n / 4 > 0 ? n / 4 : n) : n;
-  int64_t blocks = (work + kAxpyThreads - 1) / kAxpyThreads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // grid-stride beyond this
+  const bool vec =
+      aligned16(x) && aligned16(y) && aligned16(out) && n % 4 == 0;
+  const int64_t blocks = (n + kAxpyChunk - 1) / kAxpyChunk;
+  if (blocks > kMaxGrid) return cudaErrorInvalidConfiguration;
   axpy_kernel<<<static_cast<unsigned>(blocks), kAxpyThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(a, x, y, out, n, vec);
   return cudaGetLastError();

@@ -13,17 +13,26 @@ from .. import build
 #: Launches of the CUDA kernel (one per call: its two passes together).
 LAUNCHES = build.LaunchCounter("knn")
 #: Pass-1 thread blocks per SM that the range split aims for.
-BLOCKS_PER_SM = 4
+BLOCKS_PER_SM = 1
+#: Queries a pass-1 block takes at D <= 16 and k <= 16 (``kWarps * kQT``
+#: in ``csrc/knn.cu``).
+QUERIES_PER_BLOCK = 32
 
 
 def split_ranges(n: int, q: int, sm_count: int, tile: int) -> Tuple[int, int]:
-    """(points per block, blocks): contiguous ranges of whole ``tile``s,
-    about ``BLOCKS_PER_SM`` blocks per SM over all query blocks."""
+    """(points per block, ranges): contiguous ranges of whole ``tile``s,
+    about ``BLOCKS_PER_SM`` pass-1 blocks per SM over all query blocks."""
     tiles = -(-n // tile)
-    qblocks = -(-q // 128)
+    qblocks = -(-q // QUERIES_PER_BLOCK)
     target = max(1, BLOCKS_PER_SM * sm_count // qblocks)
     per_block = -(-tiles // target) * tile
     return per_block, -(-n // per_block)
+
+
+def partial_bytes(n: int, q: int, k: int, sm_count: int, tile: int) -> int:
+    """Bytes of the per-range candidate lists pass 1 writes and pass 2
+    reads: one (fp32, int32) list of k per (query, range)."""
+    return split_ranges(n, q, sm_count, tile)[1] * q * k * 8
 
 
 def knn(queries: torch.Tensor, data: torch.Tensor, k: int
@@ -53,8 +62,8 @@ def knn(queries: torch.Tensor, data: torch.Tensor, k: int
         return out_d, out_i
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_block, nblk = split_ranges(N, Q, sms, lib.repro_knn_tile())
-    part_d = torch.empty((nblk, Q, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((nblk, Q, k), dtype=torch.int32, device=dev)
+    part_d = torch.empty(nblk * Q * k, dtype=torch.float32, device=dev)
+    part_i = torch.empty(nblk * Q * k, dtype=torch.int32, device=dev)
     err = lib.repro_knn_f32(queries.data_ptr(), data.data_ptr(),
                             part_d.data_ptr(), part_i.data_ptr(),
                             out_d.data_ptr(), out_i.data_ptr(),

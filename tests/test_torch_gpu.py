@@ -16,10 +16,11 @@ import pytest
 import torch
 
 from repro_torch.apps import APPS
+from repro_torch.apps import knn as knn_app
 from repro_torch.compiler import CompileOptions, compile
 from repro_torch.core import fpga_ring_cluster
 from repro_torch.exec import bind_programs, execute
-from repro_torch.kernels import (axpy_op, conv_op, dilate_op, dot_op,
+from repro_torch.kernels import (axpy_op, build, conv_op, dilate_op, dot_op,
                                  dot_partials_op, flash_attention_op,
                                  gemv_op, knn_op,
                                  launch_counts, matmul_op,
@@ -30,6 +31,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.hbm_blas.kernel import gemv_vector_loads
 from repro_torch.kernels.hbm_blas.ref import (axpy_ref, dot_partials_ref,
                                               gemv_ref)
+from repro_torch.kernels.knn.kernel import split_ranges
 from repro_torch.kernels.knn.ref import knn_ref
 from repro_torch.kernels.stencil_dilate.ref import dilate_iters_ref
 from repro_torch.kernels.systolic_matmul.kernel import route as matmul_route
@@ -86,20 +88,64 @@ def test_conv_kernel(cuda):
     assert float((conv_op(x, w) - conv_im2col_ref(x, w)).abs().max()) <= 2e-4
 
 
-@pytest.mark.parametrize("Q,N,D,k", [
-    (128, 55_556, 16, 10), (33, 999, 32, 10), (200, 5000, 8, 20),
-    (1, 10, 64, 10), (130, 300, 3, 1),
+@pytest.mark.parametrize("Q,N,D,k,row0", [
+    (128, 55_556, 16, 10, 0), (33, 999, 32, 10, 0), (200, 5000, 8, 20, 0),
+    (1, 10, 64, 10, 0), (130, 300, 3, 1, 0),
+    # the range geometry's edges: N not a multiple of the 256-point range
+    # granule nor of a tile; Q = 1; Q not a multiple of the 32 queries of
+    # a block; k = N at the list's full length; a shard view with D = 3 at
+    # a row offset (rows 12 bytes apart: 4-byte copies)
+    (64, 40_007, 16, 10, 0), (1, 5000, 16, 10, 0), (100, 3000, 16, 10, 0),
+    (7, 16, 16, 16, 0), (45, 32, 32, 32, 0), (50, 4099, 3, 10, 1),
     # the general path: D > 64 or k > 32
-    (130, 20_000, 128, 10), (64, 5000, 16, 64), (33, 3000, 100, 40),
-    (5, 100, 65, 33), (3, 40, 1, 40),
+    (130, 20_000, 128, 10, 0), (64, 5000, 16, 64, 0), (33, 3000, 100, 40, 0),
+    (5, 100, 65, 33, 0), (3, 40, 1, 40, 0),
 ])
-def test_knn_kernel(cuda, Q, N, D, k):
-    q, x = _randn(cuda, Q, D, seed=4), _randn(cuda, N, D, seed=5)
+def test_knn_kernel(cuda, Q, N, D, k, row0):
+    q = _randn(cuda, Q, D, seed=4)
+    x = _randn(cuda, N + row0, D, seed=5)[row0:]
     gd, gi = knn_op(q, x, k)
     rd, ri = knn_ref(q, x, k)
     assert gi.dtype == torch.int32
     assert float((gd - rd).abs().max()) <= 1e-4
     assert torch.equal(gi, ri)
+
+
+@pytest.mark.parametrize("data", ["random", "integer_ties"])
+def test_knn_shards_merge_to_the_whole(cuda, data):
+    """The op on S contiguous views, each view's offset added, merged by
+    the app's ``_merge_topk``, equals one call on the whole array bit for
+    bit: a pair's distance does not depend on the range split.  The
+    integer-valued data put exact ties everywhere, and copies of the rows
+    at every range and shard boundary make equal points cross blocks."""
+    N, D, Q, k, S = 60_000, 16, 128, 10, 7
+    rng = np.random.default_rng(17)
+    if data == "random":
+        xn = rng.standard_normal((N, D), dtype=np.float32)
+        qn = rng.standard_normal((Q, D), dtype=np.float32)
+    else:
+        xn = rng.integers(-2, 3, (N, D)).astype(np.float32)
+        qn = rng.integers(-2, 3, (Q, D)).astype(np.float32)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        tile = build.library().repro_knn_tile()
+        per_block, _ = split_ranges(N, Q, sms, tile)
+        cuts = list(range(per_block, N, per_block)) + [
+            int(c) for c in np.linspace(0, N, S + 1)[1:-1]]
+        for c in cuts:
+            xn[c - 2:c + 2] = xn[c]
+    x, q = torch.from_numpy(xn).to(cuda), torch.from_numpy(qn).to(cuda)
+    wd, wi = knn_op(q, x, k)
+    bounds = np.linspace(0, N, S + 1).astype(int)
+    parts = []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        d, i = knn_op(q, x[lo:hi], k)
+        parts.append((d, i + int(lo)))
+    md, mi = knn_app._merge_topk(parts, k)
+    assert torch.equal(md, wd) and torch.equal(mi, wi)
+    rd, ri = knn_ref(q, x, k)
+    assert float((wd - rd).abs().max()) <= 1e-4
+    if data == "integer_ties":
+        assert torch.equal(wd, rd) and torch.equal(wi, ri)
 
 
 def test_knn_kernel_ties_go_to_the_lower_index(cuda):
@@ -111,10 +157,12 @@ def test_knn_kernel_ties_go_to_the_lower_index(cuda):
     assert torch.equal(gi, ri)
 
 
-# The BLAS shapes: ragged ones, a shard of the main path ([65536, 128],
-# gemv [1024, 8192]) and the whole main-path array with block_rows = br.
+# The BLAS shapes: ragged ones (n % 4 != 0; n = 3 and 14, under one axpy
+# thread's 16 elements), a shard of the main path ([65536, 128], gemv
+# [1024, 8192]) and the whole main-path array with block_rows = br.
 BLAS_SHAPES = [(16, 128, 4), (37, 53, 37), (100, 7, 25), (3, 1, 1),
-               (65, 4099, 13), (65536, 128, 65536), (524288, 128, 65536)]
+               (2, 7, 1), (65, 4099, 13), (65536, 128, 65536),
+               (524288, 128, 65536)]
 SUM_REL = 1e-6     # gemv, of Σ|terms|: two fp32 summation orders
 
 
@@ -174,19 +222,25 @@ def test_gemv_kernel(cuda, R, C, br, offset):
         assert torch.equal(got, gemv_op(A.clone(), x, block_rows=br))
 
 
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("op", ["axpy", "dot_partials", "gemv"])
 @pytest.mark.parametrize("R,C,br", [(96, 40, 24), (48, 4099, 16),
-                                    (524288, 128, 65536)])
-def test_blas_whole_array_equals_shards(cuda, op, R, C, br):
+                                    (6, 7, 2), (524288, 128, 65536)])
+def test_blas_whole_array_equals_shards(cuda, op, R, C, br, offset):
     """Bit for bit: the op over the whole array with block_rows = br and
-    the op over each [br, C] shard, views and copies alike."""
-    x, y = _randn(cuda, R, C, seed=12), _randn(cuda, R, C, seed=13)
+    the op over each [br, C] shard, views and copies alike; ``offset = 1``
+    puts x 4 bytes past an aligned start (scalar loads).  axpy is also
+    exact against its plain version there."""
+    x = _randn(cuda, R * C + offset, seed=12)[offset:].view(R, C)
+    y = _randn(cuda, R, C, seed=13)
     vec = _randn(cuda, 1, C, seed=14)
     calls = {"axpy": lambda a, b: axpy_op(1.5, a, b, block_rows=br),
              "dot_partials": lambda a, b: dot_partials_op(a, b,
                                                           block_rows=br),
              "gemv": lambda a, b: gemv_op(a, vec, block_rows=br)}
     whole = calls[op](x, y)
+    if op == "axpy":
+        assert torch.equal(whole, axpy_ref(1.5, x, y, block_rows=br))
     for copy in (False, True):
         parts = [(x[i:i + br], y[i:i + br]) for i in range(0, R, br)]
         if copy:

@@ -13,7 +13,7 @@ from repro.apps.knn import _merge_topk as jax_merge_topk
 from repro.exec import execute as jax_execute
 from repro_torch.apps import knn
 from repro_torch.kernels import knn_op
-from repro_torch.kernels.knn.kernel import split_ranges
+from repro_torch.kernels.knn.kernel import partial_bytes, split_ranges
 from repro_torch.kernels.knn.ref import knn_ref
 
 from _torch_parity import channel_bytes, designs, max_abs
@@ -68,13 +68,26 @@ def test_merge_topk_matches_jax():
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
 
 
+# tile 256 is the kernel's range granule (``repro_knn_tile()``).
 @pytest.mark.parametrize("n,q,sms,tile", [
-    (55_556, 128, 132, 128), (4_000_000, 128, 132, 128), (100, 300, 132, 128),
+    (55_556, 128, 132, 256), (4_000_000, 128, 132, 256),
+    (100, 300, 132, 256), (55_556, 128, 132, 1024),
+    (4_000_000, 128, 132, 1024), (100, 300, 132, 1024), (1, 1, 132, 256),
+    (256, 33, 132, 256), (257, 128, 132, 256), (40_007, 64, 132, 256),
+    (10**7, 1, 132, 256), (5000, 4096, 8, 256),
 ])
 def test_split_ranges_cover_every_point(n, q, sms, tile):
+    """Every point falls in exactly one range, the ranges are whole tiles,
+    and the partial lists stay below the data's bytes at D 16 and k 10
+    (the main path's shard, 55,556 x 16: 3.56 MB; the 4 M points)."""
     per_block, nblk = split_ranges(n, q, sms, tile)
     assert per_block % tile == 0
     assert per_block * (nblk - 1) < n <= per_block * nblk
+    counts = np.bincount(np.arange(n) // per_block)
+    assert len(counts) == nblk and (counts > 0).all() and counts.sum() == n
+    if n >= 55_556:
+        assert partial_bytes(n, q, 10, sms, tile) < n * 16 * 4
+    assert partial_bytes(n, q, 10, sms, tile) == nblk * q * 10 * 8
 
 
 @pytest.mark.parametrize("ndev", [2, 4])

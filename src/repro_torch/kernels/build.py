@@ -119,7 +119,6 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _I64, _F32 = ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "repro_dilate_f32": [_VP, _VP, _INT, _INT, _INT, _VP],
-    "repro_dilate_smem_bytes": [_INT],
     "repro_matmul_f32": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
     "repro_matmul_narrow_f32": [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     "repro_knn_f32": [_VP, _VP, _VP, _VP, _VP, _VP,

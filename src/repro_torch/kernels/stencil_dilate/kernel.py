@@ -8,7 +8,9 @@ import torch
 
 from .. import build
 
-DEFAULT_BLOCK_ROWS = 256
+#: Strip height a warp walks down: the stencil app's value, the fastest of
+#: the heights timed at [4096, 4096] on the H100 (see PERF.md).
+DEFAULT_BLOCK_ROWS = 128
 #: Launches of the CUDA kernel (one per dilation pass).
 LAUNCHES = build.LaunchCounter("dilate")
 
@@ -18,7 +20,9 @@ def dilate(img: torch.Tensor, out: torch.Tensor,
     """One dilation pass ``img`` → ``out`` on ``img``'s CUDA device.
 
     ``img`` and ``out`` are distinct contiguous fp32 ``[H, W]`` tensors;
-    ``block_rows`` is the height of the tile each thread block computes.
+    ``block_rows`` is the height of the strip each warp walks down (it
+    reads ``block_rows + 4`` rows of 128 columns).  The maximum is JAX's:
+    NaN propagates and -0.0 lies below +0.0.
     """
     if img.device.type != "cuda" or out.device != img.device:
         raise ValueError("dilate: img and out must be on one CUDA device")

@@ -15,7 +15,8 @@ from .ref import dilate_iters_ref, dilate_ref
 def dilate_op(img: torch.Tensor, iters: int = 1,
               block_rows: int = DEFAULT_BLOCK_ROWS) -> torch.Tensor:
     """``iters`` dilation passes over ``img`` [H, W] (``img`` is not
-    modified).  ``block_rows`` is the kernel's tile height."""
+    modified).  ``block_rows`` is the height of the strip each warp of
+    the kernel walks down."""
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
     if img.device.type == "cpu":

@@ -33,7 +33,11 @@ from repro_torch.kernels.hbm_blas.ref import (axpy_ref, dot_partials_ref,
                                               gemv_ref)
 from repro_torch.kernels.knn.kernel import split_ranges
 from repro_torch.kernels.knn.ref import knn_ref
-from repro_torch.kernels.stencil_dilate.ref import dilate_iters_ref
+from repro_torch.kernels.stencil_dilate.images import KINDS, dilate_image
+from repro_torch.kernels.stencil_dilate.kernel import dilate
+from repro_torch.kernels.stencil_dilate.ref import (bit_mismatches,
+                                                    dilate_iters_ref,
+                                                    dilate_ref)
 from repro_torch.kernels.systolic_matmul.kernel import route as matmul_route
 from repro_torch.kernels.systolic_matmul.ref import (conv_im2col_ref,
                                                      matmul_ref)
@@ -62,7 +66,53 @@ def _randn(dev, *shape, seed=0):
 def test_dilate_kernel_is_exact(cuda, h, w, iters, br):
     img = _randn(cuda, h, w)
     got = dilate_op(img, iters=iters, block_rows=br)
-    assert torch.equal(got, dilate_iters_ref(img, iters))
+    assert bit_mismatches(got, dilate_iters_ref(img, iters)) == 0
+
+
+# The dilate kernel against its plain version, bit for bit (NaN where both
+# are NaN): the main path's shape and tile height; widths that are not a
+# multiple of 4 (the 4-byte path) and ragged heights; 1 x 1; every tile
+# height the wrapper takes at its edges; each on every image kind.
+DILATE_SHAPES = [
+    (4096, 4096, 128), (37, 53, 37), (130, 1031, 16), (5, 6, 1), (1, 1, 128),
+    (300, 260, 1), (300, 260, 16), (300, 260, 37), (300, 260, 128),
+    (300, 260, 256), (300, 260, 1024), (1030, 516, 1024), (64, 4096, 37),
+]
+
+
+@pytest.mark.parametrize("kind", ["normal", *KINDS])
+@pytest.mark.parametrize("h,w,br", DILATE_SHAPES)
+def test_dilate_kernel_bits(cuda, h, w, br, kind):
+    if kind == "normal":
+        img = _randn(cuda, h, w, seed=h + w)
+    else:
+        img = torch.from_numpy(dilate_image(kind, h, w, seed=h + w)).to(cuda)
+    got = dilate_op(img, iters=1, block_rows=br)
+    assert bit_mismatches(got, dilate_ref(img)) == 0
+    got2 = dilate_op(img, iters=2, block_rows=br)
+    assert bit_mismatches(got2, dilate_iters_ref(img, 2)) == 0
+
+
+@pytest.mark.parametrize("kind", ["specials", "zero_checkerboard"])
+@pytest.mark.parametrize("h,w", [(37, 53), (64, 96), (33, 128)])
+def test_dilate_kernel_bits_on_unaligned_views(cuda, h, w, kind):
+    """Images that are ``unbind(0)`` views of one [2, h, w] tensor, as the
+    stencil app hands them over (the second is 16-byte aligned only when
+    h * w % 4 == 0), and views one float past an aligned start, in and
+    out: the 4-byte path must give the same bits."""
+    imgs = torch.from_numpy(np.stack([
+        dilate_image(kind, h, w, seed=s) for s in range(2)])).to(cuda)
+    for img in imgs.unbind(0):
+        assert bit_mismatches(dilate_op(img, iters=2, block_rows=16),
+                              dilate_iters_ref(img, 2)) == 0
+    src = torch.empty(h * w + 1, device=cuda)[1:].view(h, w)
+    src.copy_(imgs[0])
+    dst = torch.empty(h * w + 1, device=cuda)[1:].view(h, w)
+    dilate(src, dst, block_rows=37)
+    assert bit_mismatches(dst, dilate_ref(imgs[0])) == 0
+    aligned_dst = torch.empty_like(imgs[0])
+    dilate(imgs[0], aligned_dst, block_rows=37)
+    assert bit_mismatches(aligned_dst, dst) == 0
 
 
 @pytest.mark.parametrize("M,K,N", [

@@ -50,7 +50,16 @@ Phases (any failure exits non-zero before the final line):
    path row gives the peak device bytes of its ``execute()`` beside the
    bytes already allocated when it began (``held_before_bytes``); the
    cuBLAS workspaces the kernel phase leaves are freed before the first
-   path.
+   path.  PageRank (no TPU kernel; fixed-order segment sums in PyTorch)
+   runs ``build_graph(4)`` on cit-Patents' node and edge counts, drawn
+   from the seed, for 20 iterations: executed twice on the ideal path
+   (the two runs must give the same bits; the rank is held to
+   ``reference()`` within 1e-5 of its largest value, and its L1 error is
+   printed; the segment sums' device time of a third run comes from
+   ``torch.profiler``), then compiled with the ring's fabric (so
+   ``congestion_feedback`` runs) and executed through the flit transport,
+   which must give the ideal path's bits with every ``agreement()`` value
+   true and per-link bytes equal to the hop-weighted cut-set bytes.
 5. LM serving path: qwen3-4b at its published width and depth (``full()``,
    bf16, weights from ``init_params`` with a seeded generator on the card).
    (a) ``build_prefill_step`` over 4 prompts of 2048 tokens, once to warm
@@ -119,6 +128,11 @@ CNN_SPEC = {"h": 32, "w": 32, "cin": 64, "cout_per_col": 4, "streams": 32,
             "seed": 0}
 KNN_SPEC = {"n": 4_000_000, "dim": 16, "q": 128, "k": 10, "streams": 2,
             "seed": 0}
+# PageRank on the node and edge counts of DATASETS["cit-Patents"] (drawn
+# from the seed; nothing is downloaded), for the model's ITERS = 20.
+PAGERANK_SPEC = {"n_nodes": 3_774_768, "n_edges": 16_518_948, "iters": 20,
+                 "seed": 0}
+PAGERANK_REL_TOL = 1e-5
 # The HBM apps at their graphs' modelled width: N_FULL = 2^26 fp32 per
 # vector as [524288, 128]; gemv's M_FULL^2 matrix as [8192, 8192].  Three
 # firings each on a 4-FPGA ring: 8 shards, br = 65536 rows (gemv 1024).
@@ -791,7 +805,7 @@ def timed_execute(design, binding, **kw):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    result = execute(design, binding, fabric=None, **kw)
+    result = execute(design, binding, **{"fabric": None, **kw})
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return (result, wall, launch_counts(),
@@ -834,6 +848,124 @@ def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
     require(launches[kernel] > 0,
             f"{app}: kernel {kernel} never launched during execute")
     return row
+
+
+def segment_sum_ms(fn) -> dict:
+    """Device time of one call of ``fn`` from ``torch.profiler``: the sum
+    over every kernel, and over the kernels of ``torch.segment_reduce``
+    (named ``*egment*``), with the top kernels as ``[name, count, ms]``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(([e.key, e.count, e.device_time_total / 1e3]
+                   for e in prof.key_averages()
+                   if e.count and e.device_time_total > 0),
+                  key=lambda r: -r[2])
+    seg = [r for r in rows if "egment" in r[0]]
+    return {"device_ms": sum(r[2] for r in rows),
+            "segment_sum_ms": sum(r[2] for r in seg),
+            "segment_sum_launches": sum(r[1] for r in seg),
+            "top": [[r[0][:90], r[1], r[2]] for r in rows[:6]]}
+
+
+def pagerank_path_phase() -> tuple:
+    """PageRank at cit-Patents' size: the ideal path twice (same bits),
+    the reference, the segment sums' device time; then the same binding
+    through the ring's fabric.  Returns both rows."""
+    from repro_torch.apps import APPS
+    from repro_torch.compiler import CompileOptions, compile
+    from repro_torch.core import fpga_ring_cluster
+    from repro_torch.exec import execute
+    from repro_torch.net import cluster_fabric
+
+    spec = PAGERANK_SPEC
+    graph, design, binding, compile_s, bind_s = compile_and_bind(
+        "pagerank", (4,), spec)
+    first, exec_s, launches, peak, held = timed_execute(design, binding)
+    second, exec2_s, _, _, _ = timed_execute(design, binding)
+    t0 = time.perf_counter()
+    expected = binding.reference()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    got = first.outputs
+    require(got.shape == expected.shape == (spec["n_nodes"],),
+            "pagerank output shape")
+    require(bool(torch.isfinite(got).all()), "pagerank output not finite")
+    same_bits = torch.equal(got.view(torch.int32),
+                            second.outputs.view(torch.int32))
+    diff = (got.double() - expected.double()).abs()
+    err = float(diff.max())
+    rel = err / float(expected.abs().max())
+    l1 = float(diff.sum() / expected.double().abs().sum())
+    prof = segment_sum_ms(lambda: execute(design, binding, fabric=None))
+    rep = first.report
+    agree = rep.agreement()
+    row = {"app": "pagerank", "graph": graph.name, "tasks": len(graph.tasks),
+           "n_nodes": spec["n_nodes"], "n_edges": spec["n_edges"],
+           "iters": spec["iters"], "compile_s": compile_s, "bind_s": bind_s,
+           "execute_s": exec_s, "second_execute_s": exec2_s,
+           "reference_s": ref_s, "sweeps": rep.sweeps,
+           "firings": sum(rep.device_fired.values()),
+           "measured_inter_bytes": rep.measured_inter_bytes,
+           "peak_device_bytes": peak, "held_before_bytes": held,
+           "parity_max_err": err, "max_reference": float(expected.max()),
+           "rel_err": rel, "l1_rel_err": l1, "rel_tol": PAGERANK_REL_TOL,
+           "same_bits_twice": same_bits, "agreement": agree,
+           "starvation_events": rep.starvation_events,
+           "launches": launches, **prof,
+           "partition": design.partition.stats.method}
+    print(f"[path] {json.dumps(row)}", flush=True)
+    require(rel <= PAGERANK_REL_TOL,
+            f"pagerank: error {rel:.3e} of the largest rank > "
+            f"{PAGERANK_REL_TOL}")
+    require(same_bits, "pagerank: two runs gave different bits")
+    require(all(agree.values()), f"pagerank: agreement {agree}")
+    require(not rep.starvation_events, "pagerank: starvation")
+    require(prof["segment_sum_ms"] > 0,
+            "pagerank: the profiler saw no segment_reduce kernel")
+    del second, expected, diff
+
+    cluster = fpga_ring_cluster(4)
+    fgraph = APPS["pagerank"].build_graph(4)
+    t0 = time.perf_counter()
+    fdesign = compile(fgraph, cluster, CompileOptions(
+        **SMOKE_OPTIONS, fabric=cluster_fabric(cluster)))
+    fcompile_s = time.perf_counter() - t0
+    fab, fab_s, flaunches, fpeak, fheld = timed_execute(
+        fdesign, binding, fabric=fdesign.fabric)
+    frep = fab.report
+    fagree = frep.agreement()
+    fb = fdesign.pass_record("congestion_feedback").detail
+    fab_bits = torch.equal(fab.outputs.view(torch.int32),
+                           got.view(torch.int32))
+    frow = {"app": "pagerank-fabric", "graph": fgraph.name,
+            "tasks": len(fgraph.tasks), "compile_s": fcompile_s,
+            "execute_s": fab_s, "ideal_execute_s": exec_s,
+            "transport_s": frep.net_model_s, "sweeps": frep.sweeps,
+            "ideal_sweeps": rep.sweeps,
+            "firings": sum(frep.device_fired.values()),
+            "measured_inter_bytes": frep.measured_inter_bytes,
+            "net_link_bytes": frep.net_link_bytes,
+            "net_hop_weighted_bytes": frep.net_hop_weighted_bytes,
+            "max_link_utilization": frep.congestion.max_utilization,
+            "congestion_waits": sum(frep.task_congestion_waits.values()),
+            "projected_max_utilization": fb["max_utilization_after"],
+            "repartitioned": fb["repartitioned"],
+            "peak_device_bytes": fpeak, "held_before_bytes": fheld,
+            "equals_ideal_bits": fab_bits, "agreement": fagree,
+            "starvation_events": frep.starvation_events,
+            "launches": flaunches,
+            "partition": fdesign.partition.stats.method}
+    print(f"[path] {json.dumps(frow)}", flush=True)
+    require(fab_bits, "pagerank-fabric: outputs differ from the ideal path")
+    require(all(fagree.values()) and fagree.get("link_conservation"),
+            f"pagerank-fabric: agreement {fagree}")
+    require(frep.net_link_bytes == frep.net_hop_weighted_bytes > 0,
+            "pagerank-fabric: link bytes differ from hop-weighted bytes")
+    require(not frep.starvation_events, "pagerank-fabric: starvation")
+    return row, frow
 
 
 def hbm_path_phase(app: str, spec: dict, kernels: tuple) -> dict:
@@ -1083,6 +1215,8 @@ def main() -> int:
     ]
     launches = {k: p["launches"][k]
                 for p, k in zip(paths, ("dilate", "matmul", "knn"))}
+    pagerank_path_phase()
+    torch.cuda.empty_cache()
     for app, spec, ks in (("axpy", VEC_SPEC, ("axpy",)),
                           ("dot", VEC_SPEC, ("dot_partials",)),
                           ("gemv", GEMV_SPEC, ("gemv",)),

@@ -56,7 +56,7 @@ Passes
     :class:`~repro.core.PipelineReport`.  ``min_depth`` floors every FIFO.
 
 ``congestion_feedback``
-    §4.3 congestion control over the network fabric (``repro.net``),
+    §4.3 congestion control over the network fabric (``repro_torch.net``),
     auto-inserted after ``partition`` when ``options.fabric`` is set.
     Projects per-link traffic from the current partition over the fabric's
     routing tables; when a link's utilization (demanded bytes per step
@@ -65,7 +65,7 @@ Passes
     (per-link λ inflated by the overshoot, ``congestion_penalty``),
     dropping the balance band if ``congestion_relax_balance`` — accepted
     retries re-tag ``partition.stats.method`` with ``"-congested"``.  The
-    fabric and the final projected :class:`~repro.net.CongestionReport`
+    fabric and the final projected :class:`~repro_torch.net.CongestionReport`
     land on the artifact (``design.fabric`` / ``design.congestion``), and
     ``design.execute()`` then routes inter-device tokens through the
     fabric's links.

@@ -315,9 +315,9 @@ def run_pipeline_interconnect(state: CompileState):
 
 # ---------------------------------------------------------------------------
 # congestion_feedback — §4.3 congestion control over the network fabric
-# (repro.net).  The body lives in repro.net.calibrate; the deferred import
-# keeps the pass registered even when repro.net is never touched and avoids
-# a compiler<->net import cycle.
+# (repro_torch.net).  The body lives in repro_torch.net.calibrate; the
+# deferred import keeps the pass registered even when repro_torch.net is
+# never touched and avoids a compiler<->net import cycle.
 # ---------------------------------------------------------------------------
 
 @register_pass("congestion_feedback")
@@ -325,12 +325,7 @@ def run_congestion_feedback(state: CompileState):
     if state.partition is None:
         raise CompileError(
             "congestion_feedback pass requires a partition pass first")
-    try:
-        from ..net.calibrate import congestion_feedback_pass
-    except ImportError as e:
-        raise CompileError(
-            "congestion_feedback needs repro_torch.net, which is not yet "
-            "ported: compile without a fabric") from e
+    from ..net.calibrate import congestion_feedback_pass
     try:
         return congestion_feedback_pass(state)
     except RuntimeError as e:               # fabric/cluster mismatch etc.

@@ -37,27 +37,40 @@ arrives; with ``mem=None`` every response is there at once (the ideal
 path).  Either way the payloads are the binding's own tensors, so both
 paths compute the same bits.
 
-The network fabric (``fabric=``), tenant sharing and snapshots belong to
-layers that are not yet ported; asking for the fabric raises
-:class:`NotImplementedError`.
+Network fabric (:mod:`repro_torch.net`): when the design (or the caller)
+supplies a :class:`~repro_torch.net.fabric.Fabric`, inter-device pushes are
+packetized into flits and routed over the physical links by a
+:class:`~repro_torch.net.transport.FabricTransport` stepped once per sweep
+— channels sharing a link contend for its bandwidth, credits backpressure
+the hops, and a token only becomes visible after its own message delivers.
+The transport is host Python over integer counters; the payload stays on
+the card, so ``fabric=None`` (the ideal path) computes the same bits.
+After the last firing the network is drained so the per-link byte
+accounting is complete.
+
+Tenant sharing (a transport, memory system or device map handed in from
+outside) and snapshots belong to layers that are not yet ported.
 
 Detection:
 
 * **Hard deadlock** — a sweep fires nothing, and no queued token will ever
-  become visible.  Raises :class:`DeadlockError` listing each unfinished
-  task with the channel that blocks it.
+  become visible (tokens still transiting the fabric count as in flight).
+  Raises :class:`DeadlockError` listing each unfinished task with the
+  channel that blocks it.
 * **FIFO starvation** — a join cannot fire because one in-channel is empty
   while a sibling in-channel sits *at capacity*: the signature of an
   unbalanced cut-set (§4.6).  Transient during pipeline fill never matches
   (balanced depths leave headroom); persistent imbalance accumulates events
   until ``starve_limit`` trips :class:`StarvationError` with the channel
-  that needs more depth.
+  that needs more depth.  When the starved input still has tokens in the
+  network, the wait is *congestion*, not imbalance — it is tallied in
+  ``congestion_waits`` instead of tripping the detector.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -96,12 +109,30 @@ def _block(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _estimate_flit_hops(channels: Sequence[FifoChannel], transport) -> int:
+    """Modeled flit-hops one full iteration pushes into the network (the
+    sweep-bound heuristic; actual token sizes may exceed the model, so the
+    caller pads generously)."""
+    total = 0
+    for fc in channels:
+        if fc.transport is None:
+            continue
+        gch = fc.graph_channel
+        nbytes = max(gch.bytes_per_step or 0.0, gch.width_bits / 8.0, 1.0)
+        total += (transport.config.flits_for(int(nbytes))
+                  * len(transport.fabric.route(fc.net_src_dev,
+                                               fc.net_dst_dev)))
+    return total
+
+
 class ExecutionState:
     """One design's live execution — fire-a-sweep-at-a-time state machine.
 
-    Owns everything per-design: the FIFO channels, firing counts and the
-    starvation tallies.  :meth:`advance` fires one sweep; :meth:`run`
-    drives the state to completion.
+    Owns everything per-design: the FIFO channels, firing counts, the
+    starvation and congestion tallies, and the fabric transport and memory
+    system it creates.  :meth:`advance` fires one
+    sweep; :meth:`run` drives the state to completion, stepping the
+    transport and the bank model.
     """
 
     def __init__(self, design: CompiledDesign,
@@ -112,17 +143,13 @@ class ExecutionState:
                  starve_limit: int = 3,
                  check_starvation: bool = True,
                  fabric: Any = FROM_DESIGN,
+                 net_config: Any = None,
                  mem: Any = FROM_DESIGN,
+                 faults: Any = None,
                  tracer: Any = None):
         if design.partition is None:
             raise ValueError("execute() needs a partitioned design "
                              "(run the partition pass)")
-        if fabric is FROM_DESIGN:
-            fabric = design.fabric
-        if fabric is not None:
-            raise NotImplementedError(
-                "the fabric transfer path needs repro_torch.net, which is "
-                "not yet ported: pass fabric=None for the ideal path")
         self.device = resolve_device(device)
         if binding is None:
             binding = bind_programs(design.graph, inputs,
@@ -134,13 +161,27 @@ class ExecutionState:
         self.graph, self.assign = graph, assign
         rep = design.pipeline_report
 
+        if fabric is FROM_DESIGN:
+            fabric = design.fabric
+        transport = None
+        if fabric is not None:
+            from ..net.transport import FabricTransport
+            if fabric.num_devices != design.cluster.num_devices:
+                raise ValueError(
+                    f"fabric spans {fabric.num_devices} devices but the "
+                    f"cluster has {design.cluster.num_devices}")
+            transport = FabricTransport(fabric, net_config, faults=faults,
+                                        tracer=self.tracer)
+        self.transport = transport
+
         self.channels: List[FifoChannel] = []
         for i, ch in enumerate(graph.channels):
             latency = 1 + (rep.added_latency.get(i, 0)
                            if rep is not None else 0)
             self.channels.append(FifoChannel(
                 i, ch, assign[ch.src], assign[ch.dst], latency=latency,
-                dst_device=self.device, tracer=self.tracer))
+                dst_device=self.device, transport=transport,
+                tracer=self.tracer))
         for i, token in binding.prime.items():
             self.channels[i].prime(token)
 
@@ -204,6 +245,19 @@ class ExecutionState:
             # T firings advances at least one task per sweep barring
             # throttling.
             max_sweeps = 64 + 4 * (T + len(graph.tasks)) * (1 + max_lat)
+            if transport is not None:
+                # The network serializes flits over shared links; transport
+                # progress is guaranteed (>= 1 flit-hop per sweep while
+                # active), so pad by a generous multiple of the modeled
+                # per-iteration flit-hops (actual tokens may exceed the
+                # model).
+                est = _estimate_flit_hops(self.channels, transport)
+                max_sweeps += 256 + 64 * (T + 1) * max(1, est)
+                if transport.faults is not None:
+                    # Losses inflate transmissions and backoff spaces the
+                    # retries — budget for it so a lossy-but-progressing
+                    # run is not misdiagnosed as throughput collapse.
+                    max_sweeps += transport.faults.sweep_allowance(est, T)
             if memsys is not None:
                 # Banks serve >= 1 burst per sweep while queued, so the
                 # total burst demand bounds the extra memory-induced sweeps.
@@ -216,8 +270,10 @@ class ExecutionState:
         self.fired: Dict[str, int] = {t: 0 for t in graph.tasks}
         self.starve_events: Dict[str, int] = {}
         self.starve_detail: List[Dict[str, Any]] = []
+        self.congestion_waits: Dict[str, int] = {}
         self.mem_waits: Dict[str, int] = {}
         self.mem_model_s = 0.0          # host time in the bank model
+        self.net_model_s = 0.0          # host time in the fabric transport
         self.sink_outputs: Dict[str, List[Any]] = {t: [] for t in self.sinks}
         self.busy_s: Dict[int, float] = {}
         self.dev_fired: Dict[int, int] = {}
@@ -238,13 +294,15 @@ class ExecutionState:
 
     def has_pending(self, sweep: int) -> bool:
         """Progress is still coming without any task firing: a token is
-        ripening in a FIFO, a response in the reorder window, or a request
-        is in the bank pipe."""
+        ripening in a FIFO, a response in the reorder window, or traffic
+        is in the network / bank pipe."""
         if any(vis > sweep for fc in self.channels
                for vis in fc.pending_visibility()):
             return True
         if any(vis > sweep for mc in self.mem_channels
                for vis in mc.pending_visibility()):
+            return True
+        if self.transport is not None and self.transport.active:
             return True
         return self.memsys is not None and self.memsys.active
 
@@ -274,14 +332,17 @@ class ExecutionState:
             "dataflow deadlock at sweep %d — no task can fire and "
             "no token is in flight:\n%s" % (sweep, "\n".join(lines)))
 
+    def net_deliver(self, channel_index: int, mid: int, sweep: int) -> None:
+        self.channels[channel_index].on_delivered(mid, sweep)
+
     def mem_deliver(self, chan_index: int, rid: int, sweep: int) -> None:
         self.mem_channels[chan_index].on_complete(rid, sweep)
 
     # -- one sweep of task firing --------------------------------------------
     def advance(self, sweep: int) -> int:
         """Fire every ready task once (reverse topo order); returns the
-        firing count.  Does not step the memory system — :meth:`run`
-        does, after the firings."""
+        firing count.  Does not step the transport or the memory system —
+        :meth:`run` does, after the firings."""
         binding, T = self.binding, self.iterations
         tr, flow = self.tracer, 0        # flow 0: one design per run
         fired_this_sweep = 0
@@ -304,6 +365,15 @@ class ExecutionState:
                              if not fc.head_visible(sweep)]
                     at_cap = [fc for fc in in_chs if fc.full]
                     if empty and at_cap:
+                        if any(fc.in_flight > 0 for fc in empty):
+                            # Data is coming — the wait is network
+                            # congestion, not a §4.6 depth imbalance.
+                            self.congestion_waits[v] = \
+                                self.congestion_waits.get(v, 0) + 1
+                            if tr.enabled:
+                                tr.task_wait(sweep, v, self.assign[v],
+                                             "net", flow)
+                            continue
                         # A bounded FIFO may transiently saturate while the
                         # pipeline fills (bounded by the paths' hop-count
                         # difference) — only persistence past starve_limit
@@ -334,9 +404,15 @@ class ExecutionState:
                                 f"min_depth)")
                         continue
                     if tr.enabled:
-                        tr.task_wait(sweep, v, self.assign[v],
-                                     "upstream" if empty else "backpressure",
-                                     flow)
+                        # Input still transiting the fabric, a plain
+                        # dataflow dependency, or downstream backpressure.
+                        if empty:
+                            reason = ("transit" if any(
+                                fc.in_flight > 0 for fc in empty)
+                                else "upstream")
+                        else:
+                            reason = "backpressure"
+                        tr.task_wait(sweep, v, self.assign[v], reason, flow)
                     continue
                 if tr.enabled and not space:
                     # A source task (no in-channels) blocked on a full
@@ -390,9 +466,11 @@ class ExecutionState:
             wall_time_s=wall_time_s, device_busy_s=self.busy_s,
             device_fired=self.dev_fired,
             starvation_events=self.starve_events,
-            starvation_detail=self.starve_detail, memsys=self.memsys,
+            starvation_detail=self.starve_detail, transport=self.transport,
+            congestion_waits=self.congestion_waits, memsys=self.memsys,
             mem_channels=self.mem_channels, mem_waits=self.mem_waits,
-            mem_model_s=self.mem_model_s, tracer=self.tracer)
+            mem_model_s=self.mem_model_s, net_model_s=self.net_model_s,
+            tracer=self.tracer)
         outputs = (self.binding.finalize(self.sink_outputs)
                    if self.binding.finalize is not None
                    else self.sink_outputs)
@@ -402,12 +480,18 @@ class ExecutionState:
 
     # -- the solo loop -------------------------------------------------------
     def run(self) -> ExecutionResult:
-        """Drive this state to completion, stepping the bank model."""
-        memsys = self.memsys
+        """Drive this state to completion, stepping the transport and the
+        bank model."""
+        transport, memsys = self.transport, self.memsys
         t_start = time.perf_counter()
         sweep, done = 0, False
         while sweep < self.max_sweeps:
             fired_this_sweep = self.advance(sweep)
+            if transport is not None:
+                t0 = time.perf_counter()
+                for mid, ch_index in transport.step(sweep):
+                    self.net_deliver(ch_index, mid, sweep)
+                self.net_model_s += time.perf_counter() - t0
             if memsys is not None:
                 t0 = time.perf_counter()
                 for rid, ch_index in memsys.step(sweep):
@@ -417,15 +501,25 @@ class ExecutionState:
             if done:
                 break
             if fired_this_sweep == 0 and not self.has_pending(sweep):
-                # Tokens still ripening are progress; a silent sweep
-                # without any is a cycle of blocked tasks — diagnose it.
+                # Tokens still ripening — or transiting the fabric — are
+                # progress; a silent sweep without any is a cycle of
+                # blocked tasks — diagnose it.
                 raise self.deadlock(sweep)
             sweep += 1
         if not done:
             raise DeadlockError(
                 f"executor exceeded max_sweeps={self.max_sweeps} "
                 f"(fired {self.firings} of {self.total_firings} "
-                f"firings) — throughput collapse; check FIFO depths")
+                f"firings) — throughput collapse; check FIFO depths"
+                + (" and fabric link budgets" if transport is not None
+                   else ""))
+        if transport is not None and transport.active:
+            # Run the network dry (e.g. final back-edge tokens nobody pops)
+            # so the per-link byte conservation identities hold exactly.
+            t0 = time.perf_counter()
+            for mid, ch_index in transport.drain(sweep + 1):
+                self.net_deliver(ch_index, mid, sweep)
+            self.net_model_s += time.perf_counter() - t0
         if memsys is not None and memsys.active:
             # Every firing consumed its response, so the banks are normally
             # dry here — drain defensively so Σ bank bytes == Σ channel
@@ -444,7 +538,9 @@ def execute(design: CompiledDesign,
             starve_limit: int = 3,
             check_starvation: bool = True,
             fabric: Any = FROM_DESIGN,
+            net_config: Any = None,
             mem: Any = FROM_DESIGN,
+            faults: Any = None,
             tracer: Any = None) -> ExecutionResult:
     """Run ``design`` as a dataflow program on one torch device.
 
@@ -454,8 +550,13 @@ def execute(design: CompiledDesign,
     ``device`` is the one device every logical device maps onto: ``cuda``
     by default, ``"cpu"`` only when asked.  A caller-supplied ``binding``
     must already hold its tensors on that device.  ``fabric`` defaults to
-    the design's fabric and must resolve to None in this slice (the ideal
-    transfer path).  ``mem`` defaults to the design's bank model
+    the design's fabric (``CompileOptions.fabric``); pass ``fabric=None``
+    to force the ideal transfer path or a
+    :class:`~repro_torch.net.fabric.Fabric` to override.  ``net_config``
+    is the :class:`~repro_torch.net.transport.NetConfig` for the fabric
+    transport, and ``faults`` a :class:`~repro_torch.net.faults.FaultModel`
+    switching it into lossy-link + ARQ + route-repair mode (``None`` keeps
+    every link perfect).  ``mem`` defaults to the design's bank model
     (``CompileOptions.mem``); pass ``mem=None`` for the ideal memory path
     or a :class:`~repro_torch.mem.banks.MemConfig` to override.
     ``tracer`` is any object with the
@@ -465,5 +566,5 @@ def execute(design: CompiledDesign,
     return ExecutionState(
         design, binding, inputs=inputs, device=device,
         max_sweeps=max_sweeps, starve_limit=starve_limit,
-        check_starvation=check_starvation, fabric=fabric, mem=mem,
-        tracer=tracer).run()
+        check_starvation=check_starvation, fabric=fabric,
+        net_config=net_config, mem=mem, faults=faults, tracer=tracer).run()

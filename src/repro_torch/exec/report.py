@@ -17,7 +17,7 @@ The two hard agreement checks (:meth:`ExecutionReport.agreement`):
   ``partition.comm_cost`` bit for bit.  Together they certify that the
   traffic the executor moved is the traffic the solver paid for.
 
-With a network fabric (``repro.net``), two more:
+With a network fabric (``repro_torch.net``), two more:
 
 * ``net_delivery_match`` — every byte a channel submitted to the fabric
   was delivered (the network drained clean);
@@ -26,7 +26,7 @@ With a network fabric (``repro.net``), two more:
   the flit accounting loses and invents nothing.
 
 The ``net`` block of :meth:`summary` carries the per-link
-:class:`~repro.net.congestion.CongestionReport` (utilization, queue highs,
+:class:`~repro_torch.net.congestion.CongestionReport` (utilization, queue highs,
 stalls) next to those identities.
 
 With an HBM bank model (``repro_torch.mem``), two more:
@@ -158,6 +158,9 @@ class ExecutionReport:
     # Host seconds the executor spent in the bank model (pumping requests
     # and serving bursts); 0.0 on the ideal memory path.
     mem_model_s: float = 0.0
+    # Host seconds the executor spent stepping and draining the fabric
+    # transport; 0.0 on the ideal transfer path.
+    net_model_s: float = 0.0
     # Observability (repro.obs): the recorded trace, when one was attached.
     trace: Optional[Any] = None                # obs.Tracer (None if untraced)
 
@@ -332,6 +335,7 @@ def build_report(*, design, channels: Sequence[FifoChannel],
                  mem_channels: Sequence[Any] = (),
                  mem_waits: Optional[Mapping[str, int]] = None,
                  mem_model_s: float = 0.0,
+                 net_model_s: float = 0.0,
                  tracer=None
                  ) -> ExecutionReport:
     """Assemble the report from live channels + the design's analytics."""
@@ -377,14 +381,15 @@ def build_report(*, design, channels: Sequence[FifoChannel],
                 # Eq. 2 re-evaluated per routed link (§4.3 calibration).
                 route_cost += fabric.route_cost(
                     fc.net_src_dev, fc.net_dst_dev, gch.width_bits)
-    # The fabric measurement (net.congestion) is not yet ported; the
-    # executor refuses a fabric before it gets here.
-    if transport is not None:
-        raise NotImplementedError(
-            "a fabric transport needs repro_torch.net.congestion, which is "
-            "not yet ported")
-    congestion = goodput_hop = None
+    congestion = None
+    goodput_hop = None
     retransmit = 0
+    if transport is not None:
+        from ..net.congestion import measure   # deferred: optional layer
+        congestion = measure(transport)
+        if transport.faults is not None:
+            goodput_hop = transport.goodput_hop_bytes_total()
+            retransmit = sum(c.retransmit_bytes for c in transport.counters)
     mem_contention = None
     if memsys is not None:
         from ..mem.contention import measure as _mem_measure
@@ -425,4 +430,5 @@ def build_report(*, design, channels: Sequence[FifoChannel],
         mem_channels=mem_traces,
         task_mem_waits=dict(mem_waits or {}),
         mem_model_s=mem_model_s,
+        net_model_s=net_model_s,
         trace=tracer if getattr(tracer, "enabled", False) else None)

@@ -8,7 +8,7 @@ device's HBM is not one fat pipe but 32 independent pseudo-channels, and a
 design that funnels every reader through one channel saturates long before
 the aggregate bandwidth is reached (§3: a 256-bit port saturates ~51% of a
 bank).  This module is the executable counterpart, mirroring the flit
-transport of the network layer (``net.transport``) one layer down:
+transport of :mod:`repro_torch.net.transport` one layer down:
 
 * a memory-channel request of ``N`` bytes becomes ``ceil(N / burst_bytes)``
   **bursts** that one bank must serve in FIFO order (the last burst carries
@@ -33,22 +33,22 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+from ..net.transport import NetConfig
 from ..obs.trace import coerce_tracer
 
-#: Wall time one executor sweep models, in seconds: the step-time base the
-#: memory and link projections share (the network transport's
-#: ``NetConfig.sweep_time_s`` default has the same value, and the port's
-#: network layer reads it from here).
-SWEEP_TIME_S = 1e-6
+#: Wall time one executor sweep models, in seconds: the network transport's
+#: ``NetConfig.sweep_time_s`` default, the one step-time base the memory
+#: and link projections share.
+SWEEP_TIME_S = NetConfig().sweep_time_s
 
 
 @dataclasses.dataclass(frozen=True)
 class MemConfig:
     """HBM bank-model knobs (deterministic; defaults suit CI emulation).
 
-    ``sweep_time_s`` is :data:`SWEEP_TIME_S`, the step-time base the
-    network transport shares, so the memory and link projections price the
-    same executor sweep.
+    ``sweep_time_s`` is :data:`SWEEP_TIME_S`, read from the network
+    transport's ``NetConfig``, so the memory and link projections price
+    the same executor sweep.
     """
 
     banks_per_device: int = 8          # HBM pseudo-channels modeled per FPGA

@@ -32,7 +32,18 @@ OPTIONS = {
                 floorplan_devices=(0,), exact_limit=1500),
     "knn": dict(balance_kind="LUT", balance_tol=0.8,
                 floorplan_devices=(), exact_limit=200),
+    "pagerank": dict(balance_kind="LUT", balance_tol=0.8,
+                     floorplan_devices=(0,), exact_limit=1500),
 }
+# The fabric tests' options (the JAX package's ``tests/test_net.py``): the
+# congestion_feedback pass after the partition, no floorplan.  KNN keeps
+# its small exact_limit.
+NET_PASSES = ("normalize_units", "partition", "congestion_feedback",
+              "pipeline_interconnect", "schedule")
+NET_OPTIONS = {app: dict(balance_kind="LUT", balance_tol=0.8,
+                         exact_limit=200 if app == "knn" else 1500,
+                         partition_time_limit=20.0, passes=NET_PASSES)
+               for app in ("stencil", "pagerank", "knn", "cnn")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -42,6 +53,23 @@ def designs(app: str, ndev: int):
                          TorchCompileOptions(**OPTIONS[app]))
     ref = jax_compile(JAX_APPS[app].build_graph(ndev), jax_ring(ndev),
                       JaxCompileOptions(**OPTIONS[app]))
+    return port, ref
+
+
+@functools.lru_cache(maxsize=None)
+def fabric_designs(app: str, ndev: int):
+    """(port design, JAX design) of ``app`` on an ``ndev``-FPGA ring,
+    compiled with the ring's fabric (so ``congestion_feedback`` runs)."""
+    from repro.net import cluster_fabric as jax_fabric
+    from repro_torch.net import cluster_fabric as torch_fabric
+
+    port_cl, ref_cl = torch_ring(ndev), jax_ring(ndev)
+    port = torch_compile(TORCH_APPS[app].build_graph(ndev), port_cl,
+                         TorchCompileOptions(**NET_OPTIONS[app],
+                                             fabric=torch_fabric(port_cl)))
+    ref = jax_compile(JAX_APPS[app].build_graph(ndev), ref_cl,
+                      JaxCompileOptions(**NET_OPTIONS[app],
+                                        fabric=jax_fabric(ref_cl)))
     return port, ref
 
 

@@ -1,8 +1,10 @@
 """PyTorch port on the card: each hand-written CUDA kernel against its plain
 version (the BLAS kernels also whole array against shards, bit for bit),
 the launch counters, a small compile → execute on ``cuda`` (the HBM apps
-through the bank model and the ideal path), and the LM serving side's
-prefill (flash attention kernel) against its cached decode.
+through the bank model and the ideal path), PageRank at 2^20 edges (its
+fixed-order segment sums: the same bits on every run and through the
+fabric), and the LM serving side's prefill (flash attention kernel)
+against its cached decode.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided in the fixture, never at import).  On a machine with one:
@@ -42,6 +44,7 @@ from repro_torch.kernels.systolic_matmul.kernel import route as matmul_route
 from repro_torch.kernels.systolic_matmul.ref import (conv_im2col_ref,
                                                      matmul_ref)
 from repro_torch.mem import MemConfig
+from repro_torch.net import cluster_fabric
 
 pytestmark = pytest.mark.gpu
 
@@ -335,7 +338,8 @@ def test_launch_counters(cuda):
 HBM_APPS = ["axpy", "dot", "gemv", "axpydot"]
 
 
-@pytest.mark.parametrize("app", ["stencil", "cnn", "knn"] + HBM_APPS)
+@pytest.mark.parametrize("app", ["stencil", "pagerank", "cnn", "knn"]
+                         + HBM_APPS)
 def test_execute_on_cuda(cuda, app):
     graph = APPS[app].build_graph(2)
     mem = (MemConfig(banks_per_device=4, bank_bandwidth_Bps=2e9, credits=4,
@@ -361,6 +365,37 @@ def test_execute_on_cuda(cuda, app):
         assert torch.equal(banked.outputs, ideal.outputs)
         assert torch.equal(banked.outputs, binding.reference())
         assert banked.report.sweeps > ideal.report.sweeps
+
+
+PAGERANK_MID = {"n_nodes": 1 << 17, "n_edges": 1 << 20, "iters": 10,
+                "seed": 0}
+
+
+def test_pagerank_mid_size_bits(cuda):
+    """2^20 edges on a 4-ring: two card runs give the same bits, the fabric
+    path gives the ideal path's bits, and the rank is within 1e-5 of its
+    largest value of the CPU run's (in fact it has the CPU run's bits: the
+    segment sums add in the same order on both)."""
+    cluster = fpga_ring_cluster(4)
+    design = compile(APPS["pagerank"].build_graph(4), cluster,
+                     CompileOptions(balance_kind="LUT", balance_tol=0.8,
+                                    floorplan_devices=(),
+                                    fabric=cluster_fabric(cluster)))
+    binding = bind_programs(design.graph, PAGERANK_MID)
+    ideal = execute(design, binding, fabric=None).outputs
+    again = execute(design, binding, fabric=None).outputs
+    via_net = execute(design, binding)
+    assert ideal.is_cuda and torch.isfinite(ideal).all()
+    assert torch.equal(ideal.view(torch.int32), again.view(torch.int32))
+    assert torch.equal(ideal.view(torch.int32),
+                       via_net.outputs.view(torch.int32))
+    assert all(via_net.report.agreement().values())
+    on_cpu = design.execute(PAGERANK_MID, fabric=None, device="cpu").outputs
+    scale = float(on_cpu.abs().max())
+    assert float((ideal.cpu() - on_cpu).abs().max()) <= 1e-5 * scale
+    assert torch.equal(ideal.cpu().view(torch.int32), on_cpu.view(torch.int32))
+    ref = binding.reference()
+    assert float((ideal - ref).abs().max()) <= 1e-5 * scale
 
 
 # -- flash attention ----------------------------------------------------------

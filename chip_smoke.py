@@ -234,20 +234,27 @@ def device_kernels(fn, reps: int = 20) -> list:
             if e.count and e.device_time_total > 0]
 
 
-def device_breakdown(fn, top: int = 6) -> dict:
+def device_breakdown(fn, top: int = 6, match: str = "") -> dict:
     """Device time of one call of ``fn``, from ``torch.profiler``: the sum
     over every kernel, and the ``top`` kernels by their summed time as
-    ``[name, count, ms]``."""
+    ``[name, count, ms]``.  With ``match``, also the summed time and count
+    of the kernels whose name holds it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = sorted(([e.key[:90], e.count, e.device_time_total / 1e3]
+    rows = sorted(([e.key, e.count, e.device_time_total / 1e3]
                    for e in prof.key_averages()
                    if e.count and e.device_time_total > 0),
                   key=lambda r: -r[2])
-    return {"device_ms": sum(r[2] for r in rows), "top": rows[:top]}
+    out = {"device_ms": sum(r[2] for r in rows),
+           "top": [[r[0][:90], r[1], r[2]] for r in rows[:top]]}
+    if match:
+        hit = [r for r in rows if match in r[0]]
+        out["matched_ms"] = sum(r[2] for r in hit)
+        out["matched_launches"] = sum(r[1] for r in hit)
+    return out
 
 
 def aten_ops(fn) -> int:
@@ -775,19 +782,26 @@ def blas_kernel_rows(dev, gen) -> dict:
 
 # -- phase 4: the main path --------------------------------------------------
 
-def compile_and_bind(app: str, graph_args: tuple, spec: dict, **options):
-    """(graph, design, binding, compile_s, bind_s): ``app`` compiled onto a
-    4-FPGA ring with the smoke's options and bound on the card."""
+def compile_design(app: str, graph_args: tuple, **options):
+    """(graph, design, compile_s): ``app`` compiled onto a 4-FPGA ring
+    with the smoke's options."""
     from repro_torch.apps import APPS
     from repro_torch.compiler import CompileOptions, compile
     from repro_torch.core import fpga_ring_cluster
-    from repro_torch.exec import bind_programs
 
     graph = APPS[app].build_graph(*graph_args)
     t0 = time.perf_counter()
     design = compile(graph, fpga_ring_cluster(4),
                      CompileOptions(**SMOKE_OPTIONS, **options))
-    compile_s = time.perf_counter() - t0
+    return graph, design, time.perf_counter() - t0
+
+
+def compile_and_bind(app: str, graph_args: tuple, spec: dict, **options):
+    """(graph, design, binding, compile_s, bind_s): ``compile_design``,
+    then the binding on the card."""
+    from repro_torch.exec import bind_programs
+
+    graph, design, compile_s = compile_design(app, graph_args, **options)
     t0 = time.perf_counter()
     binding = bind_programs(graph, spec)             # on cuda
     torch.cuda.synchronize()
@@ -850,32 +864,23 @@ def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
     return row
 
 
-def segment_sum_ms(fn) -> dict:
-    """Device time of one call of ``fn`` from ``torch.profiler``: the sum
-    over every kernel, and over the kernels of ``torch.segment_reduce``
-    (named ``*egment*``), with the top kernels as ``[name, count, ms]``."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = sorted(([e.key, e.count, e.device_time_total / 1e3]
-                   for e in prof.key_averages()
-                   if e.count and e.device_time_total > 0),
-                  key=lambda r: -r[2])
-    seg = [r for r in rows if "egment" in r[0]]
-    return {"device_ms": sum(r[2] for r in rows),
-            "segment_sum_ms": sum(r[2] for r in seg),
-            "segment_sum_launches": sum(r[1] for r in seg),
-            "top": [[r[0][:90], r[1], r[2]] for r in rows[:6]]}
+def largest_segments(spec: dict, pes: int) -> dict:
+    """The longest run a segment sum adds in one thread: the largest
+    in-degree of the whole graph (``reference()``'s sums) and of any PE's
+    shard (the binder's ``np.array_split`` of the edges)."""
+    from repro_torch.apps.pagerank import draw_edges, segments
+
+    _, dst = draw_edges(spec["n_nodes"], spec["n_edges"],
+                        spec.get("seed", 0), "cuda")
+    return {"graph": int(segments(dst)[2].max()),
+            "pe_shard": max(int(segments(d)[2].max())
+                            for d in dst.tensor_split(pes))}
 
 
 def pagerank_path_phase() -> tuple:
     """PageRank at cit-Patents' size: the ideal path twice (same bits),
     the reference, the segment sums' device time; then the same binding
     through the ring's fabric.  Returns both rows."""
-    from repro_torch.apps import APPS
-    from repro_torch.compiler import CompileOptions, compile
     from repro_torch.core import fpga_ring_cluster
     from repro_torch.exec import execute
     from repro_torch.net import cluster_fabric
@@ -899,7 +904,11 @@ def pagerank_path_phase() -> tuple:
     err = float(diff.max())
     rel = err / float(expected.abs().max())
     l1 = float(diff.sum() / expected.double().abs().sum())
-    prof = segment_sum_ms(lambda: execute(design, binding, fabric=None))
+    longest = largest_segments(
+        spec, sum(t.startswith("pe") for t in graph.tasks))
+    # The segment sums are torch.segment_reduce's kernels (*egment*).
+    prof = device_breakdown(lambda: execute(design, binding, fabric=None),
+                            match="egment")
     rep = first.report
     agree = rep.agreement()
     row = {"app": "pagerank", "graph": graph.name, "tasks": len(graph.tasks),
@@ -914,7 +923,11 @@ def pagerank_path_phase() -> tuple:
            "rel_err": rel, "l1_rel_err": l1, "rel_tol": PAGERANK_REL_TOL,
            "same_bits_twice": same_bits, "agreement": agree,
            "starvation_events": rep.starvation_events,
-           "launches": launches, **prof,
+           "launches": launches, "device_ms": prof["device_ms"],
+           "segment_sum_ms": prof["matched_ms"],
+           "segment_sum_launches": prof["matched_launches"],
+           "largest_segment": longest,
+           "top": prof["top"],
            "partition": design.partition.stats.method}
     print(f"[path] {json.dumps(row)}", flush=True)
     require(rel <= PAGERANK_REL_TOL,
@@ -923,16 +936,12 @@ def pagerank_path_phase() -> tuple:
     require(same_bits, "pagerank: two runs gave different bits")
     require(all(agree.values()), f"pagerank: agreement {agree}")
     require(not rep.starvation_events, "pagerank: starvation")
-    require(prof["segment_sum_ms"] > 0,
+    require(prof["matched_ms"] > 0,
             "pagerank: the profiler saw no segment_reduce kernel")
     del second, expected, diff
 
-    cluster = fpga_ring_cluster(4)
-    fgraph = APPS["pagerank"].build_graph(4)
-    t0 = time.perf_counter()
-    fdesign = compile(fgraph, cluster, CompileOptions(
-        **SMOKE_OPTIONS, fabric=cluster_fabric(cluster)))
-    fcompile_s = time.perf_counter() - t0
+    fgraph, fdesign, fcompile_s = compile_design(
+        "pagerank", (4,), fabric=cluster_fabric(fpga_ring_cluster(4)))
     fab, fab_s, flaunches, fpeak, fheld = timed_execute(
         fdesign, binding, fabric=fdesign.fabric)
     frep = fab.report

@@ -618,6 +618,46 @@ def test_fabric_with_faults_matches_jax():
     assert rep.summary()["net"] == want.report.summary()["net"]
 
 
+def _net_config(core, net, faults, kind):
+    if kind == "hop_latency":
+        return net.NetConfig(hop_latency=True)
+    if kind == "small_flits":
+        # test_exec_channels.py's contention config: one 64 B flit a sweep
+        # per Ethernet link and two credits, so hops stall on credits.
+        return _cfg(core, net, budget_flits=1, mtu=64, credits=2)
+    # Faults given through the config rather than execute(faults=).
+    return net.NetConfig(faults=faults.FaultModel(
+        seed=7, default=faults.LinkFaults(drop=0.1, corrupt=0.05),
+        fail_threshold=None))
+
+
+@pytest.mark.parametrize("kind", ["hop_latency", "small_flits",
+                                  "config_faults"])
+@pytest.mark.parametrize("app", ["stencil", "pagerank"])
+def test_fabric_net_config_matches_jax(app, kind):
+    """``execute(net_config=)`` with a non-default NetConfig: the ideal
+    path's bits, and every link counter, sweep and wait equal to JAX's."""
+    port, ref = fabric_designs(app, 4)
+    spec = SPECS[app]
+    cfg = {name: _net_config(*mods, kind) for name, mods in PKGS.items()}
+    got = execute(port, inputs=spec, device="cpu", net_config=cfg["port"])
+    want = jax_execute(ref, inputs=spec, net_config=cfg["jax"]).report
+    ideal = execute(port, inputs=spec, device="cpu", fabric=None)
+    assert torch.equal(_bits(got.outputs), _bits(ideal.outputs))
+    rep = got.report
+    assert all(rep.agreement().values()) and rep.used_fabric
+    assert rep.sweeps == want.sweeps
+    assert rep.summary()["net"] == want.summary()["net"]
+    assert rep.task_congestion_waits == want.task_congestion_waits
+    if kind == "small_flits" and app == "pagerank":
+        # The router's flows share ring links; stencil's do not.
+        assert sum(l.stalled_flits for l in rep.congestion.links) > 0
+    if kind == "config_faults":
+        assert rep.net_retransmit_bytes_total > 0
+    default = execute(port, inputs=spec, device="cpu").report
+    assert rep.sweeps != default.sweeps
+
+
 def test_fabric_must_span_the_cluster():
     port, _ = fabric_designs("stencil", 4)
     with pytest.raises(ValueError, match="fabric spans"):

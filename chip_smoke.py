@@ -76,6 +76,31 @@ Phases (any failure exits non-zero before the final line):
    magnitude, its 4 launches on the CUDA cores; the same comparison in
    bf16 at full depth is printed, not gated.
 
+6. Observability and snapshots (``[obs]`` lines; nothing compiled again
+   that phase 4 compiled).  (a) The obs smoke's logic
+   (``repro_torch.obs.smoke.check_app``) for stencil, CNN, KNN and
+   PageRank at their binders' default sizes through the 4-ring fabric
+   (``congestion_feedback`` compiled in): the traced run gives the
+   untraced bits (compared as bit patterns) and counters, the trace's
+   bytes equal the report's, the registry reconciles, the critical path
+   sums to the makespan; the card's integer counters (sweeps, link bytes
+   and flits, channel bytes and tokens, firings per device) equal the
+   port's CPU run of the same design.  The partition MILP has tied
+   optima that solver releases break differently, so stencil and PageRank
+   run once more on the partition ``results/obs_baseline.json`` was taken
+   at (``repro_torch.obs.smoke.BASELINE_PINS``), and those runs' metrics
+   must pass the baseline (CNN's and KNN's drift from it is printed beside
+   the JAX package's own).  (b) Phase 4's four designs at
+   full size on the ideal path, untraced then traced: the same bits and
+   counters, the event count and ``execute_s`` traced against untraced
+   (two runs of each, in turns).
+   (c) The full-size stencil killed by a ``FailureInjector`` after a
+   ``checkpoint_every`` barrier and resumed with ``resume_execution``
+   from a temporary directory: the uninterrupted run's bits, every
+   ``agreement()`` value, dilate launched in the resumed run; prints the
+   snapshot's bytes, the seconds to save it and to resume, and the extra
+   sweeps.
+
 The flash attention row (phase 3) holds both kernels, on the same bf16
 inputs, to their plain version at the prefill step's shape (causal) and at
 the feature cases of ``kernels/flash_attention/cases.py`` (GQA, MQA,
@@ -133,6 +158,24 @@ KNN_SPEC = {"n": 4_000_000, "dim": 16, "q": 128, "k": 10, "streams": 2,
 PAGERANK_SPEC = {"n_nodes": 3_774_768, "n_edges": 16_518_948, "iters": 20,
                  "seed": 0}
 PAGERANK_REL_TOL = 1e-5
+# The three kernel apps of the path phase: (app, spec, kernel), and the
+# build_graph arguments of all four (the obs phase traces these designs).
+FULL_SIZE = (("stencil", STENCIL_SPEC, "dilate"), ("cnn", CNN_SPEC, "matmul"),
+             ("knn", KNN_SPEC, "knn"))
+GRAPH_ARGS = {"stencil": (4, 64), "cnn": (4,), "knn": (4,), "pagerank": (4,)}
+SPECS = {"stencil": STENCIL_SPEC, "cnn": CNN_SPEC, "knn": KNN_SPEC,
+         "pagerank": PAGERANK_SPEC}
+OBS_APPS = ("stencil", "cnn", "knn", "pagerank")
+# The committed obs baseline holds for these apps at its own partition;
+# cnn and knn drift from it for the JAX package itself (ROADMAP, reference
+# caveat 5), so the card holds them to the port's CPU run, which the CPU
+# tests hold to JAX.
+BASELINE_APPS = ("stencil", "pagerank")
+JAX_BASELINE_DRIFT = {
+    "cnn": "JAX package on CPU: exec.device.fired 16/12/2/10 -> 2/2/18/18, "
+           "channels 4, 5, 11 -> 0, 1, 10",
+    "knn": "JAX package on CPU: exec.device.fired{device=0} 64 -> 56, "
+           "channels 75, 76, 89, 95 -> 82, 84, 85, 86"}
 # The HBM apps at their graphs' modelled width: N_FULL = 2^26 fp32 per
 # vector as [524288, 128]; gemv's M_FULL^2 matrix as [8192, 8192].  Three
 # firings each on a 4-FPGA ring: 8 shards, br = 65536 rows (gemv 1024).
@@ -826,7 +869,9 @@ def timed_execute(design, binding, **kw):
             torch.cuda.max_memory_allocated(), held)
 
 
-def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
+def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str
+               ) -> tuple:
+    """Returns the row and the design (the obs phase traces it)."""
     graph, design, binding, compile_s, bind_s = compile_and_bind(
         app, graph_args, spec)
     result, exec_s, launches, peak, held = timed_execute(design, binding)
@@ -861,7 +906,7 @@ def path_phase(app: str, spec: dict, graph_args: tuple, kernel: str) -> dict:
     require(not rep.starvation_events, f"{app}: starvation")
     require(launches[kernel] > 0,
             f"{app}: kernel {kernel} never launched during execute")
-    return row
+    return row, design
 
 
 def largest_segments(spec: dict, pes: int) -> dict:
@@ -880,7 +925,8 @@ def largest_segments(spec: dict, pes: int) -> dict:
 def pagerank_path_phase() -> tuple:
     """PageRank at cit-Patents' size: the ideal path twice (same bits),
     the reference, the segment sums' device time; then the same binding
-    through the ring's fabric.  Returns both rows."""
+    through the ring's fabric.  Returns both rows and the ideal path's
+    design."""
     from repro_torch.core import fpga_ring_cluster
     from repro_torch.exec import execute
     from repro_torch.net import cluster_fabric
@@ -974,7 +1020,7 @@ def pagerank_path_phase() -> tuple:
     require(frep.net_link_bytes == frep.net_hop_weighted_bytes > 0,
             "pagerank-fabric: link bytes differ from hop-weighted bytes")
     require(not frep.starvation_events, "pagerank-fabric: starvation")
-    return row, frow
+    return row, frow, design
 
 
 def hbm_path_phase(app: str, spec: dict, kernels: tuple) -> dict:
@@ -1182,6 +1228,226 @@ def release_kernel_phase() -> None:
           f"{after} after freeing the cuBLAS workspaces", flush=True)
 
 
+# -- phase 6: observability and snapshots -----------------------------------
+
+def int_counters(report) -> dict:
+    """The integer counters a run must reproduce: the obs smoke's set, with
+    per-link flits and per-channel tokens."""
+    from repro_torch.obs.smoke import counters
+
+    out = counters(report)
+    out["link_flits"] = ([int(l.flits) for l in report.congestion.links]
+                         if report.congestion is not None else [])
+    out["channel_tokens"] = [c.tokens for c in report.channels]
+    return out
+
+
+def decomposition_sums(crit, sweeps: int) -> bool:
+    dec = crit.decomposition()
+    return sum(v for k, v in dec.items()
+               if k not in ("task", "sweeps")) == sweeps
+
+
+def obs_fabric_row(app: str, graph, design, dev, compile_s: float,
+                   baseline: dict, pinned: bool) -> dict:
+    """One app's obs smoke checks on the card (``check_app`` raises on any
+    breach), its counters against the port's CPU run of the same design,
+    and its metrics against the committed baseline."""
+    from repro_torch.exec import bind_programs, execute
+    from repro_torch.obs.diff import diff_against_baseline
+    from repro_torch.obs.smoke import BASELINE_PINS, check_app
+
+    run = check_app(app, graph, design, dev)
+    res, tracer = run["result"], run["tracer"]
+    cpu = execute(design, bind_programs(graph, device="cpu"), device="cpu")
+    card_counters = int_counters(res.report)
+    same_as_cpu = card_counters == int_counters(cpu.report)
+    drift = diff_against_baseline(
+        dict(baseline, apps={app: baseline["apps"][app]}),
+        {app: run["registry"]})[app]
+    kinds = {}
+    for e in tracer.events:
+        kinds[e[0]] = kinds.get(e[0], 0) + 1
+    row = {"app": app, "phase": "fabric, obs smoke size",
+           "partition": "baseline's (pinned)" if pinned else "compiled here",
+           "baseline_partition": (design.partition.assignment
+                                  == BASELINE_PINS.get(app)),
+           "compile_s": compile_s, "sweeps": res.report.sweeps,
+           "events": len(tracer), "events_by_kind": kinds,
+           "link_bytes": sum(card_counters["link_bytes"]),
+           "critical_task": run["row"]["critical_task"],
+           "decomposition": {k: run["row"][k] for k in
+                             ("compute", "network", "memory", "fault",
+                              "blocked_other", "idle")},
+           "agreement": res.report.agreement(),
+           "counters_equal_cpu": same_as_cpu,
+           "baseline": "OK" if drift.ok else
+           f"drift in {len(drift.violations)} series, "
+           f"{len(drift.removed)} removed, {len(drift.added)} added"}
+    if app in JAX_BASELINE_DRIFT:
+        row["jax_baseline_drift"] = JAX_BASELINE_DRIFT[app]
+    print(f"[obs] {json.dumps(row)}", flush=True)
+    require(all(row["agreement"].values()),
+            f"obs {app}: agreement {row['agreement']}")
+    require(same_as_cpu, f"obs {app}: the card's counters {card_counters} "
+            f"differ from the CPU run's {int_counters(cpu.report)}")
+    if pinned:
+        require(drift.ok, f"obs {app}: metrics drift from "
+                f"results/obs_baseline.json:\n{drift.format()}")
+    return row
+
+
+def obs_fabric_rows(dev) -> None:
+    """The obs smoke on the card: the four apps at their binders' default
+    sizes through the 4-ring fabric, traced and untraced, each compiled as
+    the obs smoke compiles it.  The partition MILP has tied optima that
+    solver releases break differently, so stencil and pagerank also run
+    on the partition the committed baseline was taken at (``BASELINE_PINS``),
+    and those runs must pass the baseline."""
+    from repro_torch.obs.diff import load_json
+    from repro_torch.obs.smoke import BASELINE_PINS, compile_app
+
+    baseline = load_json(str(ROOT / "results" / "obs_baseline.json"))
+    for app in OBS_APPS:
+        t0 = time.perf_counter()
+        graph, design = compile_app(app, 4)
+        compile_s = time.perf_counter() - t0
+        obs_fabric_row(app, graph, design, dev, compile_s, baseline,
+                       pinned=False)
+        if app in BASELINE_APPS:
+            t0 = time.perf_counter()
+            graph, design = compile_app(app, 4, pins=BASELINE_PINS[app])
+            compile_s = time.perf_counter() - t0
+            obs_fabric_row(app, graph, design, dev, compile_s, baseline,
+                           pinned=True)
+
+
+def obs_full_size_rows(designs: dict):
+    """The path phase's four designs on the ideal path, untraced then
+    traced: the same bits and counters, the trace's bytes equal to the
+    report's, and the tracer's cost.  Returns stencil's untraced result."""
+    from repro_torch.exec import bind_programs, bit_identical
+    from repro_torch.obs import (Tracer, analyze,
+                                 assert_registry_consistent,
+                                 assert_trace_report_consistent)
+
+    kernels = {app: kernel for app, _, kernel in FULL_SIZE}
+    for app in OBS_APPS:
+        design = designs[app]
+        binding = bind_programs(design.graph, SPECS[app])
+        # In turns (untraced, traced, untraced, traced): the first run
+        # of a fresh binding also pays the allocator's warm-up.
+        base, base_s, _, _, _ = timed_execute(design, binding)
+        tracer = Tracer()
+        res, traced_s, launches, _, _ = timed_execute(design, binding,
+                                                      tracer=tracer)
+        base_s = [base_s, timed_execute(design, binding)[1]]
+        traced_s = [traced_s, timed_execute(design, binding,
+                                            tracer=Tracer())[1]]
+        bits = bit_identical(base.outputs, res.outputs)
+        same = int_counters(base.report) == int_counters(res.report)
+        assert_trace_report_consistent(tracer, res.report)
+        assert_registry_consistent(res.report.metrics, res.report)
+        crit = analyze(tracer, sweeps=res.report.sweeps)
+        row = {"app": app, "phase": "ideal path, full size",
+               "sweeps": res.report.sweeps, "events": len(tracer),
+               "execute_s": base_s, "traced_execute_s": traced_s,
+               "traced_over_untraced": min(traced_s) / min(base_s),
+               "same_bits": bits, "same_counters": same,
+               "critical_task": crit.critical().task,
+               "launches": launches}
+        print(f"[obs] {json.dumps(row)}", flush=True)
+        require(bits, f"obs {app}: the traced run's bits differ")
+        require(same, f"obs {app}: the traced run's counters differ")
+        require(decomposition_sums(crit, res.report.sweeps),
+                f"obs {app}: critical path does not sum to the makespan")
+        kernel = kernels.get(app)          # PageRank has no kernel
+        require(kernel is None or launches[kernel] > 0,
+                f"obs {app}: {kernel} never launched in the traced run")
+        if app == "stencil":
+            stencil = base
+        del base, res, tracer, binding
+    return stencil
+
+
+def obs_snapshot_row(design, untraced) -> None:
+    """The full-size stencil killed after a barrier and resumed from its
+    snapshot (in a temporary directory outside the checkout): the
+    uninterrupted run's bits, every agreement() value, and the snapshot's
+    bytes, save and resume seconds and extra sweeps."""
+    import shutil
+    import tempfile
+
+    from repro_torch.exec import (ExecutionState, bind_programs,
+                                  bit_identical, execute, load_snapshot,
+                                  restore_state, resume_execution,
+                                  save_snapshot, snapshot_steps)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import FailureInjector
+
+    sweeps = untraced.report.sweeps
+    kill = sweeps // 2 + 1
+    every = max(1, kill // 2)
+    require(every < kill < sweeps, f"snapshot: no barrier before the kill "
+            f"(sweeps {sweeps}, kill {kill}, every {every})")
+    binding = bind_programs(design.graph, STENCIL_SPEC)
+    root = tempfile.mkdtemp(prefix="chip_smoke_snapshots_")
+    try:
+        d = str(Path(root) / "run")
+        t0 = time.perf_counter()
+        killed = False
+        try:
+            execute(design, binding, fabric=None,
+                    injector=FailureInjector([kill]), checkpoint_dir=d,
+                    checkpoint_every=every)
+        except FailureInjector.Injected:
+            killed = True
+        torch.cuda.synchronize()
+        killed_s = time.perf_counter() - t0
+        require(killed, f"snapshot: the injector at sweep {kill} never fired")
+        steps = snapshot_steps(d)
+        require(bool(steps) and steps[-1] < kill,
+                f"snapshot: barriers {steps} do not precede the kill")
+        payload_path = Path(d) / f"step_{steps[-1]}" / "state.pt"
+        nbytes = payload_path.stat().st_size
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = resume_execution(design, d, binding=binding, fabric=None)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches = launch_counts()
+        # The save alone, of the same barrier's state (restored on the card).
+        state = ExecutionState(design, binding, fabric=None)
+        restore_state(state, load_snapshot(d, steps[-1]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_snapshot(state, steps[-1], str(Path(root) / "resave"))
+        save_s = time.perf_counter() - t0
+        del state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bits = bit_identical(resumed.outputs, untraced.outputs)
+    agree = resumed.report.agreement()
+    row = {"app": "stencil", "phase": "snapshot, full size",
+           "sweeps": sweeps, "kill_at": kill, "checkpoint_every": every,
+           "barriers": steps, "snapshot_bytes": nbytes,
+           "save_s": save_s, "resume_s": resume_s,
+           "killed_run_s": killed_s,
+           "extra_sweeps": resumed.report.sweeps - sweeps,
+           "same_bits": bits, "agreement": agree, "launches": launches}
+    print(f"[obs] {json.dumps(row)}", flush=True)
+    require(bits, "snapshot: the resumed run's bits differ")
+    require(all(agree.values()), f"snapshot: agreement {agree}")
+    require(launches["dilate"] > 0, "snapshot: dilate never launched in "
+            "the resumed run")
+
+
+def obs_phase(dev, designs: dict) -> None:
+    obs_fabric_rows(dev)
+    obs_snapshot_row(designs["stencil"], obs_full_size_rows(designs))
+    print(f"[obs] card: {card_line()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1197,8 +1463,9 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     print(f"card: {card}", flush=True)
+    import scipy           # its HiGHS breaks the partition MILP's ties
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}, "
+          f"python {sys.version.split()[0]}, scipy {scipy.__version__}, "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     info = build.build()
@@ -1217,14 +1484,11 @@ def main() -> int:
     rows = kernel_phase(dev)
     release_kernel_phase()
 
-    paths = [
-        path_phase("stencil", STENCIL_SPEC, (4, 64), "dilate"),
-        path_phase("cnn", CNN_SPEC, (4,), "matmul"),
-        path_phase("knn", KNN_SPEC, (4,), "knn"),
-    ]
-    launches = {k: p["launches"][k]
-                for p, k in zip(paths, ("dilate", "matmul", "knn"))}
-    pagerank_path_phase()
+    launches, designs = {}, {}
+    for app, spec, kernel in FULL_SIZE:
+        row, designs[app] = path_phase(app, spec, GRAPH_ARGS[app], kernel)
+        launches[kernel] = row["launches"][kernel]
+    designs["pagerank"] = pagerank_path_phase()[2]
     torch.cuda.empty_cache()
     for app, spec, ks in (("axpy", VEC_SPEC, ("axpy",)),
                           ("dot", VEC_SPEC, ("dot_partials",)),
@@ -1236,6 +1500,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     lm = lm_path_phase(dev)
     launches["flash_attention"] = lm["launches"]["flash_attention_tc"]
+    torch.cuda.empty_cache()
+    obs_phase(dev, designs)
 
     blas = "src/repro/kernels/hbm_blas/kernel.py"
     sources = {"dilate": ("src/repro_torch/csrc/dilate.cu",

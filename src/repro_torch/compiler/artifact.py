@@ -151,8 +151,19 @@ class CompiledDesign:
                 out["mem"]["bank_map"] = dict(self.bank_map)
             if self.mem_contention is not None:
                 out["mem"]["projected"] = self.mem_contention.summary()
-        # The JAX package adds an "obs" block here (the trace contract);
-        # repro_torch.obs is not yet ported, so a summary carries none.
+        # Observability contract (repro_torch.obs): what a traced execution
+        # of this design will emit, and the predicted makespan the
+        # critical-path analysis compares against (deferred import — the
+        # compiler stays usable without the obs layer loaded).
+        from ..obs.trace import EVENT_FIELDS
+        out["obs"] = {
+            "trace_format": "repro-obs/v1",
+            "event_kinds": sorted(EVENT_FIELDS),
+            "metric_prefixes": ["exec.task", "exec.device", "exec.channel",
+                                "net.link", "mem.bank", "tenant.flow"],
+            "predicted_makespan_s": (self.schedule.makespan
+                                     if self.schedule is not None else None),
+        }
         return out
 
     def to_json(self, indent: Optional[int] = None) -> str:

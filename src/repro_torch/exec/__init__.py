@@ -18,20 +18,27 @@ channels are accounted byte for byte, double-buffered when depth ≥ 2.
     result.report.agreement()             # measured vs Eq. 2 accounting
 
 Every logical device maps onto the one torch device; logical placement
-keeps driving the traffic accounting.
+keeps driving the traffic accounting.  ``execute(..., checkpoint_dir=,
+checkpoint_every=)`` snapshots the run at sweep barriers and
+:func:`resume_execution` continues a killed one (``python -m
+repro_torch.exec.smoke`` drives one app end to end).
 """
-from .channels import ChannelStats, FifoChannel, token_bytes
+from .channels import ChannelStats, FifoChannel, bit_identical, token_bytes
 from .executor import (DeadlockError, ExecutionResult, ExecutionState,
                        StarvationError, execute)
 from .programs import (BINDER_REGISTRY, ProgramBinding, RoutedOutput,
                        SOURCE_KEY, bind_programs, register_binder,
                        resolve_device)
 from .report import ChannelTrace, ExecutionReport, MemChannelTrace
+from .snapshot import (latest_snapshot_step, load_snapshot, restore_state,
+                       resume_execution, save_snapshot, snapshot_steps)
 
 __all__ = [
     "BINDER_REGISTRY", "ChannelStats", "ChannelTrace", "DeadlockError",
     "ExecutionReport", "ExecutionResult", "ExecutionState", "FifoChannel",
     "MemChannelTrace", "ProgramBinding", "RoutedOutput", "SOURCE_KEY",
-    "StarvationError", "bind_programs", "execute", "register_binder",
-    "resolve_device", "token_bytes",
+    "StarvationError", "bind_programs", "bit_identical", "execute",
+    "latest_snapshot_step", "load_snapshot", "register_binder",
+    "resolve_device", "restore_state", "resume_execution", "save_snapshot",
+    "snapshot_steps", "token_bytes",
 ]

@@ -63,6 +63,41 @@ def token_bytes(token: Any) -> int:
     return total
 
 
+_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def bit_identical(a: Any, b: Any) -> bool:
+    """Exact equality of two token trees, leaf by leaf, as bit patterns.
+
+    Tensors must agree in dtype and shape and in every bit (compared as
+    same-width integers on ``a``'s device), so -0.0 differs from +0.0 and
+    a NaN equals the same NaN — stricter than ``torch.equal`` or
+    ``np.array_equal``, which call ±0 equal and NaN unequal to itself.
+    Non-tensor leaves compare as numpy arrays, dtype and bytes.  Dicts
+    (:class:`~repro_torch.exec.programs.RoutedOutput` included), lists and
+    tuples are descended; their keys and lengths must match.
+    """
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
+            return False
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        bits = _BITS[a.element_size()]
+        return torch.equal(a.contiguous().view(bits),
+                           b.to(a.device).contiguous().view(bits))
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and list(a) == list(b)
+                and all(bit_identical(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+                and len(a) == len(b)
+                and all(bit_identical(x, y) for x, y in zip(a, b)))
+    x, y = np.asarray(a), np.asarray(b)
+    return (x.dtype == y.dtype and x.shape == y.shape
+            and x.tobytes() == y.tobytes())
+
+
 def _put(token: Any, device) -> Any:
     """Move every tensor leaf of ``token`` to ``device``.
 

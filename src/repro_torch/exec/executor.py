@@ -48,8 +48,14 @@ the card, so ``fabric=None`` (the ideal path) computes the same bits.
 After the last firing the network is drained so the per-link byte
 accounting is complete.
 
+Snapshots (:mod:`repro_torch.exec.snapshot`): ``checkpoint_dir`` +
+``checkpoint_every`` save the whole execution state at every N-th sweep
+barrier, and :func:`~repro_torch.exec.snapshot.resume_execution`
+continues a killed run (``injector=``, a
+:class:`~repro_torch.runtime.fault.FailureInjector`) from the last one.
+
 Tenant sharing (a transport, memory system or device map handed in from
-outside) and snapshots belong to layers that are not yet ported.
+outside) belongs to the tenant layer, which is not yet ported.
 
 Detection:
 
@@ -479,13 +485,31 @@ class ExecutionState:
                                report=report)
 
     # -- the solo loop -------------------------------------------------------
-    def run(self) -> ExecutionResult:
+    def run(self, *, injector: Any = None, start_sweep: int = 0,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every: Optional[int] = None) -> ExecutionResult:
         """Drive this state to completion, stepping the transport and the
-        bank model."""
+        bank model.
+
+        ``injector`` (a :class:`~repro_torch.runtime.fault.FailureInjector`)
+        is probed once per sweep — the chaos harness's kill switch.
+        ``checkpoint_dir`` + ``checkpoint_every`` snapshot the full
+        execution state every N sweeps (atomic ``step_<sweep>`` dirs) so
+        :func:`~repro_torch.exec.snapshot.resume_execution` can continue a
+        killed run from the last barrier instead of re-running from
+        scratch.  ``start_sweep`` is that resume entry point: the sweep
+        counter continues where the snapshot stopped (the budget shifts
+        with it, so a restored run keeps its full headroom).
+        """
         transport, memsys = self.transport, self.memsys
+        if checkpoint_every is not None and checkpoint_dir is None:
+            raise ValueError("checkpoint_every needs a checkpoint_dir")
         t_start = time.perf_counter()
-        sweep, done = 0, False
-        while sweep < self.max_sweeps:
+        sweep, done = start_sweep, False
+        budget = self.max_sweeps + start_sweep
+        while sweep < budget:
+            if injector is not None:
+                injector.check(sweep)
             fired_this_sweep = self.advance(sweep)
             if transport is not None:
                 t0 = time.perf_counter()
@@ -497,6 +521,12 @@ class ExecutionState:
                 for rid, ch_index in memsys.step(sweep):
                     self.mem_deliver(ch_index, rid, sweep)
                 self.mem_model_s += time.perf_counter() - t0
+            if (checkpoint_every is not None
+                    and (sweep + 1 - start_sweep) % checkpoint_every == 0):
+                from .snapshot import save_snapshot   # avoid import cycle
+                save_snapshot(self, sweep, checkpoint_dir)
+                if self.tracer.enabled:
+                    self.tracer.barrier(sweep, f"step_{sweep}", 0)
             done = self.done
             if done:
                 break
@@ -541,6 +571,9 @@ def execute(design: CompiledDesign,
             net_config: Any = None,
             mem: Any = FROM_DESIGN,
             faults: Any = None,
+            injector: Any = None,
+            checkpoint_dir: Optional[str] = None,
+            checkpoint_every: Optional[int] = None,
             tracer: Any = None) -> ExecutionResult:
     """Run ``design`` as a dataflow program on one torch device.
 
@@ -559,12 +592,17 @@ def execute(design: CompiledDesign,
     every link perfect).  ``mem`` defaults to the design's bank model
     (``CompileOptions.mem``); pass ``mem=None`` for the ideal memory path
     or a :class:`~repro_torch.mem.banks.MemConfig` to override.
-    ``tracer`` is any object with the
-    :class:`~repro_torch.obs.trace.NullTracer` methods (None → the no-op
-    tracer).
+    ``injector`` / ``checkpoint_dir`` / ``checkpoint_every`` are
+    forwarded to :meth:`ExecutionState.run` (the kill switch and the
+    sweep-barrier snapshots).  ``tracer`` is a
+    :class:`~repro_torch.obs.trace.Tracer` recording sweep-granular typed
+    events from every layer (``None`` → the no-op ``NULL_TRACER``); a
+    recording tracer is attached to the result as ``report.trace``.
     """
     return ExecutionState(
         design, binding, inputs=inputs, device=device,
         max_sweeps=max_sweeps, starve_limit=starve_limit,
         check_starvation=check_starvation, fabric=fabric,
-        net_config=net_config, mem=mem, faults=faults, tracer=tracer).run()
+        net_config=net_config, mem=mem, faults=faults, tracer=tracer).run(
+            injector=injector, checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every)

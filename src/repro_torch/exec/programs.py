@@ -15,8 +15,7 @@ Program calling convention
 * ``inputs`` maps each predecessor task name to the token popped from that
   channel; source tasks additionally receive the current stream item under
   ``SOURCE_KEY``.  Tasks with ``mem_reads`` streams receive each consumed
-  memory response under its stream name (``async_mmap`` reads; the port's
-  memory layer is not yet ported).
+  memory response under its stream name (``async_mmap`` reads).
 * Returning a plain value (dicts included — a dict is just a pytree token)
   broadcasts it onto every outgoing channel; returning a
   :class:`RoutedOutput` keyed by successor names routes a distinct token

@@ -161,7 +161,8 @@ class ExecutionReport:
     # Host seconds the executor spent stepping and draining the fabric
     # transport; 0.0 on the ideal transfer path.
     net_model_s: float = 0.0
-    # Observability (repro.obs): the recorded trace, when one was attached.
+    # Observability (repro_torch.obs): the recorded trace, when one was
+    # attached.
     trace: Optional[Any] = None                # obs.Tracer (None if untraced)
 
     # One-release deprecation shims for the pre-registry counter names.
@@ -174,12 +175,11 @@ class ExecutionReport:
     @functools.cached_property
     def metrics(self):
         """The unified ``layer.object.metric`` registry view of this
-        report (:func:`repro.obs.metrics.from_report`) — the canonical
-        way to read counters (``net.link.*``, ``mem.bank.*``,
+        report (:func:`repro_torch.obs.metrics.from_report`) — the
+        canonical way to read counters (``net.link.*``, ``mem.bank.*``,
         ``exec.task.*``)."""
-        raise NotImplementedError(
-            "ExecutionReport.metrics needs repro_torch.obs.metrics, which is "
-            "not yet ported")
+        from ..obs.metrics import from_report   # deferred: optional layer
+        return from_report(self)
 
     # -- aggregates ---------------------------------------------------------
     @property

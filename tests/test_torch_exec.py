@@ -3,10 +3,11 @@
 * the port's executor never runs on the CPU unless asked (``device="cpu"``);
 * an op on a device with no kernel raises, and a kernel wrapper refuses a
   CPU tensor — nothing falls back;
-* layers that are not yet ported fail loudly, and the bank model and the
-  fabric run;
-* ``repro_torch``, ``chip_smoke.py`` and the port's profiling script
-  import no JAX and nothing of ``repro``.
+* the layer that is not yet ported (shared mode, the tenant layer's)
+  fails loudly, and the bank model, the fabric and the metrics registry
+  run;
+* ``repro_torch`` (``obs``, ``runtime``, the snapshots and both smokes
+  included) and ``chip_smoke.py`` import no JAX and nothing of ``repro``.
 """
 import ast
 import os
@@ -112,15 +113,19 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
 
 
 def test_unported_layers_fail_loudly(stencil_design):
-    # The metrics registry belongs to obs, which is not yet ported: the
-    # report's view of it refuses and names it.
+    # Shared mode (a transport, memory system or device map handed in by a
+    # tenant server) waits for the tenancy layer: execute() has no
+    # transport= to take.
+    for kw in ("transport", "memsys", "device_map"):
+        with pytest.raises(TypeError, match=kw):
+            execute(stencil_design, device="cpu", **{kw: object()})
+    # obs is ported: the report's registry view reconciles with the
+    # report, its link goodput equal to the report's link bytes.
+    from repro_torch.obs import MetricsRegistry, assert_registry_consistent
     res = execute(stencil_design, device="cpu")
-    with pytest.raises(NotImplementedError, match="obs"):
-        res.report.metrics
-    # Shared mode (a transport handed in by a tenant server) waits for the
-    # tenancy layer: execute() has no transport= to take.
-    with pytest.raises(TypeError, match="transport"):
-        execute(stencil_design, device="cpu", transport=object())
+    assert isinstance(res.report.metrics, MetricsRegistry)
+    assert_registry_consistent(res.report.metrics, res.report)
+    assert stencil_design.summary()["obs"]["trace_format"] == "repro-obs/v1"
     # The fabric is ported: the congestion_feedback pass compiles, and a
     # fabric run conserves bytes on every link.
     from repro_torch.net import cluster_fabric
@@ -133,6 +138,10 @@ def test_unported_layers_fail_loudly(stencil_design):
     res = execute(stencil_design, device="cpu",
                   fabric=cluster_fabric(fpga_ring_cluster(2)))
     assert res.report.agreement()["link_conservation"]
+    goodput = res.report.metrics.series("net.link.goodput_bytes")
+    assert sum(goodput.values()) == res.report.net_link_bytes > 0
+    assert {dict(k)["link"]: v for k, v in goodput.items()} == {
+        l.index: l.bytes for l in res.report.congestion.links}
     # The bank model is ported: its pass compiles, and a binding without
     # memory streams runs as before under a bank model.
     from repro_torch.mem import MemConfig
@@ -159,7 +168,15 @@ def test_port_sources_import_no_jax_and_no_repro():
     files += [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     assert {"mem", "net", "hbm_blas", "models", "serving", "launch",
-            "flash_attention"} <= {part for f in files for part in f.parts}
+            "flash_attention", "obs", "runtime"} <= {
+        part for f in files for part in f.parts}
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"src/repro_torch/obs/{m}.py" for m in
+            ("trace", "metrics", "critpath", "attrib", "slo", "diff",
+             "smoke")} <= names
+    assert {"src/repro_torch/runtime/fault.py",
+            "src/repro_torch/exec/snapshot.py",
+            "src/repro_torch/exec/smoke.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -171,6 +188,12 @@ def test_port_path_loads_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch.apps, repro_torch.compiler, repro_torch.exec\n"
         "import repro_torch.mem, repro_torch.mem.smoke\n"
+        "import repro_torch.obs, repro_torch.exec.snapshot\n"
+        "import repro_torch.runtime, repro_torch.runtime.fault\n"
+        "import repro_torch.obs.smoke, repro_torch.obs.diff\n"
+        "import repro_torch.exec.smoke\n"
+        "from repro_torch.obs import Tracer\n"
+        "import tempfile\n"
         "from repro_torch.apps import APPS\n"
         "from repro_torch.compiler import CompileOptions, compile\n"
         "from repro_torch.core import fpga_ring_cluster\n"
@@ -178,6 +201,18 @@ def test_port_path_loads_no_jax_and_no_repro():
         "            CompileOptions())\n"
         "r = d.execute({'h': 16, 'w': 16}, device='cpu')\n"
         "assert all(r.report.agreement().values())\n"
+        "with tempfile.TemporaryDirectory() as t:\n"
+        "    inj = repro_torch.runtime.FailureInjector([3])\n"
+        "    try:\n"
+        "        d.execute({'h': 16, 'w': 16}, device='cpu', injector=inj,\n"
+        "                  checkpoint_dir=t, checkpoint_every=2)\n"
+        "    except inj.Injected:\n"
+        "        pass\n"
+        "    r = repro_torch.exec.resume_execution(\n"
+        "        d, t, inputs={'h': 16, 'w': 16}, device='cpu',\n"
+        "        tracer=Tracer())\n"
+        "assert all(r.report.agreement().values())\n"
+        "assert r.report.metrics.total('exec.device.fired') > 0\n"
         "d = compile(APPS['axpy'].build_graph(2), fpga_ring_cluster(2),\n"
         "            CompileOptions(mem=repro_torch.mem.MemConfig()))\n"
         "r = d.execute(device='cpu')\n"

@@ -532,3 +532,54 @@ def test_prefill_step_on_cuda_matches_decode(cuda, arch):
     scale = float(dec.abs().max())
     assert float((got - dec).abs().max()) <= 1e-4 * scale
     assert float((got.cpu() - cpu).abs().max()) <= 1e-4 * scale
+
+
+def test_snapshot_resume_on_cuda(cuda, tmp_path):
+    """A CUDA stencil run through the ring's fabric, killed after a
+    barrier and resumed: every restored token and sink output lies on the
+    card (the kernel wrappers refuse CPU tensors), dilate launches in the
+    resumed run, and the outputs are the uninterrupted run's bits."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.exec import (ExecutionState, bit_identical,
+                                  load_snapshot, restore_state,
+                                  resume_execution, snapshot_steps)
+    from repro_torch.obs.smoke import compile_app
+    from repro_torch.runtime import FailureInjector
+
+    graph, design = compile_app("stencil", 4)
+    base = execute(design, bind_programs(graph, device=cuda), device=cuda)
+    d = str(tmp_path)
+    with pytest.raises(FailureInjector.Injected):
+        execute(design, bind_programs(graph, device=cuda), device=cuda,
+                injector=FailureInjector([5]), checkpoint_dir=d,
+                checkpoint_every=3)
+    steps = snapshot_steps(d)
+    assert steps and steps[-1] < 5
+    state = ExecutionState(design, bind_programs(graph, device=cuda),
+                           device=cuda)
+    restore_state(state, load_snapshot(d, steps[-1]))
+    leaves = pytree.tree_leaves(
+        ([e.token for fc in state.channels for e in fc._q],
+         list(state.sink_outputs.values())))
+    assert leaves and all(t.device.type == "cuda" for t in leaves)
+    reset_launch_counts()
+    resumed = resume_execution(design, d,
+                               binding=bind_programs(graph, device=cuda),
+                               device=cuda)
+    assert launch_counts()["dilate"] > 0
+    assert bit_identical(resumed.outputs, base.outputs)
+    assert all(resumed.report.agreement().values())
+
+
+@pytest.mark.parametrize("app", ["stencil", "cnn"])
+def test_traced_fabric_run_on_cuda(cuda, app):
+    """The obs smoke's contract on the card: the traced run gives the
+    untraced bits and counters, and its counters equal the CPU run's."""
+    from repro_torch.obs.smoke import check_app, compile_app, counters
+
+    graph, design = compile_app(app, 4)
+    run = check_app(app, graph, design, cuda)
+    cpu = execute(design, bind_programs(graph, device="cpu"), device="cpu")
+    assert counters(run["result"].report) == counters(cpu.report)
+    assert run["result"].report.metrics.total("exec.device.fired") > 0

@@ -33,13 +33,12 @@ the port does not rewrite it)::
 
     PYTHONPATH=src python -m repro_torch.obs.diff \
         --baseline results/obs_baseline.json \
-        --current results/obs_metrics_torch.json [--out report.json] \
-        [--apps stencil pagerank]
+        --current results/obs_metrics_torch.json [--out report.json]
 
-Exit 0 and ``OBS_DIFF_OK`` when every gated app is within its
+Exit 0 and ``OBS_DIFF_OK`` when every app of the baseline is within its
 tolerances, 1 on drift, 2 when ``--current`` is not an
-``obs-metrics/v1`` document.  ``--apps`` gates only the named apps of the
-baseline (default: all of them).
+``obs-metrics/v1`` document or the baseline is not an ``obs-baseline/v1``
+one.
 """
 from __future__ import annotations
 
@@ -237,8 +236,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--current", default="results/obs_metrics_torch.json")
     ap.add_argument("--out", default=None,
                     help="write the obs-diff-report/v1 JSON here")
-    ap.add_argument("--apps", nargs="+", default=None,
-                    help="gate only these apps of the baseline")
     args = ap.parse_args(argv)
 
     baseline = load_json(args.baseline)
@@ -249,15 +246,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               file=sys.stderr)
         return 2
     apps = current["apps"]
-    if args.apps is not None:
-        base_apps = baseline.get("apps", {})
-        unknown = sorted(set(args.apps) - set(base_apps))
-        if unknown:
-            print(f"error: apps {unknown} are not in {args.baseline}",
-                  file=sys.stderr)
-            return 2
-        baseline = dict(baseline,
-                        apps={a: base_apps[a] for a in args.apps})
     try:
         diffs = diff_against_baseline(baseline, apps)
     except ValueError as e:

@@ -10,12 +10,16 @@ JAX package's ``obs``) held against the JAX package.
   the wall-clock ``exec.device.busy_s``) and its critical-path
   attribution; the port's traced run gives its untraced run's bits and
   counters; the Chrome trace is valid and the JSONL stream round-trips;
-* for stencil and pagerank compiled as the obs smoke compiles them, and
-  on the partition the baseline was taken at (``BASELINE_PINS``: the
-  partition MILP has tied optima that solver releases break differently),
-  the port's metrics pass the committed ``results/obs_baseline.json``
-  (cnn and knn drift from that file for the JAX package itself, so they
-  are held to the JAX run above instead);
+* for stencil and pagerank compiled as the obs smoke compiles them, on
+  the partition the baseline was taken at (``BASELINE_PINS``: the
+  partition MILP has tied optima that solver releases break differently,
+  and the pins tie the JAX package's optimum), the port's metrics pass
+  the committed ``results/obs_baseline.json`` (cnn and knn drift from
+  that file for the JAX package itself, so they are held to the JAX run
+  above instead);
+* the cost ledger, the substrate registry and the SLO monitor, each
+  package reading a hand-made tenant server over its own lossy
+  transport, bank model and tracer;
 * the memory path, traced, against the JAX run of the same binding;
 * ``python -m repro_torch.obs.diff`` exit codes and the obs smoke.
 
@@ -28,6 +32,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -231,14 +236,14 @@ def test_design_summary_obs_block_equals_jax():
 # The committed baseline: stencil and pagerank, as the obs smoke compiles.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("pinned", [False, True])
 @pytest.mark.parametrize("app", ["stencil", "pagerank"])
-def test_metrics_pass_the_committed_baseline(app, pinned):
-    """As the obs smoke compiles (this host's solver picks the baseline's
-    partition) and on the baseline's partition pinned (as the card's
-    smoke runs it, whose solver breaks the MILP's ties otherwise)."""
-    pins = obs_smoke.BASELINE_PINS[app] if pinned else None
-    graph, design = obs_smoke.compile_app(app, 4, pins=pins)
+def test_metrics_pass_the_committed_baseline(app):
+    """On the baseline's partition pinned, as the card's smoke runs it:
+    the partition MILP has tied optima, and which one the solver returns
+    depends on the scipy release, while every counter of the baseline
+    follows the partition."""
+    graph, design = obs_smoke.compile_app(app, 4,
+                                          pins=obs_smoke.BASELINE_PINS[app])
     assert design.partition.assignment == obs_smoke.BASELINE_PINS[app]
     run = obs_smoke.check_app(app, graph, design, torch.device("cpu"))
     baseline = load_json(str(BASELINE))
@@ -248,16 +253,132 @@ def test_metrics_pass_the_committed_baseline(app, pinned):
 
 
 @pytest.mark.parametrize("app", ["stencil", "pagerank"])
-def test_baseline_pins_are_the_jax_packages_partition(app):
-    """The pins are what the JAX package's compile with the obs smoke's
-    options (its chaos harness's ``compile_app``) gives here, the run
-    whose metrics match the committed baseline."""
+def test_baseline_pins_tie_the_jax_packages_partition(app):
+    """The pins are an optimum of the problem the JAX package's compile
+    with the obs smoke's options (its chaos harness's ``compile_app``)
+    solves: the same comm cost, whichever tied optimum this host's solver
+    returns.  And the port's compile with those options returns the JAX
+    package's partition, since both call the same solver."""
     from repro.chaos.runner import compile_app as jax_compile_app
     _, ref = jax_compile_app(app, 4)
-    assert ref.partition.assignment == obs_smoke.BASELINE_PINS[app]
+    _, port = obs_smoke.compile_app(app, 4)
+    assert port.partition.assignment == ref.partition.assignment
     _, pinned = obs_smoke.compile_app(app, 4,
                                       pins=obs_smoke.BASELINE_PINS[app])
     assert pinned.partition.comm_cost == ref.partition.comm_cost
+
+
+# ---------------------------------------------------------------------------
+# The cost ledger and the SLO monitor.  Both read a finished tenant server,
+# which the tenant layer brings; here each package reads a hand-made one
+# over its own lossy transport, bank model and tracer.
+# ---------------------------------------------------------------------------
+
+def _hand_made_server(core, net, faults, mem, obs):
+    """Three tenant incarnations: ``a`` (flow 1) runs to the end, ``b``
+    (flow 2) is killed with messages in flight, and ``b+recovered``
+    (flow 3) is its restore.  Each crosses a lossy daisy chain and reads
+    HBM banks; the tracer carries their channel pushes and pops."""
+    slo = lambda t, w: types.SimpleNamespace(  # noqa: E731
+        target_latency_s=t, deadline_factor=2.0, weight=w)
+    rec = lambda name, flow, status, via, start, end, s: \
+        types.SimpleNamespace(  # noqa: E731
+            name=name, flow=flow, status=status, recovered_via=via,
+            start_sweep=start, end_sweep=end,
+            tenant=types.SimpleNamespace(slo=s))
+    records = [rec("a", 1, "done", None, 0, 40, slo(4e-6, 2.0)),
+               rec("b", 2, "killed", None, 0, 6, slo(8e-6, 1.0)),
+               rec("b+recovered", 3, "done", "restore", 6, 30,
+                   slo(8e-6, 1.0))]
+    fm = faults.FaultModel(seed=3, default=faults.LinkFaults(
+        drop=0.10, corrupt=0.05), fail_threshold=None)
+    cfg = net.NetConfig(mtu_bytes=32, link_credits=4, sweep_time_s=1e-6)
+    tp = net.FabricTransport(net.build_fabric(core.DaisyChain(3)), cfg,
+                             faults=fm)
+    ms = mem.MemorySystem(3, mem.MemConfig())
+    for i in range(6):
+        tp.submit(i, 0, 2, 96 + 32 * i, 0, flow=1)
+        tp.submit(6 + i, 2, 0, 64 + 16 * i, 0, flow=2)
+        ms.submit(i, i % 3, i, 1024 * (i + 1), 0, flow=1 + i % 2)
+    for sweep in range(6):
+        tp.step(sweep)
+        ms.step(sweep)
+    tp.cancel_flow(2)
+    for i in range(4):
+        tp.submit(12 + i, 1, 2, 80, 6, flow=3)
+        ms.submit(12 + i, 1, i, 700, 6, flow=3)
+    tp.drain(6)
+    ms.drain(6)
+    tracer = obs.Tracer()
+    for sweep in range(40):
+        for flow, ch, lag in ((1, 0, 3 + sweep % 5), (3, 1, 9)):
+            tracer.channel_push(sweep, ch, "src", "dst", 64 + sweep, flow)
+            if sweep >= lag:
+                tracer.channel_pop(sweep, ch, "src", "dst", flow)
+    return types.SimpleNamespace(records=records, transport=tp, memsys=ms,
+                                 tracer=tracer, net_config=cfg)
+
+
+def _servers():
+    import repro.core as jcore
+    import repro.mem as jmem
+    import repro.net as jnet
+    import repro.net.faults as jfaults
+    import repro_torch.core as tcore
+    import repro_torch.mem as tmem
+    import repro_torch.net as tnet
+    import repro_torch.net.faults as tfaults
+    return (_hand_made_server(tcore, tnet, tfaults, tmem, tobs),
+            _hand_made_server(jcore, jnet, jfaults, jmem, jobs))
+
+
+def test_cost_ledger_equals_jax():
+    port_server, jax_server = _servers()
+    port = tobs.build_ledger(port_server)
+    ref = jobs.build_ledger(jax_server)
+    assert port.to_json() == ref.to_json()
+    totals = port.totals()
+    assert totals["retransmit_bytes"] > 0 and totals["cancelled_bytes"] > 0
+    assert port.by_lineage()["b"]["restore_sweeps"] == 24
+    port_reg = tobs.substrate_metrics(port_server)
+    assert port_reg.to_json() == \
+        jobs.substrate_metrics(jax_server).to_json()
+    assert port.to_registry().to_json() == ref.to_registry().to_json()
+    tobs.assert_ledger_consistent(port, port_server, registry=port_reg)
+
+
+def test_slo_monitor_equals_jax():
+    """The monitor watches the incarnations while they run: ``b`` until
+    its kill at sweep 6, ``b+recovered`` from 6 to 30, ``a`` throughout."""
+    port_server, jax_server = _servers()
+    monitors = []
+    for server, obs in ((port_server, tobs), (jax_server, jobs)):
+        events = list(server.tracer.events)
+        server.tracer.events.clear()
+        final = {r.name: r.status for r in server.records}
+        a, b, reborn = server.records
+        server.records = [a, b]
+        for r in server.records:
+            r.status = "running"
+        mon = obs.SLOMonitor(window=8, cooldown=4)
+        raised = []
+        for sweep in range(40):
+            if sweep == 6:
+                b.status = final["b"]
+                reborn.status = "running"
+                server.records.append(reborn)
+            if sweep == 30:
+                reborn.status = final["b+recovered"]
+            server.tracer.events.extend(e for e in events if e[1] == sweep)
+            raised.append(mon.observe(server, sweep))
+        monitors.append((mon, raised))
+    (port, port_raised), (ref, ref_raised) = monitors
+    assert port_raised == ref_raised
+    assert port.summary(40) == ref.summary(40)
+    assert port.burn_rates(40) == ref.burn_rates(40)
+    metrics = {a["metric"] for a in port.alerts}
+    assert metrics == {"p99_latency_s", "burn_rate"}
+    assert port_server.tracer.count("slo_alert") == len(port.alerts)
 
 
 # ---------------------------------------------------------------------------
@@ -385,8 +506,6 @@ def test_diff_command_exit_codes(tmp_path):
     assert out.returncode == 1
     assert "OBS_DIFF_DRIFT" in out.stdout and "DRIFT   exec.device.fired" \
         in out.stdout
-    out = _diff(tmp_path, moved, "--apps", "pagerank")
-    assert out.returncode == 0 and "not gated" in out.stdout
     out = _diff(tmp_path, {"format": "something-else"})
     assert out.returncode == 2 and "obs-metrics/v1" in out.stderr
 

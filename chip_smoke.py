@@ -100,6 +100,39 @@ Phases (any failure exits non-zero before the final line):
    ``agreement()`` value, dilate launched in the resumed run; prints the
    snapshot's bytes, the seconds to save it and to resume, and the extra
    sweeps.
+7. The tenant server (``[tenants]`` lines).  (a) The tenant smoke's logic
+   (``repro_torch.tenants.smoke.stencil_serves`` / ``bank_serves``) at the
+   binders' default sizes, on the card and on the CPU: two stencil tenants
+   on the shared 4-ring (placed ``[0, 2]`` and ``[0, 1]``, weights 2 and
+   1), the clean co-run and a kill of device 2 at sweep 2 with recompile;
+   then two ``axpy`` tenants over one shared ``MemConfig()`` bank model.
+   Outputs bit-identical to the solo runs, conservation exact (bank bytes
+   per tenant too), the ledger consistent; the card's counters (sweeps,
+   per-link flow bytes, per-tenant link and bank bytes, statuses,
+   ``killed_at``, ``recovered_as`` / ``recovered_via``, the ledgers) equal
+   to the CPU run's; dilate (axpy) launched in each serve.  (b) Full
+   width: two stencil tenants, each ``build_graph(2, iters=64)`` on a
+   private 2-ring bound at phase 4's images (4096 x 4096 fp32, 2 images,
+   ``stage_iters`` 16; seeds 0 and 7), on ``cluster_fabric(
+   fpga_ring_cluster(4))``: the clean co-run, a permanent kill of device 2
+   at half its sweeps (recompiled onto the survivor), and a transient kill
+   there that restores from a sweep barrier (``checkpoint_every`` = half
+   the kill sweep, snapshots in a temporary directory).  Every finished
+   tenant has its solo ideal-path bits (the recompiled one its
+   ``reference()`` within ``atol``), conservation is exact, the ledger is
+   consistent and the peer is charged zero, dilate launches in each run
+   (counts zeroed and read around ``run()``).  Prints sweeps,
+   ``wall_time_s``, each tenant's latency in sweeps and goodput, the
+   snapshot bytes and the restore sweeps.
+8. The chaos harness (``[chaos]`` lines), at the binders' default sizes:
+   the chaos smoke's reduced matrix (drop-mid, down-window, link-death,
+   kill-restore) on stencil; drop-mid and kill-restore on CNN, KNN and
+   PageRank, on the designs phase 6 compiled; the two per-tenant cells
+   (tenant-drop, tenant-kill).  Each cell's record (sweeps, overhead
+   sweeps, retransmit and goodput-hop bytes, restore sweeps, the ledger of
+   a tenant cell) must equal the port's CPU run of the same cell: the
+   faults are drawn on the host from the scenario's seed.  dilate, matmul
+   and knn must each launch in their app's cells.
 
 The flash attention row (phase 3) holds both kernels, on the same bf16
 inputs, to their plain version at the prefill step's shape (causal) and at
@@ -163,6 +196,9 @@ PAGERANK_REL_TOL = 1e-5
 FULL_SIZE = (("stencil", STENCIL_SPEC, "dilate"), ("cnn", CNN_SPEC, "matmul"),
              ("knn", KNN_SPEC, "knn"))
 GRAPH_ARGS = {"stencil": (4, 64), "cnn": (4,), "knn": (4,), "pagerank": (4,)}
+# The full-width tenants: each stencil tenant is build_graph(2, iters=64)
+# on a private 2-ring, bound at STENCIL_SPEC's images.
+GRAPH_ARGS_TENANT = (2, 64)
 SPECS = {"stencil": STENCIL_SPEC, "cnn": CNN_SPEC, "knn": KNN_SPEC,
          "pagerank": PAGERANK_SPEC}
 OBS_APPS = ("stencil", "cnn", "knn", "pagerank")
@@ -1297,20 +1333,23 @@ def obs_fabric_row(app: str, graph, design, dev, compile_s: float,
     return row
 
 
-def obs_fabric_rows(dev) -> None:
+def obs_fabric_rows(dev) -> dict:
     """The obs smoke on the card: the four apps at their binders' default
     sizes through the 4-ring fabric, traced and untraced, each compiled as
     the obs smoke compiles it.  The partition MILP has tied optima that
     solver releases break differently, so stencil and pagerank also run
     on the partition the committed baseline was taken at (``BASELINE_PINS``),
-    and those runs must pass the baseline."""
+    and those runs must pass the baseline.  Returns each app's
+    ``(graph, design)`` as the obs smoke compiles it (the chaos phase runs
+    them)."""
     from repro_torch.obs.diff import load_json
     from repro_torch.obs.smoke import BASELINE_PINS, compile_app
 
     baseline = load_json(str(ROOT / "results" / "obs_baseline.json"))
+    compiled = {}
     for app in OBS_APPS:
         t0 = time.perf_counter()
-        graph, design = compile_app(app, 4)
+        graph, design = compiled[app] = compile_app(app, 4)
         compile_s = time.perf_counter() - t0
         obs_fabric_row(app, graph, design, dev, compile_s, baseline,
                        pinned=False)
@@ -1320,6 +1359,7 @@ def obs_fabric_rows(dev) -> None:
             compile_s = time.perf_counter() - t0
             obs_fabric_row(app, graph, design, dev, compile_s, baseline,
                            pinned=True)
+    return compiled
 
 
 def obs_full_size_rows(designs: dict):
@@ -1442,10 +1482,233 @@ def obs_snapshot_row(design, untraced) -> None:
             "the resumed run")
 
 
-def obs_phase(dev, designs: dict) -> None:
-    obs_fabric_rows(dev)
+def obs_phase(dev, designs: dict) -> dict:
+    """Returns the obs smoke's compiled designs (``obs_fabric_rows``)."""
+    compiled = obs_fabric_rows(dev)
     obs_snapshot_row(designs["stencil"], obs_full_size_rows(designs))
     print(f"[obs] card: {card_line()}", flush=True)
+    return compiled
+
+
+# -- phase 7: the tenant server ---------------------------------------------
+
+def tenant_smoke_rows(dev) -> None:
+    """The tenant smoke's logic at the binders' default sizes, on the card
+    and on the CPU: the stencil co-run and kill, and the axpy co-run and
+    kill over one shared bank model.  Each raises on a broken guarantee
+    (bits against the solo runs, conservation, the ledger); the card's
+    integer counters must equal the CPU run's, and the app's kernel must
+    launch in each card run."""
+    from repro_torch.tenants.smoke import bank_serves, stencil_serves
+
+    for name, serve, kernel in (("stencil", stencil_serves, "dilate"),
+                                ("axpy, shared banks", bank_serves, "axpy")):
+        t0 = time.perf_counter()
+        card = serve(dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        cpu = serve(torch.device("cpu"))
+        same = card["counters"] == cpu["counters"]
+        corun = card["counters"]["corun"]
+        row = {"tenants": name, "phase": "tenant smoke, default size",
+               "corun_sweeps": corun["sweeps"],
+               "kill_sweeps": card["counters"]["kill"]["sweeps"],
+               "conservation": corun["conservation"],
+               "kill_records": [
+                   {k: r[k] for k in ("name", "status", "killed_at",
+                                      "recovered_as", "recovered_via")}
+                   for r in card["counters"]["kill"]["records"]],
+               "wall_time_s": card["wall_time_s"], "phase_s": card_s,
+               "launches": {k: v[kernel] for k, v in
+                            card["launches"].items()},
+               "counters_equal_cpu": same}
+        print(f"[tenants] {json.dumps(row)}", flush=True)
+        require(same, f"tenants {name}: the card's counters "
+                f"{card['counters']} differ from the CPU run's "
+                f"{cpu['counters']}")
+        require(all(v[kernel] > 0 for v in card["launches"].values()),
+                f"tenants {name}: {kernel} never launched in a serve")
+
+
+def tenant_full_width_rows(dev) -> None:
+    """Two stencil tenants at phase 4's image size (4096 x 4096 fp32, 2
+    images, ``stage_iters`` 16), each ``build_graph(2, iters=64)`` compiled
+    on a private 2-ring, co-run on the shared 4-ring fabric: clean, with a
+    permanent kill of device 2 mid-run (recompiled onto the survivor), and
+    with a transient kill that restores from a sweep barrier.  Every
+    finished tenant has its solo ideal-path bits (a recompiled one its
+    ``reference()`` within ``atol``), conservation is exact, the ledger is
+    consistent and the peer is charged zero; dilate launches in each run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.exec import bind_programs, bit_identical
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import (assert_ledger_consistent,
+                                 assert_peers_uncharged, build_ledger,
+                                 substrate_metrics)
+    from repro_torch.tenants import DeviceKill, TenantServer
+    from repro_torch.tenants.smoke import (STENCIL_SEEDS, compile_tenants,
+                                           make_tenants, shared_fabric,
+                                           solo_runs)
+
+    spec = {k: v for k, v in STENCIL_SPEC.items() if k != "seed"}
+    t0 = time.perf_counter()
+    specs, graphs, designs = compile_tenants(
+        "stencil", STENCIL_SEEDS, graph_args=GRAPH_ARGS_TENANT, spec=spec)
+    compile_s = time.perf_counter() - t0
+    solo = solo_runs(graphs, designs, specs, dev)
+    ref_a = bind_programs(graphs["a"], specs["a"], device=dev)
+    reference_a = ref_a.reference()
+
+    def serve(name, faults=(), fields=None, checkpoint_every=None):
+        server = TenantServer(shared_fabric(),
+                              make_tenants(designs, specs, **(fields or {})),
+                              device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = server.run(faults=list(faults),
+                         checkpoint_every=checkpoint_every)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        ledger = build_ledger(server)
+        assert_ledger_consistent(ledger, server,
+                                 registry=substrate_metrics(server))
+        if faults:
+            assert_peers_uncharged(ledger, ["a"])
+        cons = out.conservation
+        duration = out.sweeps * server.net_config.sweep_time_s
+        tenants, bits = {}, {}
+        for rec in out.records:
+            row = {"status": rec.status, "flow": rec.flow,
+                   "link_bytes": cons["per_tenant_link_bytes"][rec.name]}
+            if rec.status == "done":
+                row["latency_sweeps"] = rec.end_sweep - rec.start_sweep
+                row["goodput_Bps"] = row["link_bytes"] / duration
+                if rec.recovered_via == "recompile":
+                    err = float((rec.result.outputs.double()
+                                 - reference_a.double()).abs().max())
+                    row["parity_max_err"] = err
+                    bits[rec.name] = err <= ref_a.atol
+                else:
+                    bits[rec.name] = bit_identical(
+                        rec.result.outputs, solo[rec.name[0]].outputs)
+            if rec.killed_at is not None:
+                row["killed_at"] = rec.killed_at
+            if rec.recovered_via is not None:
+                row["recovered_via"] = rec.recovered_via
+            tenants[rec.name] = row
+        by = ledger.by_lineage()
+        row = {"tenants": "stencil, full width", "run": name,
+               "sweeps": out.sweeps, "wall_time_s": out.wall_time_s,
+               "total_link_bytes": cons["total_link_bytes"],
+               "conservation_exact": cons["exact"], "tenant": tenants,
+               "cancelled_bytes": by["a"]["cancelled_bytes"],
+               "restore_sweeps": by["a"]["restore_sweeps"],
+               "solo_bits_or_reference": bits,
+               "launches": launches["dilate"]}
+        require(all(r.status in ("done", "killed") for r in out.records)
+                and sum(r.status == "done" for r in out.records) == 2,
+                f"tenants full width {name}: {tenants}")
+        require(all(bits.values()),
+                f"tenants full width {name}: outputs differ {bits}")
+        require(cons["exact"], f"tenants full width {name}: conservation")
+        require(launches["dilate"] > 0,
+                f"tenants full width {name}: dilate never launched")
+        return out, row
+
+    clean, row = serve("clean co-run")
+    row["compile_s"] = compile_s
+    print(f"[tenants] {json.dumps(row)}", flush=True)
+    kill = clean.sweeps // 2
+    _, row = serve("permanent kill", [DeviceKill(device=2, sweep=kill)])
+    print(f"[tenants] {json.dumps(row)}", flush=True)
+    every = kill // 2
+    root = tempfile.mkdtemp(prefix="chip_smoke_tenants_")
+    try:
+        out, row = serve("transient kill, restore",
+                         [DeviceKill(device=2, sweep=kill, transient=True)],
+                         fields={"a": {"checkpoint_dir": root}},
+                         checkpoint_every=every)
+        steps = sorted(int(p.name[len("step_"):])
+                       for p in Path(root).glob("step_*")
+                       if not p.name.endswith(".tmp"))
+        row.update({"checkpoint_every": every, "barriers": steps,
+                    "snapshot_bytes": sum(f.stat().st_size for f in
+                                          Path(root).rglob("*")
+                                          if f.is_file()),
+                    "extra_sweeps": out.sweeps - clean.sweeps})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[tenants] {json.dumps(row)}", flush=True)
+    require(row["tenant"]["a+recovered"].get("recovered_via") == "restore",
+            "tenants full width: the transient kill did not restore")
+
+
+def tenants_phase(dev) -> None:
+    tenant_smoke_rows(dev)
+    tenant_full_width_rows(dev)
+    print(f"[tenants] card: {card_line()}", flush=True)
+
+
+# -- phase 8: the chaos harness ---------------------------------------------
+
+def chaos_phase(dev, compiled: dict) -> None:
+    """The chaos smoke's reduced matrix on stencil, drop-mid and
+    kill-restore on CNN, KNN and PageRank (on the obs phase's designs),
+    and the two per-tenant cells, at the binders' default sizes: each
+    cell's record must equal the port's CPU run of the same cell, and the
+    app's kernel must launch in its cells."""
+    from repro_torch.chaos.runner import run_matrix, run_tenant_cell
+    from repro_torch.chaos.smoke import SMOKE_SCENARIOS, TENANT_SCENARIOS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    cpu = torch.device("cpu")
+    kernels = {"stencil": "dilate", "cnn": "matmul", "knn": "knn"}
+    short = tuple(sc for sc in SMOKE_SCENARIOS
+                  if sc.name in ("drop-mid", "kill-restore"))
+    for app in OBS_APPS:
+        scenarios = SMOKE_SCENARIOS if app == "stencil" else short
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        card = run_matrix((app,), scenarios, device=dev,
+                          compiled={app: compiled[app]})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = launch_counts()
+        ref = run_matrix((app,), scenarios, device=cpu,
+                         compiled={app: compiled[app]})
+        for cell, want in zip(card["cells"], ref["cells"]):
+            row = {"app": app, "scenario": cell["scenario"],
+                   **{k: cell.get(k) for k in (
+                       "baseline_sweeps", "sweeps", "overhead_sweeps",
+                       "retransmit_bytes", "goodput_hop_bytes",
+                       "restore_extra_sweeps")},
+                   "equal_cpu": cell == want}
+            print(f"[chaos] {json.dumps(row)}", flush=True)
+            require(cell == want, f"chaos {app} {cell['scenario']}: the "
+                    f"card's record {cell} differs from the CPU's {want}")
+        kernel = kernels.get(app)            # PageRank has no kernel
+        summary = {"app": app, "matrix_s": card_s, "launches": launches}
+        print(f"[chaos] {json.dumps(summary)}", flush=True)
+        require(kernel is None or launches[kernel] > 0,
+                f"chaos {app}: {kernel} never launched in its cells")
+    for sc in TENANT_SCENARIOS:
+        reset_launch_counts()
+        cell = run_tenant_cell(sc, device=dev)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        want = run_tenant_cell(sc, device=cpu)
+        row = {"tenants": "stencil", "scenario": sc.name,
+               "sweeps": cell["sweeps"], "clean_sweeps": cell["clean_sweeps"],
+               "by_lineage": cell["ledger"]["by_lineage"],
+               "equal_cpu": cell == want, "launches": launches["dilate"]}
+        print(f"[chaos] {json.dumps(row)}", flush=True)
+        require(cell == want, f"chaos {sc.name}: the card's record differs "
+                f"from the CPU's")
+        require(launches["dilate"] > 0, f"chaos {sc.name}: dilate never "
+                "launched")
+    print(f"[chaos] card: {card_line()}", flush=True)
 
 
 def main() -> int:
@@ -1501,7 +1764,9 @@ def main() -> int:
     lm = lm_path_phase(dev)
     launches["flash_attention"] = lm["launches"]["flash_attention_tc"]
     torch.cuda.empty_cache()
-    obs_phase(dev, designs)
+    compiled = obs_phase(dev, designs)
+    tenants_phase(dev)
+    chaos_phase(dev, compiled)
 
     blas = "src/repro/kernels/hbm_blas/kernel.py"
     sources = {"dilate": ("src/repro_torch/csrc/dilate.cu",

@@ -54,8 +54,22 @@ barrier, and :func:`~repro_torch.exec.snapshot.resume_execution`
 continues a killed run (``injector=``, a
 :class:`~repro_torch.runtime.fault.FailureInjector`) from the last one.
 
-Tenant sharing (a transport, memory system or device map handed in from
-outside) belongs to the tenant layer, which is not yet ported.
+Multi-tenant sharing (:mod:`repro_torch.tenants`): the per-design
+machinery lives in :class:`ExecutionState` — a resumable state machine that
+fires one sweep at a time (:meth:`ExecutionState.advance`) and receives
+network and memory completions from outside
+(:meth:`ExecutionState.net_deliver` / :meth:`ExecutionState.mem_deliver`).
+``execute()`` wraps one state in the solo loop and *owns* its transport
+and memory system; a tenant server instead passes every state a
+flow-scoped **view** of one shared transport/memory system
+(``transport=`` / ``memsys=``) plus a ``device_map`` placing the design's
+logical devices onto the shared fabric's ids, then steps the shared
+substrate itself and demuxes completions back to the states.  The map
+places logical devices on *fabric* ids only: every logical device still
+runs on the one torch device.  Sharing never touches the numerics — a
+channel's payload rides outside the flit clock — so a tenant's outputs are
+bit-identical to its solo run by construction, which the tenant layer
+asserts rather than assumes.
 
 Detection:
 
@@ -134,11 +148,22 @@ def _estimate_flit_hops(channels: Sequence[FifoChannel], transport) -> int:
 class ExecutionState:
     """One design's live execution — fire-a-sweep-at-a-time state machine.
 
-    Owns everything per-design: the FIFO channels, firing counts, the
-    starvation and congestion tallies, and the fabric transport and memory
-    system it creates.  :meth:`advance` fires one
-    sweep; :meth:`run` drives the state to completion, stepping the
-    transport and the bank model.
+    Owns everything per-design (FIFO channels, memory streams, firing
+    counts, starvation/congestion tallies) and nothing shared: the network
+    transport and memory system are either created here (solo mode — the
+    ``execute()`` path, signalled by ``transport``/``memsys`` left at
+    None) or handed in by a tenant server as flow-scoped views over one
+    shared substrate.  In shared mode the server steps the substrate and
+    routes completions back through :meth:`net_deliver` /
+    :meth:`mem_deliver`; this state never steps or drains what it does not
+    own (``owns_transport`` / ``owns_memsys``).
+
+    ``device_map[logical] -> fabric id`` places the design's partition
+    onto the (possibly larger, shared) fabric; it defaults to the
+    identity.  Logical ids keep driving the Eq. 2 accounting either way —
+    the map only changes what the *network* sees — and every logical
+    device runs on ``device``.  ``trace_flow`` tags this state's trace
+    events with its tenant flow.
     """
 
     def __init__(self, design: CompiledDesign,
@@ -151,8 +176,12 @@ class ExecutionState:
                  fabric: Any = FROM_DESIGN,
                  net_config: Any = None,
                  mem: Any = FROM_DESIGN,
+                 transport: Any = None,
+                 memsys: Any = None,
+                 device_map: Optional[Sequence[int]] = None,
                  faults: Any = None,
-                 tracer: Any = None):
+                 tracer: Any = None,
+                 trace_flow: int = 0):
         if design.partition is None:
             raise ValueError("execute() needs a partitioned design "
                              "(run the partition pass)")
@@ -163,21 +192,40 @@ class ExecutionState:
         self.design = design
         self.binding = binding
         self.tracer = coerce_tracer(tracer)
+        self.trace_flow = int(trace_flow)
         graph, assign = design.graph, design.partition.assignment
         self.graph, self.assign = graph, assign
         rep = design.pipeline_report
+        ndev = design.partition.num_devices()
 
-        if fabric is FROM_DESIGN:
-            fabric = design.fabric
-        transport = None
-        if fabric is not None:
-            from ..net.transport import FabricTransport
-            if fabric.num_devices != design.cluster.num_devices:
+        if device_map is None:
+            self.device_map = list(range(max(1, ndev)))
+        else:
+            self.device_map = [int(d) for d in device_map]
+            if len(self.device_map) < ndev:
                 raise ValueError(
-                    f"fabric spans {fabric.num_devices} devices but the "
-                    f"cluster has {design.cluster.num_devices}")
-            transport = FabricTransport(fabric, net_config, faults=faults,
-                                        tracer=self.tracer)
+                    f"device_map covers {len(self.device_map)} logical "
+                    f"devices but the partition uses {ndev}")
+
+        self.owns_transport = transport is None
+        if transport is None:
+            if fabric is FROM_DESIGN:
+                fabric = design.fabric
+            if fabric is not None:
+                from ..net.transport import FabricTransport
+                if fabric.num_devices != design.cluster.num_devices:
+                    raise ValueError(
+                        f"fabric spans {fabric.num_devices} devices but the "
+                        f"cluster has {design.cluster.num_devices}")
+                transport = FabricTransport(fabric, net_config,
+                                            faults=faults,
+                                            tracer=self.tracer)
+        else:
+            nfab = transport.fabric.num_devices
+            bad = [d for d in self.device_map[:max(1, ndev)] if d >= nfab]
+            if bad:
+                raise ValueError(f"device_map targets fabric devices {bad} "
+                                 f"outside the shared fabric's 0..{nfab - 1}")
         self.transport = transport
 
         self.channels: List[FifoChannel] = []
@@ -187,7 +235,9 @@ class ExecutionState:
             self.channels.append(FifoChannel(
                 i, ch, assign[ch.src], assign[ch.dst], latency=latency,
                 dst_device=self.device, transport=transport,
-                tracer=self.tracer))
+                net_src_dev=self.device_map[assign[ch.src]],
+                net_dst_dev=self.device_map[assign[ch.dst]],
+                tracer=self.tracer, trace_flow=self.trace_flow))
         for i, token in binding.prime.items():
             self.channels[i].prime(token)
 
@@ -216,30 +266,30 @@ class ExecutionState:
 
         # Async memory channels (repro_torch.mem) — one per declared
         # mem_reads stream, placed on the task's logical device and its
-        # compiled (or default) bank.  memsys None is the ideal path: same
-        # channels, immediate responses.
+        # compiled (or default) bank.  memsys None + mem_config None is the
+        # ideal path: same channels, immediate responses.
         mem_config = design.mem_config if mem is FROM_DESIGN else mem
+        self.owns_memsys = memsys is None
         self.mem_channels: List[Any] = []
         self.mem_chs: Dict[str, List[Any]] = {t: [] for t in graph.tasks}
-        memsys = None
         if binding.mem_reads:
             # Deferred: repro_torch.mem imports exec.channels.
-            from ..mem.banks import MemorySystem
             from ..mem.channels import AsyncMemChannel
-            from ..mem.contention import default_bank_map
             bank_map = dict(design.bank_map or {})
-            if mem_config is not None:
-                memsys = MemorySystem(design.partition.num_devices(),
-                                      mem_config, tracer=self.tracer)
-                if not bank_map:
-                    bank_map = default_bank_map(graph, assign, mem_config)
+            if memsys is None and mem_config is not None:
+                from ..mem.banks import MemorySystem
+                memsys = MemorySystem(ndev, mem_config, tracer=self.tracer)
+            if memsys is not None and not bank_map:
+                from ..mem.contention import default_bank_map
+                bank_map = default_bank_map(graph, assign, memsys.config)
             for task in sorted(binding.mem_reads):
                 for stream in sorted(binding.mem_reads[task]):
                     mc = AsyncMemChannel(
                         len(self.mem_channels), task, stream,
                         binding.mem_reads[task][stream], T,
                         device=assign[task], bank=bank_map.get(task, 0),
-                        memsys=memsys, tracer=self.tracer)
+                        memsys=memsys, tracer=self.tracer,
+                        trace_flow=self.trace_flow)
                     self.mem_channels.append(mc)
                     self.mem_chs[task].append(mc)
         self.memsys = memsys
@@ -259,7 +309,7 @@ class ExecutionState:
                 # model).
                 est = _estimate_flit_hops(self.channels, transport)
                 max_sweeps += 256 + 64 * (T + 1) * max(1, est)
-                if transport.faults is not None:
+                if getattr(transport, "faults", None) is not None:
                     # Losses inflate transmissions and backoff spaces the
                     # retries — budget for it so a lossy-but-progressing
                     # run is not misdiagnosed as throughput collapse.
@@ -301,7 +351,7 @@ class ExecutionState:
     def has_pending(self, sweep: int) -> bool:
         """Progress is still coming without any task firing: a token is
         ripening in a FIFO, a response in the reorder window, or traffic
-        is in the network / bank pipe."""
+        is in the network / bank pipe (flow-scoped in shared mode)."""
         if any(vis > sweep for fc in self.channels
                for vis in fc.pending_visibility()):
             return True
@@ -338,6 +388,7 @@ class ExecutionState:
             "dataflow deadlock at sweep %d — no task can fire and "
             "no token is in flight:\n%s" % (sweep, "\n".join(lines)))
 
+    # -- completion demux (shared mode: called by the tenant server) ---------
     def net_deliver(self, channel_index: int, mid: int, sweep: int) -> None:
         self.channels[channel_index].on_delivered(mid, sweep)
 
@@ -348,9 +399,10 @@ class ExecutionState:
     def advance(self, sweep: int) -> int:
         """Fire every ready task once (reverse topo order); returns the
         firing count.  Does not step the transport or the memory system —
-        :meth:`run` does, after the firings."""
+        the owner of those does (:meth:`run` solo, the tenant server
+        shared)."""
         binding, T = self.binding, self.iterations
-        tr, flow = self.tracer, 0        # flow 0: one design per run
+        tr, flow = self.tracer, self.trace_flow
         fired_this_sweep = 0
         t0 = time.perf_counter()
         for mc in self.mem_channels:
@@ -489,7 +541,7 @@ class ExecutionState:
             checkpoint_dir: Optional[str] = None,
             checkpoint_every: Optional[int] = None) -> ExecutionResult:
         """Drive this state to completion, stepping the transport and the
-        bank model.
+        bank model it owns.
 
         ``injector`` (a :class:`~repro_torch.runtime.fault.FailureInjector`)
         is probed once per sweep — the chaos harness's kill switch.
@@ -511,12 +563,12 @@ class ExecutionState:
             if injector is not None:
                 injector.check(sweep)
             fired_this_sweep = self.advance(sweep)
-            if transport is not None:
+            if transport is not None and self.owns_transport:
                 t0 = time.perf_counter()
                 for mid, ch_index in transport.step(sweep):
                     self.net_deliver(ch_index, mid, sweep)
                 self.net_model_s += time.perf_counter() - t0
-            if memsys is not None:
+            if memsys is not None and self.owns_memsys:
                 t0 = time.perf_counter()
                 for rid, ch_index in memsys.step(sweep):
                     self.mem_deliver(ch_index, rid, sweep)
@@ -526,7 +578,8 @@ class ExecutionState:
                 from .snapshot import save_snapshot   # avoid import cycle
                 save_snapshot(self, sweep, checkpoint_dir)
                 if self.tracer.enabled:
-                    self.tracer.barrier(sweep, f"step_{sweep}", 0)
+                    self.tracer.barrier(sweep, f"step_{sweep}",
+                                        self.trace_flow)
             done = self.done
             if done:
                 break
@@ -543,14 +596,14 @@ class ExecutionState:
                 f"firings) — throughput collapse; check FIFO depths"
                 + (" and fabric link budgets" if transport is not None
                    else ""))
-        if transport is not None and transport.active:
+        if transport is not None and self.owns_transport and transport.active:
             # Run the network dry (e.g. final back-edge tokens nobody pops)
             # so the per-link byte conservation identities hold exactly.
             t0 = time.perf_counter()
             for mid, ch_index in transport.drain(sweep + 1):
                 self.net_deliver(ch_index, mid, sweep)
             self.net_model_s += time.perf_counter() - t0
-        if memsys is not None and memsys.active:
+        if memsys is not None and self.owns_memsys and memsys.active:
             # Every firing consumed its response, so the banks are normally
             # dry here — drain defensively so Σ bank bytes == Σ channel
             # bytes holds even if a program under-consumed.

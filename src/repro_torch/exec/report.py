@@ -386,14 +386,19 @@ def build_report(*, design, channels: Sequence[FifoChannel],
     retransmit = 0
     if transport is not None:
         from ..net.congestion import measure   # deferred: optional layer
-        congestion = measure(transport)
-        if transport.faults is not None:
-            goodput_hop = transport.goodput_hop_bytes_total()
-            retransmit = sum(c.retransmit_bytes for c in transport.counters)
+        # A tenant's flow-scoped transport view reports only its own
+        # traffic, so the link-conservation identity stays per-tenant.
+        inner = getattr(transport, "inner", transport)
+        flow = getattr(transport, "flow", None)
+        congestion = measure(inner, flow=flow)
+        if flow is None and getattr(inner, "faults", None) is not None:
+            goodput_hop = inner.goodput_hop_bytes_total()
+            retransmit = sum(c.retransmit_bytes for c in inner.counters)
     mem_contention = None
     if memsys is not None:
         from ..mem.contention import measure as _mem_measure
-        mem_contention = _mem_measure(memsys)
+        mem_contention = _mem_measure(getattr(memsys, "inner", memsys),
+                                      flow=getattr(memsys, "flow", None))
     mem_traces = [MemChannelTrace(
         task=mc.task, stream=mc.stream, device=mc.device, bank=mc.bank,
         count=mc.count, issued=mc.stats.issued, consumed=mc.stats.consumed,

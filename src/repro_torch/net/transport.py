@@ -11,7 +11,7 @@ link:
   across the messages queued on it, oldest message first — two channels
   crossing the same physical link genuinely halve each other's throughput;
 * **weighted flow shares** — when the transport is built with
-  ``flow_weights`` (the multi-tenant mode, the tenant layer), every
+  ``flow_weights`` (multi-tenant mode, ``repro_torch.tenants``), every
   message carries a ``flow`` id and each link runs deficit-round-robin
   *across flows*: a backlogged flow receives bandwidth proportional to its
   weight no matter how many messages its tenant stuffs into the queue —
@@ -42,16 +42,17 @@ drains, per-link byte totals satisfy ``Σ_link bytes == Σ_msg bytes × hops``
 and per-channel delivered bytes equal the bytes submitted.  Per-flow
 accounting is exact too: every crossed flit is attributed to its message's
 flow, so ``Σ_flow flow_bytes[l] == bytes[l]`` holds on every link at every
-sweep — the per-tenant conservation identity the tenant layer asserts.
+sweep — the per-tenant conservation identity :mod:`repro_torch.tenants`
+asserts.
 
 Tenant teardown: :meth:`cancel_flow` withdraws one flow's in-flight
 messages (releasing their link credits) without touching any other flow's
 queues — a dead tenant's traffic drains away while its peers' streams stay
 bit-identical to their solo runs.
 
-Faults + reliable delivery (``faults=`` a :class:`~repro_torch.net.faults.FaultModel`
-— the chaos layer; ``faults=None`` keeps every legacy path
-byte-for-byte identical):
+Faults + reliable delivery (``faults=`` a
+:class:`~repro_torch.net.faults.FaultModel` — the :mod:`repro_torch.chaos`
+layer; ``faults=None`` keeps every legacy path byte-for-byte identical):
 
 * each transmission attempt on a lossy link draws from that link's seeded
   rng — drop (frame vanishes), corrupt (CRC32 over the synthesized wire
@@ -105,7 +106,7 @@ class NetConfig:
     sweep_time_s: float = 1e-6     # wall time one executor sweep models
     link_credits: int = 8          # per-link ingress buffer, in flits
     hop_latency: bool = False      # Protocol.latency_s -> per-hop delay
-    #: Per-link fault model (the chaos layer): lossy links + ARQ + route
+    #: Per-link fault model (repro_torch.chaos): lossy links + ARQ + route
     #: repair.  ``None`` (the default) keeps every path byte-identical.
     faults: Optional[FaultModel] = None
 
@@ -158,7 +159,7 @@ class LinkCounters:
     # to exactly one flow's message, so ``Σ_flow flow_retransmit_bytes ==
     # retransmit_bytes`` (and likewise for each sibling) holds exactly at
     # every sweep — the identity the per-tenant cost ledger
-    # (the tenant layer's cost ledger) is built on.
+    # (:mod:`repro_torch.obs.attrib`) is built on.
     flow_retransmit_bytes: Dict[int, int] = dataclasses.field(
         default_factory=dict)
     flow_retransmit_flits: Dict[int, int] = dataclasses.field(

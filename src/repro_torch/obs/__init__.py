@@ -15,7 +15,7 @@ only).  Six pieces, one thread-through:
   decomposing the measured makespan into compute / network / memory /
   fault-recovery sweeps, and the predicted-vs-measured makespan table;
 * :mod:`repro_torch.obs.attrib` — the exact per-tenant cost ledger (it
-  folds a tenant server's run; the tenant layer is the next slice);
+  folds a :class:`~repro_torch.tenants.TenantServer` run);
 * :mod:`repro_torch.obs.slo` — online SLO monitoring inside a serve
   loop: windowed p50/p99 latency, goodput, and error-budget burn per
   tenant, with typed ``slo_alert`` events emitted into the same trace;

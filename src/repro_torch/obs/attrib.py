@@ -1,6 +1,7 @@
 """Per-tenant cost attribution — the exact ledger over a shared substrate.
 
-A :class:`TenantServer` run leaves every cost it incurred split by flow:
+A ``repro_torch.tenants.TenantServer`` run leaves every cost it incurred
+split by flow:
 the transport's per-(link, flow) goodput *and* fault counters (PR 10
 extended the ARQ/recall accounting so wasted retransmissions, recall
 reclassifications, backoff sweeps, and window stalls land in per-flow
@@ -149,7 +150,7 @@ class CostLedger:
 
 
 def build_ledger(server, *, crit: Optional[CritPath] = None) -> CostLedger:
-    """Fold a finished tenant server (``TenantServer``) (and
+    """Fold a finished :class:`~repro_torch.tenants.TenantServer` (and
     optionally its run's :func:`~repro_torch.obs.critpath.analyze` result) into
     the exact per-tenant cost ledger.
 

@@ -292,7 +292,7 @@ def assert_trace_report_consistent(tracer, report) -> None:
 
 def tenant_metrics(server) -> MetricsRegistry:
     """``tenant.flow.*`` per-tenant series from a finished
-    tenant server (``TenantServer``) run (also reachable as
+    :class:`~repro_torch.tenants.TenantServer` run (also reachable as
     ``server.metrics()``)."""
     reg = MetricsRegistry()
     for rec in getattr(server, "records", []):

@@ -4,8 +4,9 @@ A :class:`Tracer` records what each layer *did* at each executor sweep:
 task firings and waits (``repro_torch.exec``), channel pushes/pops,
 flit-hop crossings, ARQ retransmits/backoffs, link deaths and route
 repairs (``repro_torch.net``), bank bursts and memory-request issues
-(``repro_torch.mem``), tenant admissions/cancellations (the tenant
-layer), and checkpoint barriers (``repro_torch.exec.snapshot``).  Events are plain tuples
+(``repro_torch.mem``), tenant admissions/cancellations
+(``repro_torch.tenants``), and checkpoint barriers
+(``repro_torch.exec.snapshot``).  Events are plain tuples
 ``(kind, sweep, *fields)`` — field order per kind in :data:`EVENT_FIELDS`
 — appended to ``Tracer.events``; nothing else is touched, so a traced run
 is bit-identical to an untraced one by construction (the tests assert it

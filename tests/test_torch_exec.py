@@ -3,8 +3,9 @@
 * the port's executor never runs on the CPU unless asked (``device="cpu"``);
 * an op on a device with no kernel raises, and a kernel wrapper refuses a
   CPU tensor — nothing falls back;
-* the layer that is not yet ported (shared mode, the tenant layer's)
-  fails loudly, and the bank model, the fabric and the metrics registry
+* ``execute()`` takes no shared-mode argument, as the JAX package's
+  ``execute()`` takes none, while ``ExecutionState`` accepts a tenant
+  server's flow view; the bank model, the fabric and the metrics registry
   run;
 * ``repro_torch`` (``obs``, ``runtime``, the snapshots and both smokes
   included) and ``chip_smoke.py`` import no JAX and nothing of ``repro``.
@@ -113,12 +114,29 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
 
 
 def test_unported_layers_fail_loudly(stencil_design):
-    # Shared mode (a transport, memory system or device map handed in by a
-    # tenant server) waits for the tenancy layer: execute() has no
-    # transport= to take.
+    # Shared mode belongs to ExecutionState, which a tenant server builds:
+    # execute() takes no transport=, memsys= or device_map=, as the JAX
+    # package's execute() takes none.
     for kw in ("transport", "memsys", "device_map"):
         with pytest.raises(TypeError, match=kw):
             execute(stencil_design, device="cpu", **{kw: object()})
+    # ExecutionState accepts a flow view of a shared transport: the
+    # channels route between the mapped fabric ids, tagged with the flow,
+    # and the state owns neither the transport nor a memory system.
+    from repro_torch.exec import ExecutionState
+    from repro_torch.net import FabricTransport, cluster_fabric
+    from repro_torch.tenants import FlowTransport
+    shared = FabricTransport(cluster_fabric(fpga_ring_cluster(4)),
+                             flow_weights={0: 1.0, 3: 2.0})
+    state = ExecutionState(stencil_design, device="cpu",
+                           transport=FlowTransport(shared, 3, 5),
+                           device_map=[0, 2], trace_flow=3)
+    assert not state.owns_transport and state.memsys is None
+    assert state.device_map == [0, 2]
+    cut = [fc for fc in state.channels if fc.inter_device]
+    assert cut and all(fc.transport is state.transport
+                       and {fc.net_src_dev, fc.net_dst_dev} == {0, 2}
+                       and fc.trace_flow == 3 for fc in cut)
     # obs is ported: the report's registry view reconciles with the
     # report, its link goodput equal to the report's link bytes.
     from repro_torch.obs import MetricsRegistry, assert_registry_consistent
@@ -177,6 +195,11 @@ def test_port_sources_import_no_jax_and_no_repro():
     assert {"src/repro_torch/runtime/fault.py",
             "src/repro_torch/exec/snapshot.py",
             "src/repro_torch/exec/smoke.py"} <= names
+    assert {f"src/repro_torch/tenants/{m}.py" for m in
+            ("server", "recover", "slo", "traffic", "simulate",
+             "smoke")} <= names
+    assert {f"src/repro_torch/chaos/{m}.py" for m in
+            ("scenario", "runner", "smoke")} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -227,6 +250,16 @@ def test_port_path_loads_no_jax_and_no_repro():
         "            CompileOptions(fabric=f))\n"
         "r = d.execute({'n_nodes': 64, 'n_edges': 512}, device='cpu')\n"
         "assert r.report.agreement()['link_conservation']\n"
+        "import repro_torch.tenants, repro_torch.chaos\n"
+        "import repro_torch.tenants.smoke, repro_torch.chaos.smoke\n"
+        "from repro_torch.tenants import Tenant, TenantServer\n"
+        "d = compile(APPS['stencil'].build_graph(2), fpga_ring_cluster(2),\n"
+        "            CompileOptions())\n"
+        "out = TenantServer(repro_torch.net.cluster_fabric(\n"
+        "    fpga_ring_cluster(4)), [Tenant('a', d, [0, 2], inputs={\n"
+        "        'h': 16, 'w': 16})], device='cpu').run()\n"
+        "assert out.record('a').status == 'done'\n"
+        "assert out.conservation['exact']\n"
         "import torch\n"
         "import repro_torch.configs, repro_torch.models\n"
         "import repro_torch.serving, repro_torch.launch.serve\n"

@@ -269,9 +269,10 @@ def test_baseline_pins_tie_the_jax_packages_partition(app):
 
 
 # ---------------------------------------------------------------------------
-# The cost ledger and the SLO monitor.  Both read a finished tenant server,
-# which the tenant layer brings; here each package reads a hand-made one
-# over its own lossy transport, bank model and tracer.
+# The cost ledger and the SLO monitor.  Both read a finished tenant server;
+# here each package reads a hand-made one over its own lossy transport,
+# bank model and tracer (tests/test_torch_tenants.py holds them over a
+# real ``TenantServer``).
 # ---------------------------------------------------------------------------
 
 def _hand_made_server(core, net, faults, mem, obs):

@@ -1333,23 +1333,22 @@ def obs_fabric_row(app: str, graph, design, dev, compile_s: float,
     return row
 
 
-def obs_fabric_rows(dev) -> dict:
+def obs_fabric_rows(dev) -> None:
     """The obs smoke on the card: the four apps at their binders' default
     sizes through the 4-ring fabric, traced and untraced, each compiled as
-    the obs smoke compiles it.  The partition MILP has tied optima that
-    solver releases break differently, so stencil and pagerank also run
-    on the partition the committed baseline was taken at (``BASELINE_PINS``),
-    and those runs must pass the baseline.  Returns each app's
-    ``(graph, design)`` as the obs smoke compiles it (the chaos phase runs
-    them)."""
+    the obs smoke compiles it (through the chaos runner's memo, so the
+    chaos phase runs these designs).  The partition MILP has tied optima
+    that solver releases break differently, so stencil and pagerank also
+    run on the partition the committed baseline was taken at
+    (``BASELINE_PINS``), and those runs must pass the baseline."""
+    from repro_torch.chaos.runner import compile_app as memo_compile_app
     from repro_torch.obs.diff import load_json
     from repro_torch.obs.smoke import BASELINE_PINS, compile_app
 
     baseline = load_json(str(ROOT / "results" / "obs_baseline.json"))
-    compiled = {}
     for app in OBS_APPS:
         t0 = time.perf_counter()
-        graph, design = compiled[app] = compile_app(app, 4)
+        graph, design = memo_compile_app(app, 4)
         compile_s = time.perf_counter() - t0
         obs_fabric_row(app, graph, design, dev, compile_s, baseline,
                        pinned=False)
@@ -1359,7 +1358,6 @@ def obs_fabric_rows(dev) -> dict:
             compile_s = time.perf_counter() - t0
             obs_fabric_row(app, graph, design, dev, compile_s, baseline,
                            pinned=True)
-    return compiled
 
 
 def obs_full_size_rows(designs: dict):
@@ -1482,12 +1480,10 @@ def obs_snapshot_row(design, untraced) -> None:
             "the resumed run")
 
 
-def obs_phase(dev, designs: dict) -> dict:
-    """Returns the obs smoke's compiled designs (``obs_fabric_rows``)."""
-    compiled = obs_fabric_rows(dev)
+def obs_phase(dev, designs: dict) -> None:
+    obs_fabric_rows(dev)
     obs_snapshot_row(designs["stencil"], obs_full_size_rows(designs))
     print(f"[obs] card: {card_line()}", flush=True)
-    return compiled
 
 
 # -- phase 7: the tenant server ---------------------------------------------
@@ -1653,7 +1649,7 @@ def tenants_phase(dev) -> None:
 
 # -- phase 8: the chaos harness ---------------------------------------------
 
-def chaos_phase(dev, compiled: dict) -> None:
+def chaos_phase(dev) -> None:
     """The chaos smoke's reduced matrix on stencil, drop-mid and
     kill-restore on CNN, KNN and PageRank (on the obs phase's designs),
     and the two per-tenant cells, at the binders' default sizes: each
@@ -1671,13 +1667,11 @@ def chaos_phase(dev, compiled: dict) -> None:
         scenarios = SMOKE_SCENARIOS if app == "stencil" else short
         reset_launch_counts()
         t0 = time.perf_counter()
-        card = run_matrix((app,), scenarios, device=dev,
-                          compiled={app: compiled[app]})
+        card = run_matrix((app,), scenarios, device=dev)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         launches = launch_counts()
-        ref = run_matrix((app,), scenarios, device=cpu,
-                         compiled={app: compiled[app]})
+        ref = run_matrix((app,), scenarios, device=cpu)
         for cell, want in zip(card["cells"], ref["cells"]):
             row = {"app": app, "scenario": cell["scenario"],
                    **{k: cell.get(k) for k in (
@@ -1764,9 +1758,9 @@ def main() -> int:
     lm = lm_path_phase(dev)
     launches["flash_attention"] = lm["launches"]["flash_attention_tc"]
     torch.cuda.empty_cache()
-    compiled = obs_phase(dev, designs)
+    obs_phase(dev, designs)
     tenants_phase(dev)
-    chaos_phase(dev, compiled)
+    chaos_phase(dev)
 
     blas = "src/repro/kernels/hbm_blas/kernel.py"
     sources = {"dilate": ("src/repro_torch/csrc/dilate.cu",

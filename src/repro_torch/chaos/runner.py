@@ -34,7 +34,7 @@ no ``device=`` the runner raises).
 from __future__ import annotations
 
 import tempfile
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 from .scenario import ChaosScenario, default_matrix
 
@@ -48,9 +48,8 @@ _COMPILED: Dict[Tuple[str, int], Tuple[Any, Any]] = {}
 def compile_app(app: str, ndev: int = 4):
     """(graph, design) for ``app`` on an ``ndev``-FPGA ring with a real
     fabric — memoized per process (compilation dominates cell cost).  The
-    compile is :func:`repro_torch.obs.smoke.compile_app`'s; a caller that
-    already holds such a design passes it to :func:`run_scenario` /
-    :func:`run_matrix` as ``compiled=`` instead."""
+    compile is :func:`repro_torch.obs.smoke.compile_app`'s, so a caller that
+    compiles through this function shares its designs with every cell."""
     key = (app, ndev)
     if key not in _COMPILED:
         from ..obs.smoke import compile_app as obs_compile_app
@@ -101,18 +100,15 @@ def _run_kill_cell(graph, design, scenario: ChaosScenario, baseline,
 
 
 def run_scenario(app: str, scenario: ChaosScenario, *, ndev: int = 4,
-                 baseline=None, tracer=None, device=None,
-                 compiled=None) -> Dict[str, Any]:
+                 baseline=None, tracer=None, device=None) -> Dict[str, Any]:
     """Run one matrix cell; raises AssertionError on any broken guarantee,
     returns the cell's JSON-ready record otherwise.  ``tracer`` records the
     faulted run (baseline and replay stay untraced — the bit-identity and
-    determinism asserts double as the tracer-transparency check).
-    ``compiled`` is a ``(graph, design)`` pair compiled as
-    :func:`compile_app` compiles (default: :func:`compile_app`'s)."""
+    determinism asserts double as the tracer-transparency check)."""
     from ..exec import resolve_device
     from ..tenants import bit_identical
     device = resolve_device(device)
-    graph, design = compiled or compile_app(app, ndev)
+    graph, design = compile_app(app, ndev)
     if baseline is None:
         baseline = _execute(graph, design, device)
     cell: Dict[str, Any] = {
@@ -239,28 +235,24 @@ def run_tenant_cell(scenario: ChaosScenario, *, app: str = "stencil",
 
 def run_matrix(apps: Sequence[str] = ("stencil", "cnn", "knn", "pagerank"),
                scenarios: Optional[Sequence[ChaosScenario]] = None, *,
-               ndev: int = 4, verbose: bool = False, device=None,
-               compiled: Optional[Mapping[str, Tuple[Any, Any]]] = None
+               ndev: int = 4, verbose: bool = False, device=None
                ) -> Dict[str, Any]:
     """The full fault matrix: every scenario over every app.
 
     Returns the matrix record (the JSON artifact).  Raises on the first
     broken guarantee — a chaos matrix that "mostly passes" is a failure.
-    ``compiled`` maps an app to a ``(graph, design)`` pair compiled as
-    :func:`compile_app` compiles; the others are compiled here.
     """
     from ..exec import resolve_device
     device = resolve_device(device)
     scenarios = tuple(scenarios if scenarios is not None
                       else default_matrix())
-    compiled = dict(compiled or {})
     cells = []
     for app in apps:
-        graph, design = compiled.get(app) or compile_app(app, ndev)
+        graph, design = compile_app(app, ndev)
         baseline = _execute(graph, design, device)
         for sc in scenarios:
             cell = run_scenario(app, sc, ndev=ndev, baseline=baseline,
-                                device=device, compiled=(graph, design))
+                                device=device)
             cells.append(cell)
             if verbose:
                 print(f"  [{app} × {sc.name}] sweeps {cell['sweeps']} "

@@ -75,6 +75,21 @@ Phases (any failure exits non-zero before the final line):
    ``num_superblocks = 4`` must agree within 1e-4 of the logits' largest
    magnitude, its 4 launches on the CUDA cores; the same comparison in
    bf16 at full depth is printed, not gated.
+   (c) Three more rows the same way, each bf16 with weights drawn on the
+   card from seed 0, each printing its parameters and their bytes, peak
+   device bytes, prefill seconds, decode tokens/s, a step's wall and
+   device ms and the flash launches by route: chatglm3-6b ``full()`` (28
+   layers, G = 16; every launch on the tensor cores); deepseek-v2-236b at
+   full width with 4 of its 60 layers and deepseek-v3-671b with 1 of its
+   61 (one H100 holds 80 GB; their full depth is 446 and 1312 GiB of
+   bf16 weights), each prefill launch on the CUDA-core kernel at MLA's
+   q/k [4, 128, 2048, 192] and v [4, 128, 2048, 128].  (d) MLA + MoE
+   parity: deepseek-v2 in fp32 at full width with 1 layer, the prefill
+   step (the kernel, expanded MLA) against ``ServingEngine.prefill``
+   (absorbed decode) on the 32-token prompts within 1e-4 of the logits'
+   largest magnitude.  Only here ``capacity_factor`` is num_experts /
+   top_k: any smaller capacity drops tokens in a 32-token prefill and
+   none in decode, so the two paths would rightly differ.
 
 6. Observability and snapshots (``[obs]`` lines; nothing compiled again
    that phase 4 compiled).  (a) The obs smoke's logic
@@ -135,8 +150,9 @@ Phases (any failure exits non-zero before the final line):
    and knn must each launch in their app's cells.
 
 The flash attention row (phase 3) holds both kernels, on the same bf16
-inputs, to their plain version at the prefill step's shape (causal) and at
-the feature cases of ``kernels/flash_attention/cases.py`` (GQA, MQA,
+inputs, to their plain version at the prefill step's shape (causal), at
+chatglm3-6b's prefill shape (32 query heads on 2 KV heads, G = 16, over
+all 16 key tiles; causal) and at the feature cases of ``kernels/flash_attention/cases.py`` (GQA, MQA,
 Sq < Sk, ragged lengths, window, softcap, both, non-causal, a fully masked
 leading block) at d = 128 and d = 64: elementwise within
 atol = rtol = 2e-2, each row within 1e-2 of its norm, and the tensor cores
@@ -150,7 +166,14 @@ main shape.  Its yardstick is ``F.scaled_dot_product_attention``
 (989 TFLOP/s) over the visible (query, key) pairs.  The matmul row names
 the kernel each of its two shapes takes (narrow at N = 4, tiled at
 N = 80), checks that two runs agree bit for bit, and times the tiled
-kernel at N = 4 beside the narrow one.
+kernel at N = 4 beside the narrow one.  The ``flash_attention_mla`` row
+holds the CUDA-core kernel's (192, 128) instance to the plain version at
+MLA's shape (causal) in fp32 (within 2e-5) and bf16 (elementwise and row
+by row), and at every feature case at d = 192, dv = 128; its bound counts
+2·(d + dv) operations a visible pair at the bf16 tensor-core rate, its
+yardstick is ``F.scaled_dot_product_attention(is_causal=True)``.  After
+the build, ``ptxas`` registers and spills of each flash_kernel instance
+are printed.
 
 Prints the ``kernels`` JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``.  Needs no network and one card.
@@ -226,6 +249,21 @@ LM_ARCH = "qwen3-4b"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 32, 32, 128
 PARITY_SUPERBLOCKS = 4
+# The LM rows after qwen3-4b: (arch, superblocks to keep or None for full
+# depth, the flash route every prefill launch takes, the note beside it).
+LM_ROWS = (
+    ("chatglm3-6b", None, "tensor_core", "full depth, 28 layers"),
+    ("deepseek-v2-236b", 4, "cuda_core",
+     "full width, depth cut from 60 to 4 layers: one H100 holds 80 GB, "
+     "the 60 layers are 446 GiB of bf16 weights"),
+    ("deepseek-v3-671b", 1, "cuda_core",
+     "full width, depth cut from 61 to 1 layer: one H100 holds 80 GB, "
+     "the 61 layers are 1312 GiB of bf16 weights"),
+)
+MLA_PARITY_ARCH, MLA_PARITY_SUPERBLOCKS = "deepseek-v2-236b", 1
+# MLA's prefill operands at full width: q, k [B, 128, S, 192] and v
+# [B, 128, S, 128].
+MLA_HEADS, MLA_D, MLA_DV = 128, 192, 128
 # The flash feature cases run in fp32 at these head dims (the CUDA cores)
 # and in bf16 at the tensor cores' two.
 FLASH_FP32_DIMS = (32, 64, 128)
@@ -368,6 +406,28 @@ def hgmma_counts(lib_path: Path) -> dict:
         elif current is not None and "HGMMA" in line:
             counts[current] = counts.get(current, 0) + 1
     return counts
+
+
+def ptxas_report(log: str, match: str) -> dict:
+    """Registers, spill bytes and stack of each kernel whose mangled name
+    holds ``match``, from the ``ptxas -v`` lines of a build log."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            current = name if match in name else None
+        elif current is None:
+            continue
+        elif "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out.setdefault(current, {}).update(
+                stack_bytes=nums[0], spill_store_bytes=nums[1],
+                spill_load_bytes=nums[2])
+        elif "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split()[0])
+            out.setdefault(current, {})["registers"] = regs
+    return out
 
 
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
@@ -569,6 +629,7 @@ def kernel_phase(dev) -> dict:
                                                              tile)))
     rows.update(blas_kernel_rows(dev, gen))
     rows["flash_attention"] = flash_kernel_row(dev, gen)
+    rows["flash_attention_mla"] = flash_mla_row(dev, gen)
     for name, row in rows.items():
         print(f"[kernel] {name} {json.dumps(row)}", flush=True)
     return rows
@@ -584,11 +645,13 @@ def visible_pairs(Sq: int, Sk: int, causal: bool = True) -> int:
 
 def flash_kernel_row(dev, gen) -> dict:
     """flash_attention at the prefill step's shape in bf16 (causal) on the
-    tensor cores, with two planted faults that its row gate must reject;
-    each feature case in fp32 on the CUDA cores and in bf16 on the tensor
+    tensor cores, with two planted faults that its row gate must reject,
+    and at chatglm3-6b's prefill shape (G = 16) with the same gates; each
+    feature case in fp32 on the CUDA cores and in bf16 on the tensor
     cores."""
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import cases
     from repro_torch.kernels.flash_attention.kernel import (
         _launch_cuda_core, flash_attention, route)
@@ -657,12 +720,22 @@ def flash_kernel_row(dev, gen) -> dict:
             label = f"{name} d{d}"
             bf16_cases[label] = bf16_check(label, q, k, v, **kw)[0]
 
-    # As the model gives them: [B, S, H, d] seen as [B, H, S, d].
+    def prefill_qkv(H, K, d):
+        """As the model gives them: [B, S, H, d] seen as [B, H, S, d]."""
+        return (torch.randn(PREFILL_BATCH, PREFILL_LEN, n, d, device=dev,
+                            generator=gen).to(torch.bfloat16).transpose(1, 2)
+                for n in (H, K, K))
+
+    # chatglm3-6b's prefill: 32 query heads on 2 KV heads (G = 16) over
+    # all 16 key tiles, with the same gates as the main shape.
+    glm = get_arch("chatglm3-6b").full()
+    glm_shape, _, _ = bf16_check(
+        "chatglm3-6b shape",
+        *prefill_qkv(glm.num_heads, glm.num_kv_heads, glm.head_dim))
+
     B, S = PREFILL_BATCH, PREFILL_LEN
     H, K, d = 32, 8, 128
-    q, k, v = (torch.randn(B, S, n, d, device=dev,
-                           generator=gen).to(torch.bfloat16).transpose(1, 2)
-               for n in (H, K, K))
+    q, k, v = prefill_qkv(H, K, d)
     main, got, want = bf16_check("main shape", q, k, v)
     # Planted faults: the tensor cores' output with the last query block's
     # rows recomputed without one of their key tiles, as a kernel that
@@ -700,6 +773,10 @@ def flash_kernel_row(dev, gen) -> dict:
     return dict(shape=[B, H, K, S, S, d], dtype="bf16", causal=True,
                 kernel=route(q, k, v),
                 max_abs_err=main["tc"]["max_abs_err"], main=main,
+                chatglm3_6b_shape=dict(
+                    shape=[PREFILL_BATCH, glm.num_heads, glm.num_kv_heads,
+                           PREFILL_LEN, PREFILL_LEN, glm.head_dim],
+                    **glm_shape),
                 atol=cases.ATOL, rtol=cases.RTOL,
                 row_rel_limit=cases.ROW_REL_LIMIT, planted_faults=planted,
                 bf16_cases=bf16_cases, fp32_max_abs_err=fp32_cases, ms=ms,
@@ -712,6 +789,81 @@ def flash_kernel_row(dev, gen) -> dict:
                 bytes=nbytes, ops=ops,
                 device_kernels=device_kernels(
                     lambda: flash_attention(q, k, v), 5))
+
+
+def flash_mla_row(dev, gen) -> dict:
+    """The CUDA-core flash kernel's (192, 128) instance at MLA's prefill
+    shape (causal; [B, S, H, d] tensors seen as [B, H, S, d], as the model
+    gives them) in bf16 and fp32, and at every feature case at d = 192,
+    dv = 128, against the plain version."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            route)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def qkv(B, H, K, Sq, Sk, dtype, bshd=False):
+        def one(n, S, d):
+            if bshd:
+                t = torch.randn(B, S, n, d, device=dev, generator=gen)
+                return t.to(dtype).transpose(1, 2)
+            return torch.randn(B, n, S, d, device=dev,
+                               generator=gen).to(dtype)
+        return one(H, Sq, MLA_D), one(K, Sk, MLA_D), one(K, Sk, MLA_DV)
+
+    def check(label, q, k, v, **kw) -> float:
+        require(route(q, k, v) == "cuda_core",
+                f"flash_attention_mla {label} not on the CUDA cores")
+        got = flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        require(got.shape == want.shape,
+                f"flash_attention_mla {label}: shape {tuple(got.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        if q.dtype == torch.float32:
+            require(err <= cases.FP32_ATOL,
+                    f"flash_attention_mla fp32 {label}: err {err:.3e}")
+            return err
+        excess = cases.excess(got, want)
+        row = cases.row_rel_err(got, want)
+        require(excess <= cases.ATOL and row <= cases.ROW_REL_LIMIT,
+                f"flash_attention_mla bf16 {label}: excess {excess:.3e}, "
+                f"row {row:.3e}")
+        return err
+
+    feature = {}
+    for name, (B, H, K, Sq, Sk), kw in cases.FEATURE_CASES:
+        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            feature[f"{name} {tag}"] = check(
+                f"{name} {tag}", *qkv(B, H, K, Sq, Sk, dtype), **kw)
+
+    B, S, H = PREFILL_BATCH, PREFILL_LEN, MLA_HEADS
+    q, k, v = qkv(B, H, H, S, S, torch.float32, bshd=True)
+    fp32_err = check("main shape fp32", q, k, v)
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = qkv(B, H, H, S, S, torch.bfloat16, bshd=True)
+    bf16_err = check("main shape bf16", q, k, v)
+    torch.cuda.empty_cache()
+    out_numel = B * H * S * MLA_DV
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out_numel)
+    ops = 2 * (MLA_D + MLA_DV) * B * H * visible_pairs(S, S)
+    b, by = bound(nbytes, ops, PEAK_BF16_PER_S)
+    ms = graph_ms(lambda i: flash_attention(q, k, v), 3, replays=2)
+    plain = cuda_ms(lambda: attention_ref(q, k, v), 2, warmup=1)
+    torch.cuda.empty_cache()
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 3, warmup=1)
+    return dict(shape=[B, H, H, S, S, MLA_D, MLA_DV], dtype="bf16",
+                causal=True, kernel=route(q, k, v), max_abs_err=bf16_err,
+                fp32_max_abs_err=fp32_err, feature_max_abs_err=feature,
+                ms=ms, tflops=ops / ms / 1e9, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib,
+                library="F.scaled_dot_product_attention(is_causal=True), "
+                        "bf16, timed with CUDA events",
+                bytes=nbytes, ops=ops,
+                device_kernels=device_kernels(
+                    lambda: flash_attention(q, k, v), 3))
 
 
 def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1115,28 +1267,36 @@ def hbm_path_phase(app: str, spec: dict, kernels: tuple) -> dict:
     return row
 
 
-def lm_path_phase(dev) -> dict:
-    """qwen3-4b at full width and depth: the prefill step (flash kernel)
-    and the ServingEngine; then prefill-against-decode parity."""
-    from repro_torch.configs import get_arch
+def lm_prompts(vocab: int) -> tuple:
+    """The prefill step's PREFILL_BATCH x PREFILL_LEN prompts and the
+    engine's PREFILL_BATCH x SERVE_PROMPT ones, from seed 0."""
+    rng = np.random.default_rng(0)
+    return (rng.integers(1, vocab, (PREFILL_BATCH, PREFILL_LEN)),
+            rng.integers(1, vocab, (PREFILL_BATCH, SERVE_PROMPT)))
+
+
+def serve_row(dev, cfg, route: str) -> dict:
+    """One LM at ``cfg`` (bf16, weights drawn on the card from seed 0): the
+    prefill step over PREFILL_BATCH prompts of PREFILL_LEN tokens, once to
+    warm up and once timed, each launching flash_attention once a layer on
+    ``route``; then a ServingEngine answering PREFILL_BATCH requests of
+    SERVE_PROMPT + SERVE_NEW tokens, and the bf16 prefill step against the
+    engine's sequential prefill (printed, not gated)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import init_params, param_count
     from repro_torch.serving import ServeConfig, ServingEngine
 
-    cfg = get_arch(LM_ARCH).full()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(torch.Generator(dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
-    require(n_params == param_count(cfg), "qwen3-4b parameter count")
+    require(n_params == param_count(cfg), f"{cfg.name} parameter count")
     param_bytes = sum(p.numel() * p.element_size()
                       for p in params.parameters())
-    rng = np.random.default_rng(0)
-    long_prompts = rng.integers(1, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN))
-    prompts = rng.integers(1, cfg.vocab, (PREFILL_BATCH, SERVE_PROMPT))
+    long_prompts, prompts = lm_prompts(cfg.vocab)
 
     prefill = build_prefill_step(cfg)                 # on cuda
     runs = []
@@ -1147,17 +1307,18 @@ def lm_path_phase(dev) -> dict:
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, launch_counts()))
     prefill_s, launches = runs[1]
+    want_tc = cfg.num_layers if route == "tensor_core" else 0
     for _, counts in runs:
         require(counts["flash_attention"] == cfg.num_layers,
-                f"prefill launched flash_attention "
+                f"{cfg.name} prefill launched flash_attention "
                 f"{counts['flash_attention']} times, not {cfg.num_layers}")
-        require(counts["flash_attention_tc"] == cfg.num_layers,
-                f"prefill launched the tensor-core flash_attention "
-                f"{counts['flash_attention_tc']} times, not "
-                f"{cfg.num_layers}")
+        require(counts["flash_attention_tc"] == want_tc,
+                f"{cfg.name} prefill launched the tensor-core "
+                f"flash_attention {counts['flash_attention_tc']} times, not "
+                f"{want_tc}")
     require(logits.shape == (PREFILL_BATCH, cfg.vocab)
             and bool(torch.isfinite(logits).all()),
-            "prefill logits: shape or not finite")
+            f"{cfg.name} prefill logits: shape or not finite")
     prefill_profile = device_breakdown(
         lambda: prefill(params, {"tokens": long_prompts}))
 
@@ -1184,11 +1345,13 @@ def lm_path_phase(dev) -> dict:
     step_wall_ms = generate_s * 1e3 / (SERVE_PROMPT + SERVE_NEW)
     require(out.shape == (PREFILL_BATCH, SERVE_NEW) and out.dtype == np.int32
             and bool(((out >= 0) & (out < cfg.vocab)).all()),
-            "generated tokens: shape, dtype or range")
-    require(bool(torch.isfinite(seq_logits).all()), "decode logits")
+            f"{cfg.name} generated tokens: shape, dtype or range")
+    require(bool(torch.isfinite(seq_logits).all()),
+            f"{cfg.name} decode logits")
     require(np.array_equal(out[:, 0],
                             seq_logits.argmax(-1).cpu().numpy()),
-            "first greedy token is not the argmax of the prefill logits")
+            f"{cfg.name}: first greedy token is not the argmax of the "
+            f"prefill logits")
     kern_logits = prefill(params, {"tokens": prompts})
     bf16_rel = float((kern_logits - seq_logits).abs().max()
                      / seq_logits.abs().max())
@@ -1197,56 +1360,119 @@ def lm_path_phase(dev) -> dict:
     del params, engine, logits, kern_logits, seq_logits
     torch.cuda.empty_cache()
 
-    # Parity on the card, fp32, full width, 4 layers.
+    new_tokens = PREFILL_BATCH * SERVE_NEW
+    tc = launches["flash_attention_tc"]
+    return {"app": cfg.name, "params": n_params, "param_bytes": param_bytes,
+            "layers": cfg.num_layers, "init_s": init_s,
+            "prefill_shape": [PREFILL_BATCH, PREFILL_LEN],
+            "prefill_s": prefill_s, "prefill_warmup_s": runs[0][0],
+            "prefill_tok_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+            "prefill_device_ms": prefill_profile["device_ms"],
+            "prefill_top_kernels": prefill_profile["top"],
+            "launches": launches,
+            "flash_launches_by_route": {
+                "tensor_core": tc,
+                "cuda_core": launches["flash_attention"] - tc},
+            "serve_requests": PREFILL_BATCH, "serve_prompt": SERVE_PROMPT,
+            "serve_new": SERVE_NEW, "engine_prefill_s": seq_prefill_s,
+            "generate_s": generate_s,
+            "decode_tok_per_s": new_tokens / (generate_s - seq_prefill_s),
+            "step_wall_ms": step_wall_ms, "step_device_ms": step_device_ms,
+            "step_device_busy": step_device_ms / step_wall_ms,
+            "step_aten_ops": step_ops,
+            "step_top_kernels": step_profile["top"],
+            "engine_launches": engine_launches,
+            "peak_device_bytes": peak,
+            "tokens_head": out[:, :8].tolist(),
+            "bf16_full_depth_rel_err": bf16_rel,
+            "bf16_full_depth_argmax_equal": bf16_argmax}
+
+
+def fp32_parity(dev, cfg) -> dict:
+    """The prefill step (the flash kernel) against the engine's sequential
+    prefill (decode) in fp32 on the SERVE_PROMPT-token prompts: within 1e-4
+    of the logits' largest magnitude, one CUDA-core launch a layer."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    _, prompts = lm_prompts(cfg.vocab)
+    params32 = init_params(torch.Generator(dev).manual_seed(1), cfg)
+    reset_launch_counts()
+    kern = build_prefill_step(cfg)(params32, {"tokens": prompts})
+    counts = launch_counts()
+    dec, _ = ServingEngine(params32, cfg, ServeConfig(
+        batch_slots=PREFILL_BATCH, max_len=SERVE_MAX_LEN)).prefill(prompts)
+    rel = float((kern - dec).abs().max() / dec.abs().max())
+    del params32
+    torch.cuda.empty_cache()
+    return {"superblocks": cfg.num_superblocks, "rel_err": rel,
+            "flash_launches": counts["flash_attention"],
+            "tc_launches": counts["flash_attention_tc"]}
+
+
+def check_fp32_parity(name: str, parity: dict, layers: int) -> None:
+    require(parity["flash_launches"] == layers,
+            f"{name} fp32 parity prefill launched flash_attention "
+            f"{parity['flash_launches']} times")
+    require(parity["tc_launches"] == 0,
+            f"{name} fp32 parity prefill took the tensor-core "
+            f"flash_attention")
+    require(parity["rel_err"] <= 1e-4,
+            f"{name} fp32 prefill step against sequential decode: "
+            f"{parity['rel_err']:.3e} of the logits' scale > 1e-4")
+
+
+def lm_path_phase(dev) -> dict:
+    """qwen3-4b at full width and depth: the prefill step (flash kernel)
+    and the ServingEngine; then prefill-against-decode parity."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(LM_ARCH).full()
+    row = serve_row(dev, cfg, "tensor_core")
     cfg32 = dataclasses.replace(cfg, num_superblocks=PARITY_SUPERBLOCKS,
                                 dtype=torch.float32,
                                 param_dtype=torch.float32)
-    params32 = init_params(torch.Generator(dev).manual_seed(1), cfg32)
-    reset_launch_counts()
-    kern = build_prefill_step(cfg32)(params32, {"tokens": prompts})
-    parity_counts = launch_counts()
-    parity_launches = parity_counts["flash_attention"]
-    dec, _ = ServingEngine(params32, cfg32, ServeConfig(
-        batch_slots=PREFILL_BATCH, max_len=SERVE_MAX_LEN)).prefill(prompts)
-    fp32_rel = float((kern - dec).abs().max() / dec.abs().max())
-    del params32
-    torch.cuda.empty_cache()
-
-    new_tokens = PREFILL_BATCH * SERVE_NEW
-    row = {"app": LM_ARCH, "params": n_params, "param_bytes": param_bytes,
-           "layers": cfg.num_layers, "init_s": init_s,
-           "prefill_shape": [PREFILL_BATCH, PREFILL_LEN],
-           "prefill_s": prefill_s, "prefill_warmup_s": runs[0][0],
-           "prefill_tok_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
-           "prefill_device_ms": prefill_profile["device_ms"],
-           "prefill_top_kernels": prefill_profile["top"],
-           "launches": launches,
-           "serve_requests": PREFILL_BATCH, "serve_prompt": SERVE_PROMPT,
-           "serve_new": SERVE_NEW, "engine_prefill_s": seq_prefill_s,
-           "generate_s": generate_s,
-           "decode_tok_per_s": new_tokens / (generate_s - seq_prefill_s),
-           "step_wall_ms": step_wall_ms, "step_device_ms": step_device_ms,
-           "step_device_busy": step_device_ms / step_wall_ms,
-           "step_aten_ops": step_ops,
-           "step_top_kernels": step_profile["top"],
-           "engine_launches": engine_launches,
-           "peak_device_bytes": peak,
-           "tokens_head": out[:, :8].tolist(),
-           "fp32_parity_superblocks": PARITY_SUPERBLOCKS,
-           "fp32_parity_rel_err": fp32_rel,
-           "fp32_parity_flash_launches": parity_launches,
-           "fp32_parity_tc_launches": parity_counts["flash_attention_tc"],
-           "bf16_full_depth_rel_err": bf16_rel,
-           "bf16_full_depth_argmax_equal": bf16_argmax}
+    parity = fp32_parity(dev, cfg32)
+    row.update({"fp32_parity_superblocks": parity["superblocks"],
+                "fp32_parity_rel_err": parity["rel_err"],
+                "fp32_parity_flash_launches": parity["flash_launches"],
+                "fp32_parity_tc_launches": parity["tc_launches"]})
     print(f"[path] {json.dumps(row)}", flush=True)
-    require(parity_launches == PARITY_SUPERBLOCKS,
-            f"fp32 parity prefill launched flash_attention "
-            f"{parity_launches} times")
-    require(parity_counts["flash_attention_tc"] == 0,
-            "fp32 parity prefill took the tensor-core flash_attention")
-    require(fp32_rel <= 1e-4, f"fp32 prefill step against sequential "
-            f"decode: {fp32_rel:.3e} of the logits' scale > 1e-4")
+    check_fp32_parity(LM_ARCH, parity, cfg32.num_layers)
     return row
+
+
+def lm_rows_phase(dev) -> dict:
+    """chatglm3-6b and the DeepSeek archs (``LM_ROWS``), then MLA + MoE
+    parity on deepseek-v2 in fp32.  Returns each row by arch."""
+    from repro_torch.configs import get_arch
+
+    rows = {}
+    for arch, superblocks, route, note in LM_ROWS:
+        cfg = get_arch(arch).full()
+        if superblocks is not None:
+            cfg = dataclasses.replace(cfg, num_superblocks=superblocks)
+        row = serve_row(dev, cfg, route)
+        row["note"] = note
+        print(f"[path] {json.dumps(row)}", flush=True)
+        rows[arch] = row
+    cfg = get_arch(MLA_PARITY_ARCH).full()
+    moe = cfg.moe
+    # Capacity for every token: num_experts / top_k slots a token, so the
+    # 32-token prefill drops nothing (decode never does).
+    cfg = dataclasses.replace(
+        cfg, num_superblocks=MLA_PARITY_SUPERBLOCKS, dtype=torch.float32,
+        param_dtype=torch.float32, moe=dataclasses.replace(
+            moe, capacity_factor=moe.num_experts / moe.top_k))
+    parity = fp32_parity(dev, cfg)
+    row = {"app": "mla_moe_fp32_parity", "arch": MLA_PARITY_ARCH,
+           "capacity_factor": cfg.moe.capacity_factor, **parity}
+    print(f"[path] {json.dumps(row)}", flush=True)
+    check_fp32_parity(f"{MLA_PARITY_ARCH} (MLA + MoE)", parity,
+                      cfg.num_layers)
+    return rows
 
 
 def release_kernel_phase() -> None:
@@ -1730,6 +1956,9 @@ def main() -> int:
           f"in {info.seconds:.2f} s", flush=True)
     if info.built:
         print(info.log.rstrip(), flush=True)
+        print(f"ptxas: flash_kernel instances "
+              f"{json.dumps(ptxas_report(info.log, 'flash_kernel'))}",
+              flush=True)
     build.library()
     hgmma = hgmma_counts(info.path)
     print(f"sass: HGMMA instructions per kernel {json.dumps(hgmma)}",
@@ -1756,7 +1985,12 @@ def main() -> int:
             launches[k] = launches.get(k, 0) + row["launches"][k]
         torch.cuda.empty_cache()
     lm = lm_path_phase(dev)
-    launches["flash_attention"] = lm["launches"]["flash_attention_tc"]
+    lm_rows = lm_rows_phase(dev)
+    launches["flash_attention"] = sum(
+        r["flash_launches_by_route"]["tensor_core"]
+        for r in (lm, *lm_rows.values()))
+    launches["flash_attention_mla"] = sum(
+        r["flash_launches_by_route"]["cuda_core"] for r in lm_rows.values())
     torch.cuda.empty_cache()
     obs_phase(dev, designs)
     tenants_phase(dev)
@@ -1775,6 +2009,9 @@ def main() -> int:
                "gemv": ("src/repro_torch/csrc/hbm_blas.cu", f"{blas}:97"),
                "flash_attention": (
                    "src/repro_torch/csrc/flash_attention_sm90.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:99"),
+               "flash_attention_mla": (
+                   "src/repro_torch/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": repl, "launches": launches[name],

@@ -1,6 +1,8 @@
-// Blocked online-softmax attention (flash attention) on [B, H, S, d], with
-// GQA, causal masking aligned at the end (delta = Sk - Sq), a sliding
-// window and a tanh logit softcap.
+// Blocked online-softmax attention (flash attention) on q, k [B, H, S, d]
+// and v [B, H, S, dv], with GQA, causal masking aligned at the end
+// (delta = Sk - Sq), a sliding window and a tanh logit softcap.  The v head
+// dim may differ from q's and k's: DeepSeek's MLA gives q and k 192 (128
+// nope + 64 rope) and v 128.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, `flash_attention`
 // (`_flash_kernel`), the TPU kernel whose innermost, sequential grid axis
@@ -25,6 +27,13 @@
 // on 168 MB of operands and output, some 800 operations per byte: 0.139 ms
 // at the bf16 tensor-core rate (989 TFLOP/s), 0.050 ms for the bytes.
 //
+// At MLA's shape (B 4, H 128, K 128, S 2048, d 192, dv 128, bf16, causal)
+// the work is 2 (d + dv) = 640 operations a visible (query, key) pair,
+// about 6.87e11 operations on 1.34 GB: 0.695 ms at the bf16 tensor-core
+// rate, 0.40 ms for the bytes.  Only this kernel takes d > 128 or dv != d;
+// the (192, 128) instance keeps Q and K transposed at 192 floats a column
+// and V at 128, 128 KB of shared memory, so one block fits on an SM.
+//
 // Why it does not reach that bound yet: this first design runs on the CUDA
 // cores in fp32 (67 TFLOP/s, so no faster than 2.05 ms at that shape), as
 // the simple design that is right first.  One thread block of 256 threads
@@ -35,7 +44,7 @@
 // computes a 4 x 4 block of scores from float4 reads, the 16 threads of a
 // row reduce its max and sum with warp shuffles, p goes to shared memory
 // (over the K tile, after a barrier) and each thread accumulates a 4-row x
-// (d / 16)-column block of the output in registers.  Loads are not
+// (dv / 16)-column block of the output in registers.  Loads are not
 // overlapped with compute beyond what two resident blocks per SM give.
 // The tensor-core design (wgmma on bf16 tiles fed by TMA, warp-specialised)
 // is the redesign's work.
@@ -59,7 +68,7 @@ struct Args {
   // Element strides of the batch, head and sequence axes; d is unit stride.
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  int B, H, K, Sq, Sk, d;
+  int B, H, K, Sq, Sk, d, dv;   // d: q and k head dim; dv: v and o
   float scale, softcap;   // softcap <= 0: none
   int causal, window;     // window <= 0: none
   int vec;                // 1: every row of q, k, v is 16-byte aligned
@@ -179,29 +188,33 @@ __device__ __forceinline__ float row_sum16(float x) {
   return x;
 }
 
+// Floats of Kt [DP][64], which P [64][kPStride] shares.
 template <int DP>
+__host__ __device__ constexpr int kt_floats() {
+  return DP * kBlockK > kBlockQ * kPStride ? DP * kBlockK
+                                           : kBlockQ * kPStride;
+}
+
+template <int DP, int DV>
 __host__ __device__ constexpr int smem_floats() {
-  // Qt [DP][64], Kt [DP][64] shared with P [64][kPStride], V [64][DP].
-  return DP * kBlockQ +
-         (DP * kBlockK > kBlockQ * kPStride ? DP * kBlockK
-                                            : kBlockQ * kPStride) +
-         kBlockK * DP;
+  // Qt [DP][64], Kt [DP][64] shared with P [64][kPStride], V [64][DV].
+  return DP * kBlockQ + kt_floats<DP>() + kBlockK * DV;
 }
 
 // Grid: x = batch * head, y = query block (the heaviest causal blocks, the
 // last rows, are issued first).  Thread t owns rows 4 * (t / 16) + i and,
 // of each key tile, keys 4 * (t % 16) + j; of the output, columns
-// 4 * (t % 16) + 64 * u + e.
-template <typename T, int DP>
+// 4 * (t % 16) + 64 * u + e.  DP pads d, DV pads dv.
+template <typename T, int DP, int DV>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(const Args a) {
-  static_assert(DP % 64 == 0, "DP is a multiple of 64");
-  constexpr int kColGroups = DP / 64;   // float4 column groups per thread
+  static_assert(DP % 64 == 0 && DV % 64 == 0, "DP, DV multiples of 64");
+  constexpr int kColGroups = DV / 64;   // float4 column groups per thread
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Qt = smem;
   float* Kt = Qt + DP * kBlockQ;
   float* Ps = Kt;
-  float* Vs = Kt + (smem_floats<DP>() - DP * kBlockQ - kBlockK * DP);
+  float* Vs = Kt + kt_floats<DP>();
 
   const int bh = blockIdx.x;
   const int b = bh / a.H;
@@ -240,7 +253,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(const Args a) {
   for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
     __syncthreads();   // the last tile's P and V are read; Q is written
     load_tile_t<T, DP>(kb, a.k_ss, k0, a.Sk, a.d, vec, Kt);
-    load_tile<T, DP>(vb, a.v_ss, k0, a.Sk, a.d, vec, Vs);
+    load_tile<T, DV>(vb, a.v_ss, k0, a.Sk, a.dv, vec, Vs);
     __syncthreads();
 
     float s[4][4];
@@ -311,7 +324,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(const Args a) {
       }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = Vs + (j0 + jj) * DP + 4 * tk;
+        const float* vrow = Vs + (j0 + jj) * DV + 4 * tk;
 #pragma unroll
         for (int u = 0; u < kColGroups; ++u) {
           const float4 vv = *reinterpret_cast<const float4*>(vrow + 64 * u);
@@ -338,52 +351,60 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 4 * tk + 64 * u + e;
-        if (col < a.d) orow[col] = Elem<T>::store(acc[i][4 * u + e] / denom);
+        if (col < a.dv) orow[col] = Elem<T>::store(acc[i][4 * u + e] / denom);
       }
     }
   }
 }
 
-template <typename T, int DP>
+template <typename T, int DP, int DV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  constexpr int smem = smem_floats<DP>() * static_cast<int>(sizeof(float));
+  constexpr int smem =
+      smem_floats<DP, DV>() * static_cast<int>(sizeof(float));
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_kernel<T, DP, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid(a.B * a.H, (a.Sq + kBlockQ - 1) / kBlockQ);
-  flash_kernel<T, DP><<<grid, kThreads, smem, stream>>>(a);
+  flash_kernel<T, DP, DV><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The instance that takes (d, dv): (64, 64) when both fit, else (128, 128)
+// when d does, else (192, 128).
+template <typename T>
+cudaError_t dispatch(const Args& a, cudaStream_t stream) {
+  if (a.d <= 64 && a.dv <= 64) return launch<T, 64, 64>(a, stream);
+  if (a.d <= 128) return launch<T, 128, 128>(a, stream);
+  return launch<T, 192, 128>(a, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v and o all of it).  strides: 12
-// element strides, (batch, head, seq) of q, k, v and o in turn.  Returns
-// the cudaError_t of the launch (0 = cudaSuccess).
+// element strides, (batch, head, seq) of q, k, v and o in turn.  d is the
+// head dim of q and k (at most 192), dv that of v and o (at most 128).
+// Returns the cudaError_t of the launch (0 = cudaSuccess).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* o,
                                      const long long* strides, int B, int H,
-                                     int K, int Sq, int Sk, int d,
+                                     int K, int Sq, int Sk, int d, int dv,
                                      float scale, float softcap, int causal,
                                      int window, int vec, void* stream) {
   if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Sk <= 0 ||
-      d <= 0 || d > 128 || (dtype != 0 && dtype != 1)) {
+      d <= 0 || d > 192 || dv <= 0 || dv > 128 ||
+      (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   Args a{q, k, v, o,
          strides[0], strides[1], strides[2], strides[3], strides[4],
          strides[5], strides[6], strides[7], strides[8], strides[9],
          strides[10], strides[11],
-         B, H, K, Sq, Sk, d, scale, softcap, causal, window, vec};
+         B, H, K, Sq, Sk, d, dv, scale, softcap, causal, window, vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return d <= 64 ? launch<float, 64>(a, s) : launch<float, 128>(a, s);
-  }
-  return d <= 64 ? launch<__nv_bfloat16, 64>(a, s)
-                 : launch<__nv_bfloat16, 128>(a, s);
+  return dtype == 0 ? dispatch<float>(a, s) : dispatch<__nv_bfloat16>(a, s);
 }

@@ -129,7 +129,7 @@ _SIGNATURES = {
     "repro_dot_partials_f32": [_VP, _VP, _VP, _VP, _INT, _I64, _VP],
     "repro_gemv_f32": [_VP, _VP, _VP, _INT, _I64, _INT, _VP],
     "repro_flash_attention": [_INT, _VP, _VP, _VP, _VP, _VP,
-                              _INT, _INT, _INT, _INT, _INT, _INT,
+                              _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                               _F32, _F32, _INT, _INT, _INT, _VP],
     "repro_flash_attention_sm90": [_VP, _VP, _VP, _VP, _VP, _VP,
                                    _INT, _INT, _INT, _INT, _INT, _INT,

@@ -16,6 +16,8 @@ import torch
 FEATURE_CASES = (
     ("gqa", (2, 4, 2, 64, 64), {}),
     ("mqa", (1, 8, 1, 128, 128), {}),
+    # chatglm3-6b's grouping: 32 query heads on 2 kv heads (G = 16).
+    ("gqa_g16", (1, 32, 2, 128, 128), {}),
     ("sq_lt_sk", (1, 2, 2, 64, 256), {}),
     ("ragged_100_200", (1, 2, 2, 100, 200), {}),
     ("ragged_70_70", (2, 4, 2, 70, 70), {}),

@@ -4,12 +4,13 @@ Both replace the TPU kernel ``repro/kernels/flash_attention/kernel.py::
 flash_attention``.  :func:`route` picks one per call by a fixed rule:
 
 - ``"tensor_core"`` (``csrc/flash_attention_sm90.cu``): bf16 wgmma fed by
-  TMA, for bf16 operands with d in {64, 128} that TMA can read in place
-  (every base pointer 16-byte aligned, every stride but the head dim's a
-  multiple of 16 bytes);
+  TMA, for bf16 operands with one head dim d in {64, 128} for q, k and v
+  that TMA can read in place (every base pointer 16-byte aligned, every
+  stride but the head dim's a multiple of 16 bytes);
 - ``"cuda_core"`` (``csrc/flash_attention.cu``): fp32 arithmetic on the
   CUDA cores, for every other call the wrapper accepts (fp32, other head
-  dims, misaligned views).
+  dims, a v head dim dv other than d as MLA's 192 and 128, misaligned
+  views).
 
 Both read q, k and v through their strides (the head dim must be unit
 stride), so a ``[B,S,H,d]`` tensor seen as ``[B,H,S,d]`` needs no copy, and
@@ -29,7 +30,9 @@ from .. import build
 LAUNCHES = build.LaunchCounter("flash_attention")
 #: Launches of the tensor-core kernel alone.
 TC_LAUNCHES = build.LaunchCounter("flash_attention_tc")
-MAX_HEAD_DIM = 128
+#: The CUDA-core kernel's largest q/k head dim and v head dim.
+MAX_HEAD_DIM = 192
+MAX_V_HEAD_DIM = 128
 TC_HEAD_DIMS = (64, 128)
 #: One TMA load of the tensor-core kernel: 64 of d (128 bytes, the swizzle
 #: span) by 128 rows of one head of one batch.
@@ -46,14 +49,15 @@ def _aligned(t: torch.Tensor) -> bool:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes ``flash_attention(q, k, v)``: ``"tensor_core"``
-    when q, k and v are bf16 with d in {64, 128}, unit stride along d, and
-    TMA can read them in place (16-byte aligned base pointers, the other
-    strides multiples of 16 bytes); ``"cuda_core"`` otherwise.  Reads only
-    dtypes, shapes, strides and pointers, so it answers for CPU tensors
-    too."""
+    when q, k and v are bf16 with one head dim d in {64, 128}, unit stride
+    along d, and TMA can read them in place (16-byte aligned base pointers,
+    the other strides multiples of 16 bytes); ``"cuda_core"`` otherwise.
+    Reads only dtypes, shapes, strides and pointers, so it answers for CPU
+    tensors too."""
     ts = (q, k, v)
     if (any(t.dtype != torch.bfloat16 for t in ts)
-            or q.shape[-1] not in TC_HEAD_DIMS):
+            or q.shape[-1] not in TC_HEAD_DIMS
+            or v.shape[-1] != q.shape[-1]):
         return "cuda_core"
     for t in ts:
         if t.stride(-1) != 1 or t.data_ptr() % 16:
@@ -78,10 +82,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,H,Sq,d]; k, v: [B,K,Sk,d] (fp32 or bf16, one dtype, one CUDA
-    device, H % K == 0, d <= 128, unit stride along d).  Returns
-    [B,H,Sq,d] in q's dtype and memory layout, from the kernel that
-    :func:`route` picks."""
+    """q: [B,H,Sq,d]; k: [B,K,Sk,d]; v: [B,K,Sk,dv] (fp32 or bf16, one
+    dtype, one CUDA device, H % K == 0, d <= 192, dv <= 128, unit stride
+    along the head dim).  Returns [B,H,Sq,dv] in q's dtype and memory
+    layout, from the kernel that :func:`route` picks."""
     ts = (q, k, v)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in ts):
@@ -94,16 +98,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: 4-D operands, got "
                          f"{[tuple(t.shape) for t in ts]}")
     B, H, Sq, d = q.shape
-    K, Sk = k.shape[1], k.shape[2]
-    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != d
+    K, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[3] != d
             or H % K != 0):
-        raise ValueError(f"flash_attention: q [B,H,Sq,d] and k, v [B,K,Sk,d]"
-                         f" with H % K == 0, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if min(B, H, Sq, Sk, d) < 1 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: non-empty operands and "
-                         f"d <= {MAX_HEAD_DIM}, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}")
+        raise ValueError(f"flash_attention: q [B,H,Sq,d], k [B,K,Sk,d] and "
+                         f"v [B,K,Sk,dv] with H % K == 0, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if (min(B, H, Sq, Sk, d, dv) < 1 or d > MAX_HEAD_DIM
+            or dv > MAX_V_HEAD_DIM):
+        raise ValueError(f"flash_attention: non-empty operands, "
+                         f"d <= {MAX_HEAD_DIM} and dv <= {MAX_V_HEAD_DIM}, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     if any(t.stride(3) != 1 for t in ts):
         raise ValueError("flash_attention: the head dim must be unit stride")
     if window is not None and window < 1:
@@ -124,7 +131,7 @@ def _launch_tensor_core(q, k, v, *, causal=True, window=None, softcap=None,
     checked; raises where :func:`route` says it cannot take them."""
     if route(q, k, v) != "tensor_core":
         raise ValueError("flash_attention: the tensor-core kernel takes "
-                         "bf16 with d in (64, 128) and 16-byte aligned "
+                         "bf16 with one d in (64, 128) and 16-byte aligned "
                          "pointers and strides only")
     B, H, Sq, d = q.shape
     K, Sk = k.shape[1], k.shape[2]
@@ -148,19 +155,31 @@ def _launch_cuda_core(q, k, v, *, causal=True, window=None, softcap=None,
     """The CUDA-core kernel, which takes every call that
     :func:`flash_attention` accepts."""
     B, H, Sq, d = q.shape
-    K, Sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)           # q's layout, so unit stride in d
+    K, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = empty_like_q(q, dv)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     err = build.library().repro_flash_attention(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), ctypes.addressof(strides), B, H, K, Sq, Sk, d,
+        out.data_ptr(), ctypes.addressof(strides), B, H, K, Sq, Sk, d, dv,
         _scale(scale, d), softcap or 0.0, int(causal), window or 0,
         int(all(_aligned(t) for t in (q, k, v))),
         build.stream_handle(q.device))
     build.check(err, "flash_attention")
     LAUNCHES.count += 1
     return out
+
+
+def empty_like_q(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An output [B,H,Sq,dv] laid out like q (its batch, head and sequence
+    axes in q's stride order), unit stride in dv: ``empty_like(q)`` when
+    dv is q's head dim."""
+    if dv == q.shape[3]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=lambda i: -q.stride(i))
+    out = torch.empty([q.shape[i] for i in order] + [dv], dtype=q.dtype,
+                      device=q.device)
+    return out.permute(*(order.index(i) for i in range(3)), 3)
 
 
 def _scale(scale: Optional[float], d: int) -> float:

@@ -19,7 +19,8 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: Optional[int] = None,
                        softcap: Optional[float] = None,
                        scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,H,Sq,d]; k, v: [B,K,Sk,d], H % K == 0.  Returns [B,H,Sq,d].
+    """q: [B,H,Sq,d]; k: [B,K,Sk,d]; v: [B,K,Sk,dv], H % K == 0.  Returns
+    [B,H,Sq,dv].
 
     ``scale`` defaults to 1/sqrt(d); query i sees keys
     ``i + Sk - Sq - window < j <= i + Sk - Sq`` (causal, window)."""

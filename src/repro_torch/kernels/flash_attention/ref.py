@@ -10,9 +10,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
                   softcap: Optional[float] = None,
                   scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,H,Sq,d]; k,v: [B,K,Sk,d] with H a multiple of K (GQA).
+    """q: [B,H,Sq,d]; k: [B,K,Sk,d]; v: [B,K,Sk,dv] with H a multiple of
+    K (GQA); dv may differ from d (MLA).
 
-    Returns [B,H,Sq,d] (fp32 softmax and products, cast to q.dtype).  The
+    Returns [B,H,Sq,dv] (fp32 softmax and products, cast to q.dtype).  The
     causal mask aligns the ends: query i sees keys <= i + (Sk - Sq).
     """
     B, H, Sq, d = q.shape
@@ -32,4 +33,4 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ok &= kpos > qpos + (Sk - Sq) - window
     p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
-    return o.reshape(B, H, Sq, d).to(q.dtype)
+    return o.reshape(B, H, Sq, v.shape[3]).to(q.dtype)

@@ -4,6 +4,10 @@ over the ServingEngine.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --smoke --device cpu --requests 4 --prompt-len 8 --max-new 16
 
+``--arch`` is any of ``repro_torch.configs.ALL_ARCHS`` (the GQA decoders,
+chatglm3-6b, and the MLA + MoE archs deepseek-v2-236b and
+deepseek-v3-671b).
+
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are drawn
 from ``--seed``; the prompts too (numpy).  The prefill step runs once over
 ``--requests`` prompts of ``--prefill-len`` tokens (default:
@@ -61,11 +65,12 @@ def main(argv=None) -> int:
     logits = prefill(params, {"tokens": long_prompts})
     _sync(dev)
     dt = time.perf_counter() - t0
-    launches = launch_counts()["flash_attention"]
+    counts = launch_counts()
     assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
     print(f"prefill {tuple(long_prompts.shape)} on {dev} in {dt:.3f}s "
           f"({long_prompts.size / dt:.1f} tok/s), flash_attention "
-          f"launches {launches}")
+          f"launches {counts['flash_attention']} (tensor cores "
+          f"{counts['flash_attention_tc']})")
 
     engine = ServingEngine(params, cfg, ServeConfig(
         batch_slots=args.requests, max_len=args.max_len,

@@ -32,7 +32,7 @@ def build_prefill_step(cfg: ModelConfig, device=None) -> Callable:
         x = T._embed_inputs(params, cfg, {"tokens": tokens})
         B, S, _ = x.shape
         positions = torch.arange(S, device=dev).expand(B, S)
-        x = T._run_stack(params, cfg, x, positions)
+        x, _ = T._run_stack(params, cfg, x, positions)
         x = layers.rmsnorm(params["final_norm"], x[:, -1:, :],
                            zero_centered=cfg.zero_centered_norm)
         logits = layers.unembed(T._unembed_table(params, cfg), x[:, 0, :])

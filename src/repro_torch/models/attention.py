@@ -1,15 +1,18 @@
-"""Attention family, the GQA part: GQA/MQA (+ qk-norm, logit softcap,
-sliding window) with a full-sequence path (prefill) and a KV-cached decode
-path.
+"""Attention family: GQA/MQA (+ qk-norm, logit softcap, sliding window)
+and DeepSeek MLA (latent-compressed KV), each with a full-sequence path
+(prefill) and a cached decode path.
 
-The full-sequence path runs :func:`attention_core` on the flash attention
+The full-sequence paths run :func:`attention_core` on the flash attention
 kernel (``kernels/flash_attention``, the TPU's flash path for the same
 function): on the card it launches the hand-written kernel, on the CPU it
 takes the kernel's plain version.  Scores are never materialised at
-[B,H,S,S] on the card.  Decode uses a ring-buffer cache for windowed
-layers and stays plain torch, as in JAX.
+[B,H,S,S] on the card.  MLA's prefill expands the latents to per-head K
+and V (q/k head dim 192, v 128 at full width), which the CUDA-core kernel
+takes.  Decode uses a ring-buffer cache for windowed layers and MLA's
+absorbed latent-space decode; both stay plain torch, as in JAX, and update
+their cache in place.
 
-Cross attention (enc-dec) and DeepSeek MLA are not ported yet (ROADMAP).
+Cross attention (enc-dec) is not ported yet (ROADMAP).
 """
 from __future__ import annotations
 
@@ -72,7 +75,8 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    window: Optional[int], softcap: Optional[float],
                    scale: float, causal: bool = True) -> torch.Tensor:
-    """q: [B,Sq,H,hd]; k,v: [B,Sk,K,hd] with H = G*K.  Returns [B,Sq,H,hd].
+    """q, k: [B,Sq,H,hd], [B,Sk,K,hd] with H = G*K; v: [B,Sk,K,vd], vd
+    may differ from hd (MLA).  Returns [B,Sq,H,vd].
 
     Query i sits at position Sk - Sq + i and key j at position j (the JAX
     callers pass ``positions = arange(S)`` for both), so ``k_pos <= q_pos``
@@ -168,4 +172,133 @@ def gqa_decode(params, cfg: AttnConfig, cache: dict, x: torch.Tensor,
     o = torch.einsum("bkgcs,bskh->bckgh", p.to(cv.dtype).float(),
                      cv.to(q.dtype).float())
     o = o.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
+    return cache, _out_proj(params, o)
+
+
+# =============================================================================
+# MLA — DeepSeek multi-head latent attention (arXiv:2405.04434 §2.1)
+# =============================================================================
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    num_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+
+def init_mla(gen: torch.Generator, cfg: MLAConfig,
+             dtype=torch.float32) -> dict:
+    D, H = cfg.d_model, cfg.num_heads
+    qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    qrank, kvrank = cfg.q_lora_rank, cfg.kv_lora_rank
+    dev = gen.device
+    return {
+        "wq_down_dr": layers.dense_init(gen, D, qrank, dtype),
+        "q_norm": layers.rmsnorm_init(qrank, dtype, dev),
+        "wq_up_rhk": layers.dense_init(gen, qrank, H * (qn + qr),
+                                       dtype).reshape(qrank, H, qn + qr),
+        "wkv_down_dr": layers.dense_init(gen, D, kvrank + qr, dtype),
+        "kv_norm": layers.rmsnorm_init(kvrank, dtype, dev),
+        "wk_up_rhk": layers.dense_init(gen, kvrank, H * qn,
+                                       dtype).reshape(kvrank, H, qn),
+        "wv_up_rhk": layers.dense_init(gen, kvrank, H * vd,
+                                       dtype).reshape(kvrank, H, vd),
+        "wo_hkd": layers.dense_init(gen, H * vd, D, dtype).reshape(H, vd, D),
+    }
+
+
+def mla_param_count(cfg: MLAConfig) -> int:
+    """Leaves of :func:`init_mla`'s tree."""
+    D, H = cfg.d_model, cfg.num_heads
+    qn, qr, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    qrank, kvrank = cfg.q_lora_rank, cfg.kv_lora_rank
+    return (D * qrank + qrank + qrank * H * (qn + qr) + D * (kvrank + qr)
+            + kvrank + kvrank * H * (qn + vd) + H * vd * D)
+
+
+def _mla_qkv(params, cfg: MLAConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    B, S, _ = x.shape
+    H, qn = cfg.num_heads, cfg.qk_nope_dim
+    inv = layers.rope_freqs(cfg.qk_rope_dim, cfg.rope_theta, device=x.device)
+    qd = layers.rmsnorm(params["q_norm"], x @ params["wq_down_dr"])
+    q = (qd @ params["wq_up_rhk"].flatten(1)).view(B, S, H, -1)
+    q_nope = q[..., :qn]
+    q_rope = layers.apply_rope(q[..., qn:], positions, inv)
+    ckv = x @ params["wkv_down_dr"]
+    c_kv = layers.rmsnorm(params["kv_norm"], ckv[..., :cfg.kv_lora_rank])
+    k_rope = layers.apply_rope(ckv[:, :, None, cfg.kv_lora_rank:],
+                               positions, inv)                # [B,S,1,qr]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_scale(cfg: MLAConfig) -> float:
+    return 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_forward(params, cfg: MLAConfig, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Prefill MLA: x [B,S,D], positions [B,S].  The latents are expanded
+    to per-head K/V (the naive path); the absorbed decode path below never
+    expands per-position K/V."""
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, cfg, x, positions)
+    B, S, H, _ = q_nope.shape
+    k_nope = (c_kv @ params["wk_up_rhk"].flatten(1)).view(B, S, H, -1)
+    v = (c_kv @ params["wv_up_rhk"].flatten(1)).view(B, S, H, -1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.qk_rope_dim)], -1)
+    q = torch.cat([q_nope, q_rope], -1)
+    o = attention_core(q, k, v, window=None, softcap=None,
+                       scale=_mla_scale(cfg))
+    return _out_proj(params, o)
+
+
+def init_mla_cache(cfg: MLAConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
+    }
+
+
+def mla_decode(params, cfg: MLAConfig, cache: dict, x: torch.Tensor,
+               pos: int) -> Tuple[dict, torch.Tensor]:
+    """Absorbed-matmul MLA decode: attention runs in the compressed latent
+    space, over a cache of [B,S,kv_lora] latents and [B,S,rope] keys.
+
+    q_nope is absorbed through wk_up:  score = (q_nope W_k^T) · c_kv.
+    The output absorbs wv_up:          o = (p · c_kv) W_v.
+
+    Writes this token's latent and rope key into ``cache`` in place at
+    ``pos`` (JAX returns an updated copy) and returns ``(cache, out)``.
+    """
+    B = x.shape[0]
+    posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(params, cfg, x, posv)
+    cache["c_kv"][:, pos] = c_kv_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][:, pos] = k_rope_new[:, 0, 0].to(cache["k_rope"].dtype)
+    ck, kr = cache["c_kv"], cache["k_rope"]
+    # Absorb: q_lat[b,1,h,r] = q_nope[b,1,h,k] @ wk_up[r,h,k].  fp32
+    # products of the working-dtype values: JAX's
+    # preferred_element_type=float32.
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["wk_up_rhk"])
+    s = (torch.einsum("bshr,btr->bhst", q_lat.float(),
+                      ck.to(q_lat.dtype).float())
+         + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                        kr.to(q_rope.dtype).float()))
+    t_pos = torch.arange(ck.shape[1], device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    s = s * _mla_scale(cfg) + torch.where(t_pos <= pos, zero,
+                                          torch.full_like(zero, -1e30))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", p.to(ck.dtype).float(),
+                         ck.float())
+    o = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype),
+                     params["wv_up_rhk"])
     return cache, _out_proj(params, o)

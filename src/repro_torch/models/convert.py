@@ -6,7 +6,9 @@ one tree per layer in order.  Layer ``sb * len(pattern) + i`` is
 ``blocks[f"p{i}"][sb]``.  Leaves arrive as numpy arrays (nested dicts, as
 ``jax.tree.map(np.asarray, params)`` gives them); numpy has no bfloat16,
 so a bf16 leaf is handed over as float32 and cast back to
-``cfg.param_dtype``, which loses nothing.
+``cfg.param_dtype``, which loses nothing.  The leaves JAX keeps in fp32
+whatever the model's dtype (the MoE router, ``moe.FP32_LEAVES``) stay
+fp32.
 """
 from __future__ import annotations
 
@@ -17,12 +19,14 @@ import torch
 
 from ..exec.programs import resolve_device
 from . import layers
+from .moe import FP32_LEAVES
 from .transformer import ModelConfig, check_supported
 
 
 def _to_torch(tree: Any, dtype, device) -> Any:
     if isinstance(tree, Mapping):
-        return {k: _to_torch(v, dtype, device) for k, v in tree.items()}
+        return {k: _to_torch(v, torch.float32 if k in FP32_LEAVES else dtype,
+                             device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_to_torch(v, dtype, device) for v in tree]
     return torch.from_numpy(np.array(tree)).to(device=device, dtype=dtype)
@@ -37,7 +41,8 @@ def _index(tree: Any, i: int) -> Any:
 def tree_from_numpy(tree: Mapping, dtype=torch.float32,
                     device=None) -> layers.ParamTree:
     """A nested dict of numpy arrays as a :class:`~.layers.ParamTree` of
-    ``dtype`` on ``device`` (``cuda`` unless the caller names another)."""
+    ``dtype`` (fp32 for ``FP32_LEAVES``) on ``device`` (``cuda`` unless the
+    caller names another)."""
     return layers.ParamTree(_to_torch(tree, dtype, resolve_device(device)))
 
 

@@ -11,16 +11,18 @@ layers in order in an ``nn.ModuleList`` (``params["blocks"][l]`` is layer
 ``l = sb * len(pattern) + i``, of spec ``pattern[i]``) and loops over them
 in Python.  Decode carries one cache per layer in the same order.
 
-Ported: layers of the ``gqa`` mixer and the ``dense`` FFN, and the serving
+Ported: layers of the ``gqa`` and ``mla`` mixers and the ``dense`` and
+``moe`` FFNs, the DeepSeek-V3 ``mtp`` head's parameters, and the serving
 side (prefill stack, ``serve_step``).  Every other mixer or FFN,
-``extra_layers``, architecture style or head raises ``NotImplementedError``
-naming its ROADMAP item; training (``train_loss``, ``chunked_xent``) waits
-for the training slice.
+``extra_layers``, architecture style or frontend raises
+``NotImplementedError`` naming its ROADMAP item.  Training
+(``train_loss``, ``chunked_xent``) waits for the training slice, and with
+it the MTP head's forward, which only ``train_loss`` runs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -28,6 +30,7 @@ from ..exec.programs import resolve_device
 from . import attention as attn
 from . import ffn as ffnmod
 from . import layers
+from . import moe as moemod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,9 +64,11 @@ class ModelConfig:
     # gemma-2 style post-norms (norm applied to sublayer output too)
     use_post_norm: bool = False
     zero_centered_norm: bool = False
-    # MoE, MLA and the recurrent mixers: configs of modules not ported yet
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    # MoE
+    moe: Optional[moemod.MoEConfig] = None
+    # MLA
+    mla: Optional[attn.MLAConfig] = None
+    # the recurrent mixers: configs of modules not ported yet
     rglru: Optional[Any] = None
     mlstm: Optional[Any] = None
     slstm: Optional[Any] = None
@@ -103,14 +108,17 @@ class ModelConfig:
 
 # What waits, by the ROADMAP item (Queue 1) that ports it.
 _NOT_PORTED = {
-    "moe": "item 6a (moe)", "mla": "item 6b (MLA)",
     "rglru": "item 6c (recurrent)", "mlstm": "item 6c (recurrent)",
     "slstm": "item 6c (recurrent)", "none": "item 6c (recurrent)",
     "extra_layers": "item 6c (recurrent)",
     "encdec": "item 6d (cross_forward / encdec)",
     "audio": "item 6d (cross_forward / encdec)",
-    "vision": "item 6e (vision frontend)", "mtp": "item 6f (mtp)",
+    "vision": "item 6e (vision frontend)",
 }
+MIXERS = ("gqa", "mla")
+FFNS = ("dense", "moe")
+#: The layer kind of the MTP head's block.
+MTP_SPEC = LayerSpec("gqa", "dense")
 
 
 def _not_ported(what: str, key: str) -> NotImplementedError:
@@ -120,9 +128,9 @@ def _not_ported(what: str, key: str) -> NotImplementedError:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.mixer != "gqa":
+    if spec.mixer not in MIXERS:
         raise _not_ported(f"mixer {spec.mixer!r}", spec.mixer)
-    if spec.ffn != "dense":
+    if spec.ffn not in FFNS:
         raise _not_ported(f"ffn {spec.ffn!r}", spec.ffn)
 
 
@@ -136,8 +144,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise _not_ported(f"arch {cfg.arch!r}", cfg.arch)
     if cfg.frontend is not None:
         raise _not_ported(f"frontend {cfg.frontend!r}", cfg.frontend)
-    if cfg.mtp:
-        raise _not_ported("the mtp head", "mtp")
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -174,9 +180,11 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig,
     dt, dev = cfg.param_dtype, gen.device
     p: Dict[str, Any] = {
         "ln_mixer": layers.rmsnorm_init(cfg.d_model, dt, dev),
-        "attn": attn.init_gqa(gen, cfg.attn_cfg(spec), dt),
+        "attn": (attn.init_mla(gen, cfg.mla, dt) if spec.mixer == "mla"
+                 else attn.init_gqa(gen, cfg.attn_cfg(spec), dt)),
         "ln_ffn": layers.rmsnorm_init(cfg.d_model, dt, dev),
-        "ffn": ffnmod.init_ffn(gen, cfg.ffn_cfg(), dt),
+        "ffn": (moemod.init_moe(gen, cfg.moe, dt) if spec.ffn == "moe"
+                else ffnmod.init_ffn(gen, cfg.ffn_cfg(), dt)),
     }
     if cfg.use_post_norm:
         p["post_mixer"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
@@ -196,18 +204,35 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> layers.ParamTree:
     if not cfg.tie_embeddings:
         tree["unembed_dv"] = layers.dense_init(gen, cfg.d_model, cfg.vocab,
                                                dt)
+    if cfg.mtp:
+        # The MTP head (DeepSeek-V3 §2.2): one GQA block over
+        # [h; embed(next token)].  Its forward belongs to train_loss.
+        tree["mtp_block"] = _init_layer(gen, cfg, MTP_SPEC)
+        tree["mtp_proj_dd"] = layers.dense_init(gen, 2 * cfg.d_model,
+                                                cfg.d_model, dt)
     return layers.ParamTree(tree)
+
+
+def _layer_count(cfg: ModelConfig, spec: LayerSpec) -> int:
+    D, hd = cfg.d_model, cfg.head_dim
+    if spec.mixer == "mla":
+        mixer = attn.mla_param_count(cfg.mla)
+    else:
+        mixer = (2 * D * hd * (cfg.num_heads + cfg.num_kv_heads)
+                 + (2 * hd if cfg.qk_norm else 0))
+    ffn = (moemod.param_count(cfg.moe) if spec.ffn == "moe"
+           else 3 * D * cfg.d_ff)
+    return mixer + ffn + (4 if cfg.use_post_norm else 2) * D
 
 
 def param_count(cfg: ModelConfig) -> int:
     """Analytic parameter count of :func:`init_params`' tree."""
     check_supported(cfg)
-    D, hd = cfg.d_model, cfg.head_dim
-    layer = (2 * D * hd * (cfg.num_heads + cfg.num_kv_heads)
-             + (2 * hd if cfg.qk_norm else 0) + 3 * D * cfg.d_ff
-             + (4 if cfg.use_post_norm else 2) * D)
+    D = cfg.d_model
     embed = cfg.vocab * D * (1 if cfg.tie_embeddings else 2)
-    return embed + D + cfg.num_layers * layer
+    mtp = _layer_count(cfg, MTP_SPEC) + 2 * D * D if cfg.mtp else 0
+    return (embed + D + mtp
+            + sum(_layer_count(cfg, s) for s in layer_specs(cfg)))
 
 
 # =============================================================================
@@ -221,25 +246,37 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict] = None,
                 pos: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
+                ) -> Tuple[torch.Tensor, Optional[dict],
+                           Union[torch.Tensor, float]]:
     """One residual block: the full sequence, or with ``cache`` one decode
-    step at ``pos``.  Returns (x, new_cache); the MoE aux loss of the JAX
-    version waits with the MoE FFN."""
+    step at ``pos``.  Returns (x, new_cache, moe_aux); moe_aux is an fp32
+    scalar tensor for a MoE FFN and the float 0.0 for a dense one, so a
+    dense step allocates nothing for it."""
     _check_spec(spec)
     new_cache: Optional[dict] = None
-    acfg = cfg.attn_cfg(spec)
     h = _norm(cfg, p["ln_mixer"], x)
-    if cache is not None:
-        new_cache, h = attn.gqa_decode(p["attn"], acfg, cache, h, pos)
+    if spec.mixer == "mla":
+        if cache is not None:
+            new_cache, h = attn.mla_decode(p["attn"], cfg.mla, cache, h, pos)
+        else:
+            h = attn.mla_forward(p["attn"], cfg.mla, h, positions)
+    elif cache is not None:
+        new_cache, h = attn.gqa_decode(p["attn"], cfg.attn_cfg(spec), cache,
+                                       h, pos)
     else:
-        h = attn.gqa_forward(p["attn"], acfg, h, positions)
+        h = attn.gqa_forward(p["attn"], cfg.attn_cfg(spec), h, positions)
     if cfg.use_post_norm:
         h = _norm(cfg, p["post_mixer"], h)
     x = x + h
-    h = ffnmod.ffn_forward(p["ffn"], cfg.ffn_cfg(), _norm(cfg, p["ln_ffn"], x))
+    h = _norm(cfg, p["ln_ffn"], x)
+    if spec.ffn == "moe":
+        h, aux = moemod.moe_forward(p["ffn"], cfg.moe, h)
+    else:
+        h = ffnmod.ffn_forward(p["ffn"], cfg.ffn_cfg(), h)
+        aux = 0.0
     if cfg.use_post_norm:
         h = _norm(cfg, p["post_ffn"], h)
-    return x + h, new_cache
+    return x + h, new_cache, aux
 
 
 # =============================================================================
@@ -254,12 +291,16 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def _run_stack(params, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
-    """Run the decoder stack over a whole sequence: x [B,S,D]."""
+               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the decoder stack over a whole sequence: x [B,S,D].  Returns
+    (x, the summed MoE aux loss)."""
     check_supported(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(layer_specs(cfg), params["blocks"]):
-        x, _ = apply_layer(cfg, spec, p, x, positions)
-    return x
+        x, _, a = apply_layer(cfg, spec, p, x, positions)
+        if spec.ffn == "moe":
+            aux = aux + a
+    return x, aux
 
 
 def _unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
@@ -277,9 +318,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """One cache per layer, in the order of ``params["blocks"]``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return {"blocks": [attn.init_kv_cache(cfg.attn_cfg(s), batch, max_len,
-                                          dtype=cfg.dtype, device=dev)
-                       for s in layer_specs(cfg)]}
+
+    def one_layer(spec: LayerSpec) -> dict:
+        if spec.mixer == "mla":
+            return attn.init_mla_cache(cfg.mla, batch, max_len,
+                                       dtype=cfg.dtype, device=dev)
+        return attn.init_kv_cache(cfg.attn_cfg(spec), batch, max_len,
+                                  dtype=cfg.dtype, device=dev)
+    return {"blocks": [one_layer(s) for s in layer_specs(cfg)]}
 
 
 def serve_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
@@ -294,7 +340,8 @@ def serve_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                            device=x.device)
     for spec, p, c in zip(layer_specs(cfg), params["blocks"],
                           cache["blocks"]):
-        x, _ = apply_layer(cfg, spec, p, x, positions, cache=c, pos=pos)
+        x, _, _ = apply_layer(cfg, spec, p, x, positions, cache=c,
+                              pos=pos)
     x = layers.rmsnorm(params["final_norm"], x,
                        zero_centered=cfg.zero_centered_norm)
     logits = layers.unembed(_unembed_table(params, cfg), x[:, 0, :])

@@ -98,15 +98,19 @@ def np_tree(tree):
 
 
 def torch_model_config(jcfg):
-    """The port's ModelConfig with every field of the JAX one ``jcfg``."""
+    """The port's ModelConfig with every field of the JAX one ``jcfg``
+    (the nested MLA and MoE configs as the port's dataclasses)."""
     import jax.numpy as jnp
     import torch
 
-    from repro_torch.models import LayerSpec, ModelConfig
+    from repro_torch.models import LayerSpec, MLAConfig, ModelConfig, MoEConfig
 
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
     for key in ("pattern", "extra_layers"):
         kw[key] = tuple(LayerSpec(**dataclasses.asdict(s)) for s in kw[key])
+    for key, cls in (("mla", MLAConfig), ("moe", MoEConfig)):
+        if kw[key] is not None:
+            kw[key] = cls(**dataclasses.asdict(kw[key]))
     for key in ("dtype", "param_dtype"):
         kw[key] = getattr(torch, jnp.dtype(kw[key]).name)
     return ModelConfig(**kw)

@@ -2,8 +2,10 @@
 JAX package's ``flash_attention_op`` in interpret mode, on the same numpy
 inputs: every case of ``tests/test_kernels.py``'s flash attention tests,
 fp32 within 2e-5 and bf16 within 2e-2; the card's feature cases in bf16
-under the gates that hold the CUDA kernels on the card; and the row gate's
-power against a key tile skipped at the prefill step's length.
+under the gates that hold the CUDA kernels on the card; the row gate's
+power against a key tile skipped at the prefill step's length; and, with a
+v head dim other than q's (MLA), the plain version against the JAX
+model's ``attention_core``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import \
     flash_attention_op as jax_flash_attention_op
+from repro.models.attention import attention_core as jax_attention_core
 from repro_torch.kernels import flash_attention_op, launch_counts
 from repro_torch.kernels.flash_attention import cases
 from repro_torch.kernels.flash_attention.kernel import flash_attention
@@ -117,3 +120,48 @@ def test_row_gate_rejects_a_skipped_key_tile(fault):
     bad[:, :, S - T:] = attention_ref(q[:, :, S - T:], kk, vv, causal=causal)
     assert cases.row_rel_err(want, want) == 0.0
     assert cases.row_rel_err(bad, want) > 10 * cases.ROW_REL_LIMIT
+
+
+@pytest.mark.parametrize("d,dv,kwargs", [
+    (24, 16, {}),                      # deepseek smoke()'s MLA
+    (192, 128, {}),                    # deepseek full()'s MLA
+    (24, 16, {"window": 5, "softcap": 30.0}),
+    (12, 8, {"causal": False}),
+])
+def test_plain_version_v_head_dim_matches_jax_attention_core(d, dv, kwargs):
+    """The Pallas kernel takes one head dim; the JAX model's MLA prefill
+    runs ``attention_core`` (jnp) with q/k and v head dims that differ.
+    The op's plain version against it, fp32, on [B,S,H,d] inputs."""
+    rng = np.random.default_rng(7)
+    B, S, H, K = 2, 16, 4, 2
+    q = rng.standard_normal((B, S, H, d), dtype=np.float32)
+    k = rng.standard_normal((B, S, K, d), dtype=np.float32)
+    v = rng.standard_normal((B, S, K, dv), dtype=np.float32)
+    causal = kwargs.get("causal", True)
+    pos = jnp.broadcast_to(jnp.arange(S), (B, S))
+    want = jax_attention_core(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos, pos,
+        window=kwargs.get("window"), softcap=kwargs.get("softcap"),
+        scale=d ** -0.5, q_chunk=8, causal=causal)
+    got = flash_attention_op(*(torch.from_numpy(a).transpose(1, 2)
+                               for a in (q, k, v)), scale=d ** -0.5,
+                             **kwargs).transpose(1, 2)
+    assert got.shape == (B, S, H, dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_v_head_dim_routes_to_the_cuda_cores():
+    """bf16 at a tensor-core head dim still takes the CUDA cores when v's
+    head dim differs; the wrapper's output is [B,H,Sq,dv] laid out like
+    q."""
+    from repro_torch.kernels.flash_attention.kernel import (empty_like_q,
+                                                            route)
+    q = torch.zeros(2, 32, 4, 128, dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.zeros(2, 32, 4, 64, dtype=torch.bfloat16).transpose(1, 2)
+    assert route(q, q, q) == "tensor_core"
+    assert route(q, q, v) == "cuda_core"
+    out = empty_like_q(q, 64)
+    assert out.shape == (2, 4, 32, 64)
+    assert out.transpose(1, 2).is_contiguous()
+    assert empty_like_q(q.contiguous(), 64).is_contiguous()

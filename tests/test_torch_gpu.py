@@ -3,8 +3,8 @@ version (the BLAS kernels also whole array against shards, bit for bit),
 the launch counters, a small compile → execute on ``cuda`` (the HBM apps
 through the bank model and the ideal path), PageRank at 2^20 edges (its
 fixed-order segment sums: the same bits on every run and through the
-fabric), and the LM serving side's prefill (flash attention kernel)
-against its cached decode.
+fabric), and the LM serving side's prefill (flash attention kernel, MLA's
+head dims on the CUDA cores) against its cached decode.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided in the fixture, never at import).  On a machine with one:
@@ -502,13 +502,89 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
     q = _randn(cuda, 1, 2, 8, 16)
     with pytest.raises(TypeError):
         flash_attention_op(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError, match="d <= 128"):
+    with pytest.raises(ValueError, match="d <= 192"):
+        flash_attention_op(*(_randn(cuda, 1, 1, 4, 256),) * 3)
+    with pytest.raises(ValueError, match="dv <= 128"):
         flash_attention_op(*(_randn(cuda, 1, 1, 4, 192),) * 3)
     with pytest.raises(ValueError, match="H % K"):
         flash_attention_op(q, _randn(cuda, 1, 3, 8, 16),
                            _randn(cuda, 1, 3, 8, 16))
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         flash_kernel._launch_tensor_core(q, q, q)
+
+
+MLA_HEAD_DIMS = [(192, 128), (24, 16), (128, 64), (72, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,dv", MLA_HEAD_DIMS)
+@pytest.mark.parametrize("shape,kwargs",
+                         [case[1:] for case in flash_cases.FEATURE_CASES],
+                         ids=[case[0] for case in flash_cases.FEATURE_CASES])
+def test_flash_attention_v_head_dim(cuda, shape, kwargs, d, dv, dtype):
+    """q and k at head dim d, v at dv (MLA's 192 and 128 among them) on
+    the CUDA-core kernel, every feature case, against the plain version
+    (fp32 within 2e-5; bf16 elementwise and row by row)."""
+    B, H, K, Sq, Sk = shape
+    q = _randn(cuda, B, H, Sq, d).to(dtype)
+    k = _randn(cuda, B, K, Sk, d, seed=1).to(dtype)
+    v = _randn(cuda, B, K, Sk, dv, seed=2).to(dtype)
+    assert flash_kernel.route(q, k, v) == "cuda_core"
+    reset_launch_counts()
+    got = flash_attention_op(q, k, v, **kwargs)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    assert launch_counts()["flash_attention_tc"] == 0
+    assert got.shape == (B, H, Sq, dv) and got.dtype == dtype
+    want = attention_ref(q, k, v, **kwargs)
+    if dtype == torch.bfloat16:
+        assert flash_cases.excess(got, want) <= flash_cases.ATOL
+        assert flash_cases.row_rel_err(got, want) <= \
+            flash_cases.ROW_REL_LIMIT
+    else:
+        assert _max_abs(got, want) <= FLASH_TOL[dtype]
+
+
+def test_flash_attention_v_head_dim_strided_views(cuda):
+    """MLA's prefill operands as the model gives them: [B,S,H,d] seen as
+    [B,H,S,d]; the output laid out like q."""
+    q = _randn(cuda, 2, 96, 8, 192).bfloat16().transpose(1, 2)
+    k = _randn(cuda, 2, 96, 8, 192, seed=1).bfloat16().transpose(1, 2)
+    v = _randn(cuda, 2, 96, 8, 128, seed=2).bfloat16().transpose(1, 2)
+    got = flash_attention_op(q, k, v)
+    assert got.shape == (2, 8, 96, 128)
+    assert got.transpose(1, 2).is_contiguous()
+    want = attention_ref(q, k, v)
+    assert flash_cases.row_rel_err(got, want) <= flash_cases.ROW_REL_LIMIT
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])
+def test_mla_moe_prefill_on_cuda_matches_decode(cuda, arch):
+    """The DeepSeek smoke() on the card (capacity_factor = experts / top_k,
+    so the prefill drops no token): the prefill step, one CUDA-core flash
+    launch a layer, agrees with the engine's sequential absorbed decode
+    and with the prefill step on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+
+    cfg = get_arch(arch).smoke()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    params = init_params(torch.Generator(cuda).manual_seed(0), cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 12))
+    reset_launch_counts()
+    got = build_prefill_step(cfg)(params, {"tokens": toks})
+    assert launch_counts()["flash_attention"] == cfg.num_layers
+    assert launch_counts()["flash_attention_tc"] == 0
+    dec, _ = ServingEngine(params, cfg, ServeConfig(3, 16)).prefill(toks)
+    cpu = build_prefill_step(cfg, "cpu")(params.to("cpu"), {"tokens": toks})
+    scale = float(dec.abs().max())
+    assert float((got - dec).abs().max()) <= 1e-4 * scale
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b"])

@@ -1,9 +1,11 @@
 """The port's LM layers, attention and decoder stack against the JAX
 package on the CPU, in fp32, on the same numpy inputs and the same weights
 (JAX's ``init_params`` carried over by ``params_from_jax``): within 1e-5
-of the output's scale (at least 1).  Also the port's own prefill-path
-against decode parity (``tests/test_models_parity.py``'s contract) and its
-config registry against the JAX configs.
+of the output's scale (at least 1).  GQA and MLA (prefill and absorbed
+decode), the dense and MoE FFNs, and the stack of every ported arch's
+``smoke()``.  Also the port's own prefill-path against decode parity
+(``tests/test_models_parity.py``'s contract, its ``mla`` config included)
+and its config registry against the JAX configs.
 """
 import dataclasses
 
@@ -15,16 +17,20 @@ import torch
 
 import repro.configs as jax_configs
 from repro.models import LayerSpec as JLayerSpec
+from repro.models import MLAConfig as JMLAConfig
 from repro.models import ModelConfig as JModelConfig
+from repro.models import MoEConfig as JMoEConfig
 from repro.models import attention as jattn
 from repro.models import init_cache as j_init_cache
+from repro.models.transformer import apply_layer as j_apply_layer
 from repro.models import init_params as j_init_params
 from repro.models import layers as jlayers
 from repro.models import param_count as j_param_count
 from repro.models import serve_step as j_serve_step
 from repro_torch import configs
-from repro_torch.models import (LayerSpec, init_cache, init_params,
-                                param_count, params_from_jax, serve_step)
+from repro_torch.models import (LayerSpec, MLAConfig, MoEConfig, init_cache,
+                                init_params, param_count, params_from_jax,
+                                serve_step)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
@@ -36,7 +42,8 @@ from _torch_parity import torch_model_config as _torch_cfg
 
 TOL = 1e-5
 B, S, V = 2, 8, 64
-ARCHS = ["qwen3-4b", "gemma2-27b", "mistral-nemo-12b"]
+ARCHS = ["qwen3-4b", "gemma2-27b", "mistral-nemo-12b", "chatglm3-6b",
+         "deepseek-v2-236b", "deepseek-v3-671b"]
 
 
 def _rand(*shape, seed=0):
@@ -53,12 +60,18 @@ def _jcfg(**kw):
     return JModelConfig(**base)
 
 
+# tests/test_models_parity.py's MLA config (q/k head dim 12, v 8).
+MLA_KW = dict(d_model=32, num_heads=4, q_lora_rank=16, kv_lora_rank=8,
+              qk_nope_dim=8, qk_rope_dim=4, v_head_dim=8)
+
 # The configs of tests/test_models_parity.py and the ported archs' smoke().
 MODEL_CONFIGS = {
     "gqa": _jcfg(),
     "gqa_window": _jcfg(pattern=(JLayerSpec("gqa", "dense", window=4),),
                         num_kv_heads=1),
     **{a: jax_configs.get_arch(a).smoke() for a in ARCHS},
+    "mla": _jcfg(pattern=(JLayerSpec("mla", "dense"),),
+                 mla=JMLAConfig(**MLA_KW)),
 }
 
 
@@ -72,6 +85,9 @@ def _fields(cfg):
             v = str(v).replace("torch.", "").split(".")[-1].strip("'>")
         elif f.name == "pattern":
             v = tuple(dataclasses.astuple(s) for s in v)
+        elif f.name in ("mla", "moe") and v is not None:
+            # A port MLAConfig never equals a JAX one: compare the fields.
+            v = (type(v).__name__, dataclasses.astuple(v))
         out[f.name] = v
     return out
 
@@ -91,7 +107,7 @@ def test_registry_and_shapes():
     assert configs.SHAPES == {k: configs.ShapeCell(**dataclasses.asdict(v))
                               for k, v in jax_configs.SHAPES.items()}
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_arch("deepseek-v3-671b")
+        configs.get_arch("xlstm-1.3b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -105,17 +121,44 @@ def test_param_count_matches_jax(arch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"pattern": (LayerSpec("mla", "dense"),)},
-    {"pattern": (LayerSpec("gqa", "moe"),)},
+    {"pattern": (LayerSpec("slstm", "dense"),)},
+    {"pattern": (LayerSpec("gqa", "none"),)},
     {"pattern": (LayerSpec("rglru", "dense"),)},
     {"pattern": (LayerSpec("mlstm", "none"),)},
     {"extra_layers": (LayerSpec("gqa", "dense"),)},
-    {"arch": "encdec"}, {"frontend": "vision"}, {"mtp": True},
+    {"arch": "encdec"}, {"frontend": "vision"}, {"frontend": "audio"},
 ])
 def test_unported_parts_raise(kw):
     cfg = dataclasses.replace(configs.get_arch("qwen3-4b").smoke(), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(torch.Generator().manual_seed(0), cfg)
+
+
+# The parts that test_unported_parts_raise refused before MLA, MoE and the
+# MTP head were ported, on qwen3-4b's smoke() (the nested configs at
+# deepseek's smoke() widths), built from either package's classes.
+MOE_KW = dict(d_model=64, d_ff_expert=32, num_experts=8, top_k=2,
+              num_shared=2, aux_loss_free=False)
+
+
+def _formerly_unported(name, spec, mla, moe):
+    return {"mla": {"pattern": (spec("mla", "dense"),),
+                    "mla": mla(**{**MLA_KW, "d_model": 64})},
+            "moe": {"pattern": (spec("gqa", "moe"),), "moe": moe(**MOE_KW)},
+            "mtp": {"mtp": True}}[name]
+
+
+@pytest.mark.parametrize("name", ["mla", "moe", "mtp"])
+def test_formerly_unported_parts_build(name):
+    cfg = dataclasses.replace(
+        configs.get_arch("qwen3-4b").smoke(),
+        **_formerly_unported(name, LayerSpec, MLAConfig, MoEConfig))
+    jcfg = dataclasses.replace(
+        jax_configs.get_arch("qwen3-4b").smoke(),
+        **_formerly_unported(name, JLayerSpec, JMLAConfig, JMoEConfig))
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    n = sum(p.numel() for p in params.parameters())
+    assert n == param_count(cfg) == j_param_count(jcfg)
 
 
 # -- layers -------------------------------------------------------------------
@@ -193,6 +236,23 @@ def test_attention_core_matches_jax(kw):
     assert scaled_err(got, want) <= TOL
 
 
+@pytest.mark.parametrize("kw", [
+    {"window": None, "softcap": None}, {"window": 4, "softcap": 30.0},
+])
+def test_attention_core_v_head_dim_matches_jax(kw):
+    """A v head dim other than q's and k's, as MLA gives it (12 and 8)."""
+    q, k, v = _rand(2, 16, 4, 12), _rand(2, 16, 2, 12, seed=1), \
+        _rand(2, 16, 2, 8, seed=2)
+    pos = jnp.broadcast_to(jnp.arange(16), (2, 16))
+    want = jattn.attention_core(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), pos, pos, scale=0.3,
+                                q_chunk=4, **kw)
+    got = attn.attention_core(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), scale=0.3, **kw)
+    assert got.shape == (2, 16, 4, 8)
+    assert scaled_err(got, want) <= TOL
+
+
 ATTN_CONFIGS = {
     "qk_norm": dict(qk_norm=True, rope_theta=1e6),
     "window_softcap": dict(window=5, attn_softcap=50.0, query_scale=0.25),
@@ -242,6 +302,51 @@ def test_gqa_decode_matches_jax(name):
                                       np.asarray(jcache["pos"]))
 
 
+MLA_CONFIGS = {
+    "parity": MLA_KW,
+    "deepseek_smoke": dict(d_model=64, num_heads=4, q_lora_rank=32,
+                           kv_lora_rank=16, qk_nope_dim=16, qk_rope_dim=8,
+                           v_head_dim=16),
+}
+
+
+def _mla(name, seed):
+    jcfg, cfg = JMLAConfig(**MLA_CONFIGS[name]), MLAConfig(**MLA_CONFIGS[name])
+    jp = jattn.init_mla(jax.random.PRNGKey(seed), jcfg)
+    return jcfg, cfg, jp, tree_from_numpy(_np_tree(jp), device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(MLA_CONFIGS))
+def test_mla_forward_matches_jax(name):
+    jcfg, cfg, jp, p = _mla(name, 1)
+    x = _rand(2, 12, cfg.d_model)
+    pos = np.broadcast_to(np.arange(12), (2, 12))
+    want = jattn.mla_forward(jp, jcfg, jnp.asarray(x), jnp.asarray(pos),
+                             q_chunk=4)
+    got = attn.mla_forward(p, cfg, torch.from_numpy(x),
+                           torch.from_numpy(np.array(pos)))
+    assert scaled_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("name", sorted(MLA_CONFIGS))
+def test_mla_decode_matches_jax(name):
+    """Ten absorbed decode steps: outputs and the latent cache (c_kv,
+    k_rope) equal to JAX's at every step."""
+    jcfg, cfg, jp, p = _mla(name, 2)
+    jcache = jattn.init_mla_cache(jcfg, 2, 10, dtype=jnp.float32)
+    cache = attn.init_mla_cache(cfg, 2, 10, dtype=torch.float32,
+                                device="cpu")
+    xs = _rand(10, 2, 1, cfg.d_model, seed=3)
+    for t in range(10):
+        jcache, want = jattn.mla_decode(jp, jcfg, jcache, jnp.asarray(xs[t]),
+                                        jnp.int32(t))
+        cache, got = attn.mla_decode(p, cfg, cache, torch.from_numpy(xs[t]),
+                                     t)
+        assert scaled_err(got, want) <= TOL
+        for key in ("c_kv", "k_rope"):
+            assert scaled_err(cache[key], jcache[key]) <= TOL
+
+
 # -- the stack ----------------------------------------------------------------
 
 def _params(name, seed=0):
@@ -283,11 +388,34 @@ def test_serve_step_matches_jax(name):
         assert scaled_err(got, want) <= TOL, (name, t)
 
 
+@pytest.mark.parametrize("name", ["qwen3-4b", "deepseek-v2-236b"])
+def test_apply_layer_aux_matches_jax(name):
+    """The first block's output and MoE aux loss equal JAX's; a dense FFN's
+    aux is the float 0.0, so a decode step allocates no tensor for it."""
+    jcfg, jp, cfg, p = _params(name)
+    x = _rand(B, S, cfg.d_model, seed=2)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    spec = T.layer_specs(cfg)[0]
+    jblock = jax.tree.map(lambda a: a[0], jp["blocks"]["p0"])
+    jx, _, jaux = j_apply_layer(jcfg, jcfg.pattern[0], jblock,
+                                jnp.asarray(x), jnp.asarray(pos))
+    got, _, aux = T.apply_layer(cfg, spec, p["blocks"][0],
+                                torch.from_numpy(x),
+                                torch.from_numpy(pos.copy()))
+    assert scaled_err(got, jx) <= TOL
+    if spec.ffn == "moe":
+        assert torch.is_tensor(aux) and aux.dtype == torch.float32
+        assert abs(float(aux) - float(jaux)) <= 1e-6
+    else:
+        assert aux == 0.0 and not torch.is_tensor(aux)
+        assert float(jaux) == 0.0
+
+
 def _full_logits(params, cfg, toks):
     toks = torch.from_numpy(toks)
     x = T._embed_inputs(params, cfg, {"tokens": toks})
     pos = torch.arange(toks.shape[1]).expand(toks.shape)
-    x = T._run_stack(params, cfg, x, pos)
+    x, _ = T._run_stack(params, cfg, x, pos)
     x = layers.rmsnorm(params["final_norm"], x,
                        zero_centered=cfg.zero_centered_norm)
     return layers.softcap(layers.unembed(T._unembed_table(params, cfg), x),
@@ -297,8 +425,13 @@ def _full_logits(params, cfg, toks):
 @pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
 def test_prefill_path_decode_parity(name):
     """tests/test_models_parity.py's contract, in the port alone: the
-    full-sequence path (flash attention op) equals cached decode."""
+    full-sequence path (flash attention op) equals cached decode.  An MoE
+    config gets capacity_factor = num_experts / top_k here, so the prefill
+    drops no token (decode, one token a group, drops none either)."""
     cfg = _torch_cfg(MODEL_CONFIGS[name])
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     params = init_params(torch.Generator().manual_seed(0), cfg)
     toks = _tokens(cfg, seed=1)
     full = _full_logits(params, cfg, toks)

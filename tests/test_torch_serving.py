@@ -1,8 +1,10 @@
 """The port's serving side on the CPU: the ServingEngine's contracts (those
 of ``tests/test_serving.py``), its greedy tokens and logits against the
-JAX engine's, the prefill step against JAX's ``build_prefill_step``, the
-device rule of every entry point, and the serving CLI.
+JAX engine's (also for chatglm3-6b's and the DeepSeek archs' ``smoke()``),
+the prefill step against JAX's ``build_prefill_step``, the device rule of
+every entry point, and the serving CLI.
 """
+import json
 import os
 import pathlib
 import subprocess
@@ -34,6 +36,7 @@ B, P, V = 2, 6, 64
 TOL = 1e-5
 
 # tests/test_serving.py's model.
+NEW_ARCHS = ["chatglm3-6b", "deepseek-v2-236b", "deepseek-v3-671b"]
 JCFG = JModelConfig(name="t", d_model=32, vocab=V,
                     pattern=(JLayerSpec("gqa", "dense"),),
                     num_superblocks=2, num_heads=4, num_kv_heads=2,
@@ -160,8 +163,26 @@ def test_greedy_tokens_and_logits_match_jax(jax_params, params, seed):
     assert np.array_equal(got[sure], want[sure])
 
 
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_smoke_arch_greedy_tokens_match_jax(arch):
+    """The engine's greedy continuation of an arch's smoke() (MLA + MoE
+    for DeepSeek) equals the JAX engine's, with JAX's weights."""
+    jcfg = jax_configs.get_arch(arch).smoke()
+    cfg = torch_model_config(jcfg)
+    jp = j_init_params(jax.random.PRNGKey(0), jcfg)
+    p = params_from_jax(np_tree(jp), cfg, device="cpu")
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab, (B, P),
+                                                dtype=np.int32)
+    want = JServingEngine(jp, jcfg, JServeConfig(
+        batch_slots=B, max_len=32)).generate(prompts, max_new=8)
+    got = ServingEngine(p, cfg, ServeConfig(batch_slots=B, max_len=32),
+                        device="cpu").generate(prompts, max_new=8)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
 @pytest.mark.parametrize("name", ["gqa", "gqa_window", "qwen3-4b",
-                                  "gemma2-27b", "mistral-nemo-12b"])
+                                  "gemma2-27b", "mistral-nemo-12b",
+                                  *NEW_ARCHS])
 def test_prefill_step_matches_jax(name):
     if name.startswith("gqa"):
         window = 4 if name == "gqa_window" else None
@@ -218,7 +239,7 @@ def test_engine_refuses_params_on_another_device(params):
 
 # -- the CLI ------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", *NEW_ARCHS])
 def test_serve_cli_smoke_on_cpu(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
@@ -228,3 +249,17 @@ def test_serve_cli_smoke_on_cpu(arch):
     assert out.returncode == 0, out.stderr
     assert "prefill (4, 8) on cpu" in out.stdout
     assert "generated (4, 4)" in out.stdout
+
+
+def test_decode_step_script_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "scripts/torch_decode_step.py", "--arch",
+         "qwen3-4b", "--smoke", "--device", "cpu", "--rounds", "2",
+         "--prompt-len", "4", "--max-new", "4", "--label", "t"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    row = json.loads(out.stdout.splitlines()[-1])
+    assert row["label"] == "t" and row["device"] == "cpu"
+    assert len(row["step_wall_ms"]) == 2
+    assert row["step_aten_ops"] > 0

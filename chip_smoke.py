@@ -7,8 +7,10 @@ Phases (any failure exits non-zero before the final line):
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
 2. Build: compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` (one
    ``nvcc`` per source, in parallel) and prints ``ptxas -v`` on a fresh
-   build; counts the ``HGMMA`` instructions that ``cuobjdump -sass`` finds
-   in each tensor-core flash attention kernel (none is a failure).
+   build (a spill in the tensor-core flash kernel's (192, 128) instance
+   is a failure); counts the ``HGMMA`` instructions that ``cuobjdump
+   -sass`` finds in each of the three tensor-core flash attention
+   instances (none is a failure).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main path gives it (dilate bit for bit,
    NaN where both are NaN, on the main-path image, on an image with NaN,
@@ -82,12 +84,12 @@ Phases (any failure exits non-zero before the final line):
    layers, G = 16; every launch on the tensor cores); deepseek-v2-236b at
    full width with 4 of its 60 layers and deepseek-v3-671b with 1 of its
    61 (one H100 holds 80 GB; their full depth is 446 and 1312 GiB of
-   bf16 weights), each prefill launch on the CUDA-core kernel at MLA's
-   q/k [4, 128, 2048, 192] and v [4, 128, 2048, 128].  (d) MLA + MoE
-   parity: deepseek-v2 in fp32 at full width with 1 layer, the prefill
-   step (the kernel, expanded MLA) against ``ServingEngine.prefill``
-   (absorbed decode) on the 32-token prompts within 1e-4 of the logits'
-   largest magnitude.  Only here ``capacity_factor`` is num_experts /
+   bf16 weights), each prefill launch on the tensor-core kernel's
+   (192, 128) instance at MLA's q/k [4, 128, 2048, 192] and v [4, 128,
+   2048, 128].  (d) MLA + MoE parity: deepseek-v2 in fp32 at full width
+   with 1 layer, the prefill step (the CUDA-core kernel, expanded MLA)
+   against ``ServingEngine.prefill`` (absorbed decode) on the 32-token
+   prompts within 1e-4 of the logits' largest magnitude.  Only here ``capacity_factor`` is num_experts /
    top_k: any smaller capacity drops tokens in a 32-token prefill and
    none in decode, so the two paths would rightly differ.
 
@@ -167,12 +169,15 @@ main shape.  Its yardstick is ``F.scaled_dot_product_attention``
 the kernel each of its two shapes takes (narrow at N = 4, tiled at
 N = 80), checks that two runs agree bit for bit, and times the tiled
 kernel at N = 4 beside the narrow one.  The ``flash_attention_mla`` row
-holds the CUDA-core kernel's (192, 128) instance to the plain version at
-MLA's shape (causal) in fp32 (within 2e-5) and bf16 (elementwise and row
-by row), and at every feature case at d = 192, dv = 128; its bound counts
-2·(d + dv) operations a visible pair at the bf16 tensor-core rate, its
-yardstick is ``F.scaled_dot_product_attention(is_causal=True)``.  After
-the build, ``ptxas`` registers and spills of each flash_kernel instance
+holds both kernels' (192, 128) instances at MLA's shape (causal) and at
+every feature case at d = 192, dv = 128: bf16 on the tensor cores under
+the flash row's gates (and its two planted faults at MLA's shape), fp32
+on the CUDA cores within 2e-5; the tensor cores must take at most a
+tenth of the CUDA cores' time at MLA's shape.  Its bound counts 2·(d + dv)
+operations a visible pair at the bf16 tensor-core rate, its yardstick is
+``F.scaled_dot_product_attention(is_causal=True)``, timed with CUDA
+events around 10 back-to-back calls.  After the build, ``ptxas``
+registers and spills of each flash_kernel and flash_sm90_kernel instance
 are printed.
 
 Prints the ``kernels`` JSON line, then the card line, and last
@@ -250,13 +255,15 @@ PREFILL_BATCH, PREFILL_LEN = 4, 2048
 SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 32, 32, 128
 PARITY_SUPERBLOCKS = 4
 # The LM rows after qwen3-4b: (arch, superblocks to keep or None for full
-# depth, the flash route every prefill launch takes, the note beside it).
+# depth, the flash route every prefill launch takes, the kernels line's row
+# that counts those launches, the note beside it).
 LM_ROWS = (
-    ("chatglm3-6b", None, "tensor_core", "full depth, 28 layers"),
-    ("deepseek-v2-236b", 4, "cuda_core",
+    ("chatglm3-6b", None, "tensor_core", "flash_attention",
+     "full depth, 28 layers"),
+    ("deepseek-v2-236b", 4, "tensor_core", "flash_attention_mla",
      "full width, depth cut from 60 to 4 layers: one H100 holds 80 GB, "
      "the 60 layers are 446 GiB of bf16 weights"),
-    ("deepseek-v3-671b", 1, "cuda_core",
+    ("deepseek-v3-671b", 1, "tensor_core", "flash_attention_mla",
      "full width, depth cut from 61 to 1 layer: one H100 holds 80 GB, "
      "the 61 layers are 1312 GiB of bf16 weights"),
 )
@@ -643,6 +650,86 @@ def visible_pairs(Sq: int, Sk: int, causal: bool = True) -> int:
     return sum(max(0, min(Sk, i + delta + 1)) for i in range(Sq))
 
 
+def max_abs(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def norm_rel(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def flash_bf16_check(label, q, k, v, **kw) -> tuple:
+    """Both flash kernels on the same bf16 inputs, each held to the plain
+    version elementwise and row by row; the tensor cores at most twice the
+    CUDA cores' error from the fp32 plain version (both round p and the
+    output at the same places).  The output must be [B, H, Sq, dv].
+    Returns the readings, the tensor cores' output and the plain one."""
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.kernel import (
+        _launch_cuda_core, flash_attention, route)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    require(route(q, k, v) == "tensor_core",
+            f"flash_attention bf16 {label} not on the tensor cores")
+    want = attention_ref(q, k, v, **kw)
+    exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+    out, reading = None, {}
+    for name, launch in (("tc", flash_attention),
+                         ("cc", _launch_cuda_core)):
+        got = launch(q, k, v, **kw)
+        require(got.shape == want.shape and got.dtype == q.dtype,
+                f"flash_attention bf16 {label} ({name}): "
+                f"{tuple(got.shape)} {got.dtype}")
+        r = dict(max_abs_err=max_abs(got, want),
+                 row_rel_err=cases.row_rel_err(got, want),
+                 norm_rel_err=norm_rel(got, want),
+                 vs_fp32=max_abs(got, exact))
+        excess = cases.excess(got, want)
+        require(excess <= cases.ATOL,
+                f"flash_attention bf16 {label} ({name}): |got - ref| "
+                f"exceeds {cases.ATOL} + {cases.RTOL} |ref| by "
+                f"{excess - cases.ATOL:.3e}")
+        require(r["row_rel_err"] <= cases.ROW_REL_LIMIT,
+                f"flash_attention bf16 {label} ({name}): a row is "
+                f"{r['row_rel_err']:.3e} of its norm from the plain "
+                f"version > {cases.ROW_REL_LIMIT}")
+        reading[name] = r
+        out = got if out is None else out
+    require(reading["tc"]["vs_fp32"] <= 2 * reading["cc"]["vs_fp32"],
+            f"flash_attention bf16 {label}: tensor cores "
+            f"{reading['tc']['vs_fp32']:.3e} from fp32, CUDA cores "
+            f"{reading['cc']['vs_fp32']:.3e}")
+    return reading, out, want
+
+
+def planted_faults(label, q, k, v, got, want) -> dict:
+    """The tensor cores' output ``got`` with the last query block's rows
+    recomputed without one of their key tiles, as a kernel that skipped
+    that tile would give them (q, k, v causal with Sq = Sk).  The row gate
+    must reject each; the elementwise gate's reading is printed beside
+    it."""
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    S, T = q.shape[2], 128
+    planted = {}
+    for name, (kk, vv, causal) in {
+            "skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
+            "skips_diagonal_tile": (k[:, :, :S - T], v[:, :, :S - T],
+                                    False)}.items():
+        bad = got.clone()
+        bad[:, :, S - T:] = attention_ref(q[:, :, S - T:], kk, vv,
+                                          causal=causal)
+        planted[name] = dict(row_rel_err=cases.row_rel_err(bad, want),
+                             norm_rel_err=norm_rel(bad, want),
+                             excess=cases.excess(bad, want))
+        require(planted[name]["row_rel_err"] > cases.ROW_REL_LIMIT,
+                f"{label}: the row gate passes the planted fault {name} "
+                f"({planted[name]})")
+        del bad
+    return planted
+
+
 def flash_kernel_row(dev, gen) -> dict:
     """flash_attention at the prefill step's shape in bf16 (causal) on the
     tensor cores, with two planted faults that its row gate must reject,
@@ -656,47 +743,6 @@ def flash_kernel_row(dev, gen) -> dict:
     from repro_torch.kernels.flash_attention.kernel import (
         _launch_cuda_core, flash_attention, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-
-    def max_abs(got, want) -> float:
-        return float((got.float() - want.float()).abs().max())
-
-    def norm_rel(got, want) -> float:
-        return float((got.float() - want.float()).norm()
-                     / want.float().norm())
-
-    def bf16_check(label, q, k, v, **kw) -> tuple:
-        """Both kernels on the same bf16 inputs, each held to the plain
-        version elementwise and row by row; the tensor cores at most twice
-        the CUDA cores' error from the fp32 plain version (both round p
-        and the output at the same places)."""
-        require(route(q, k, v) == "tensor_core",
-                f"flash_attention bf16 {label} not on the tensor cores")
-        want = attention_ref(q, k, v, **kw)
-        exact = attention_ref(q.float(), k.float(), v.float(), **kw)
-        out, reading = None, {}
-        for name, launch in (("tc", flash_attention),
-                             ("cc", _launch_cuda_core)):
-            got = launch(q, k, v, **kw)
-            r = dict(max_abs_err=max_abs(got, want),
-                     row_rel_err=cases.row_rel_err(got, want),
-                     norm_rel_err=norm_rel(got, want),
-                     vs_fp32=max_abs(got, exact))
-            excess = cases.excess(got, want)
-            require(excess <= cases.ATOL,
-                    f"flash_attention bf16 {label} ({name}): |got - ref| "
-                    f"exceeds {cases.ATOL} + {cases.RTOL} |ref| by "
-                    f"{excess - cases.ATOL:.3e}")
-            require(r["row_rel_err"] <= cases.ROW_REL_LIMIT,
-                    f"flash_attention bf16 {label} ({name}): a row is "
-                    f"{r['row_rel_err']:.3e} of its norm from the plain "
-                    f"version > {cases.ROW_REL_LIMIT}")
-            reading[name] = r
-            out = got if out is None else out
-        require(reading["tc"]["vs_fp32"] <= 2 * reading["cc"]["vs_fp32"],
-                f"flash_attention bf16 {label}: tensor cores "
-                f"{reading['tc']['vs_fp32']:.3e} from fp32, CUDA cores "
-                f"{reading['cc']['vs_fp32']:.3e}")
-        return reading, out, want
 
     fp32_cases, bf16_cases = {}, {}
     for name, (B, H, K, Sq, Sk), kw in cases.FEATURE_CASES:
@@ -718,7 +764,7 @@ def flash_kernel_row(dev, gen) -> dict:
                                    generator=gen).to(torch.bfloat16)
                        for n, S in ((H, Sq), (K, Sk), (K, Sk)))
             label = f"{name} d{d}"
-            bf16_cases[label] = bf16_check(label, q, k, v, **kw)[0]
+            bf16_cases[label] = flash_bf16_check(label, q, k, v, **kw)[0]
 
     def prefill_qkv(H, K, d):
         """As the model gives them: [B, S, H, d] seen as [B, H, S, d]."""
@@ -729,34 +775,16 @@ def flash_kernel_row(dev, gen) -> dict:
     # chatglm3-6b's prefill: 32 query heads on 2 KV heads (G = 16) over
     # all 16 key tiles, with the same gates as the main shape.
     glm = get_arch("chatglm3-6b").full()
-    glm_shape, _, _ = bf16_check(
+    glm_shape, _, _ = flash_bf16_check(
         "chatglm3-6b shape",
         *prefill_qkv(glm.num_heads, glm.num_kv_heads, glm.head_dim))
 
     B, S = PREFILL_BATCH, PREFILL_LEN
     H, K, d = 32, 8, 128
     q, k, v = prefill_qkv(H, K, d)
-    main, got, want = bf16_check("main shape", q, k, v)
-    # Planted faults: the tensor cores' output with the last query block's
-    # rows recomputed without one of their key tiles, as a kernel that
-    # skipped that tile would give them.  The row gate must reject each;
-    # the elementwise gate's reading is printed beside it.
-    T = 128
-    planted = {}
-    for name, (kk, vv, causal) in {
-            "skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
-            "skips_diagonal_tile": (k[:, :, :S - T], v[:, :, :S - T],
-                                    False)}.items():
-        bad = got.clone()
-        bad[:, :, S - T:] = attention_ref(q[:, :, S - T:], kk, vv,
-                                          causal=causal)
-        planted[name] = dict(row_rel_err=cases.row_rel_err(bad, want),
-                             norm_rel_err=norm_rel(bad, want),
-                             excess=cases.excess(bad, want))
-        require(planted[name]["row_rel_err"] > cases.ROW_REL_LIMIT,
-                f"flash_attention: the row gate passes the planted fault "
-                f"{name} ({planted[name]})")
-    del got, want, bad
+    main, got, want = flash_bf16_check("main shape", q, k, v)
+    planted = planted_faults("flash_attention", q, k, v, got, want)
+    del got, want
     nbytes = 2 * 2 * (q.numel() + k.numel())          # q, o; k, v
     ops = 4 * B * H * d * visible_pairs(S, S)
     b, by = bound(nbytes, ops, PEAK_BF16_PER_S)
@@ -792,15 +820,19 @@ def flash_kernel_row(dev, gen) -> dict:
 
 
 def flash_mla_row(dev, gen) -> dict:
-    """The CUDA-core flash kernel's (192, 128) instance at MLA's prefill
-    shape (causal; [B, S, H, d] tensors seen as [B, H, S, d], as the model
-    gives them) in bf16 and fp32, and at every feature case at d = 192,
-    dv = 128, against the plain version."""
+    """flash_attention at MLA's prefill shape (causal; [B, S, H, d] tensors
+    seen as [B, H, S, d], as the model gives them): bf16 on the tensor
+    cores' (192, 128) instance under the flash row's gates (both kernels
+    against the plain version, the tensor cores within twice the CUDA
+    cores' error from fp32), with the two planted faults; fp32 on the
+    CUDA cores' (192, 128) instance within FP32_ATOL; and every feature
+    case at d = 192, dv = 128 in both dtypes.  Times the tensor cores, the
+    CUDA cores, a non-causal call, the plain version and SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import cases
-    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
-                                                            route)
+    from repro_torch.kernels.flash_attention.kernel import (
+        _launch_cuda_core, flash_attention, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     def qkv(B, H, K, Sq, Sk, dtype, bshd=False):
@@ -812,58 +844,73 @@ def flash_mla_row(dev, gen) -> dict:
                                generator=gen).to(dtype)
         return one(H, Sq, MLA_D), one(K, Sk, MLA_D), one(K, Sk, MLA_DV)
 
-    def check(label, q, k, v, **kw) -> float:
+    def fp32_check(label, q, k, v, **kw) -> float:
         require(route(q, k, v) == "cuda_core",
-                f"flash_attention_mla {label} not on the CUDA cores")
+                f"flash_attention_mla fp32 {label} not on the CUDA cores")
         got = flash_attention(q, k, v, **kw)
         want = attention_ref(q, k, v, **kw)
         require(got.shape == want.shape,
-                f"flash_attention_mla {label}: shape {tuple(got.shape)}")
-        err = float((got.float() - want.float()).abs().max())
-        if q.dtype == torch.float32:
-            require(err <= cases.FP32_ATOL,
-                    f"flash_attention_mla fp32 {label}: err {err:.3e}")
-            return err
-        excess = cases.excess(got, want)
-        row = cases.row_rel_err(got, want)
-        require(excess <= cases.ATOL and row <= cases.ROW_REL_LIMIT,
-                f"flash_attention_mla bf16 {label}: excess {excess:.3e}, "
-                f"row {row:.3e}")
+                f"flash_attention_mla fp32 {label}: shape "
+                f"{tuple(got.shape)}")
+        err = max_abs(got, want)
+        require(err <= cases.FP32_ATOL,
+                f"flash_attention_mla fp32 {label}: err {err:.3e}")
         return err
 
-    feature = {}
+    fp32_cases, bf16_cases = {}, {}
     for name, (B, H, K, Sq, Sk), kw in cases.FEATURE_CASES:
-        for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-            feature[f"{name} {tag}"] = check(
-                f"{name} {tag}", *qkv(B, H, K, Sq, Sk, dtype), **kw)
+        fp32_cases[name] = fp32_check(
+            name, *qkv(B, H, K, Sq, Sk, torch.float32), **kw)
+        bf16_cases[name] = flash_bf16_check(
+            f"MLA {name}", *qkv(B, H, K, Sq, Sk, torch.bfloat16), **kw)[0]
 
     B, S, H = PREFILL_BATCH, PREFILL_LEN, MLA_HEADS
     q, k, v = qkv(B, H, H, S, S, torch.float32, bshd=True)
-    fp32_err = check("main shape fp32", q, k, v)
+    fp32_err = fp32_check("main shape", q, k, v)
     del q, k, v
     torch.cuda.empty_cache()
     q, k, v = qkv(B, H, H, S, S, torch.bfloat16, bshd=True)
-    bf16_err = check("main shape bf16", q, k, v)
+    main, got, want = flash_bf16_check("MLA main shape", q, k, v)
+    require(got.transpose(1, 2).is_contiguous(),
+            "flash_attention_mla: the output is not laid out like q")
+    planted = planted_faults("flash_attention_mla", q, k, v, got, want)
+    del got, want
     torch.cuda.empty_cache()
     out_numel = B * H * S * MLA_DV
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + out_numel)
     ops = 2 * (MLA_D + MLA_DV) * B * H * visible_pairs(S, S)
     b, by = bound(nbytes, ops, PEAK_BF16_PER_S)
-    ms = graph_ms(lambda i: flash_attention(q, k, v), 3, replays=2)
+    ms = graph_ms(lambda i: flash_attention(q, k, v), 10, replays=3)
+    ms_events = cuda_ms(lambda: flash_attention(q, k, v), 10)
+    cuda_core_ms = graph_ms(lambda i: _launch_cuda_core(q, k, v), 3,
+                            replays=2)
+    require(ms <= cuda_core_ms / 10,
+            f"flash_attention_mla: the tensor cores take {ms:.4f} ms, more "
+            f"than a tenth of the CUDA cores' {cuda_core_ms:.4f} ms")
+    noncausal_ms = graph_ms(
+        lambda i: flash_attention(q, k, v, causal=False), 10, replays=3)
     plain = cuda_ms(lambda: attention_ref(q, k, v), 2, warmup=1)
     torch.cuda.empty_cache()
     lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 3, warmup=1)
+        q, k, v, is_causal=True), 10, warmup=2)
     return dict(shape=[B, H, H, S, S, MLA_D, MLA_DV], dtype="bf16",
-                causal=True, kernel=route(q, k, v), max_abs_err=bf16_err,
-                fp32_max_abs_err=fp32_err, feature_max_abs_err=feature,
-                ms=ms, tflops=ops / ms / 1e9, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib,
+                causal=True, kernel=route(q, k, v),
+                max_abs_err=main["tc"]["max_abs_err"], main=main,
+                atol=cases.ATOL, rtol=cases.RTOL,
+                row_rel_limit=cases.ROW_REL_LIMIT, planted_faults=planted,
+                bf16_cases=bf16_cases, fp32_max_abs_err=fp32_err,
+                fp32_cases=fp32_cases, ms=ms, ms_events=ms_events,
+                tflops=ops / ms / 1e9, cuda_core_ms=cuda_core_ms,
+                noncausal_ms=noncausal_ms,
+                noncausal_tflops=(2 * (MLA_D + MLA_DV) * B * H * S * S
+                                  / noncausal_ms / 1e9),
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
                 library="F.scaled_dot_product_attention(is_causal=True), "
-                        "bf16, timed with CUDA events",
+                        "bf16; 10 back-to-back calls between CUDA events "
+                        "(ms_events times the kernel the same way)",
                 bytes=nbytes, ops=ops,
                 device_kernels=device_kernels(
-                    lambda: flash_attention(q, k, v), 3))
+                    lambda: flash_attention(q, k, v), 5))
 
 
 def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1450,12 +1497,13 @@ def lm_rows_phase(dev) -> dict:
     from repro_torch.configs import get_arch
 
     rows = {}
-    for arch, superblocks, route, note in LM_ROWS:
+    for arch, superblocks, route, kernel_row, note in LM_ROWS:
         cfg = get_arch(arch).full()
         if superblocks is not None:
             cfg = dataclasses.replace(cfg, num_superblocks=superblocks)
         row = serve_row(dev, cfg, route)
         row["note"] = note
+        row["kernel_row"] = kernel_row
         print(f"[path] {json.dumps(row)}", flush=True)
         rows[arch] = row
     cfg = get_arch(MLA_PARITY_ARCH).full()
@@ -1959,13 +2007,22 @@ def main() -> int:
         print(f"ptxas: flash_kernel instances "
               f"{json.dumps(ptxas_report(info.log, 'flash_kernel'))}",
               flush=True)
+        sm90 = ptxas_report(info.log, "flash_sm90_kernel")
+        print(f"ptxas: flash_sm90_kernel instances {json.dumps(sm90)}",
+              flush=True)
+        mla = [n for n in sm90 if "Li192ELi128E" in n]
+        require(len(mla) == 1 and sm90[mla[0]].get("spill_store_bytes") == 0
+                and sm90[mla[0]].get("spill_load_bytes") == 0,
+                f"ptxas: the (192, 128) flash_sm90_kernel instance spills "
+                f"or is missing: {sm90}")
     build.library()
     hgmma = hgmma_counts(info.path)
     print(f"sass: HGMMA instructions per kernel {json.dumps(hgmma)}",
           flush=True)
     tc_kernels = [n for n in hgmma if "flash_sm90_kernel" in n]
-    require(len(tc_kernels) == 2 and all(hgmma[n] > 0 for n in tc_kernels),
-            "cuobjdump finds no HGMMA in the tensor-core flash kernels")
+    require(len(tc_kernels) == 3 and all(hgmma[n] > 0 for n in tc_kernels),
+            f"cuobjdump finds HGMMA in {len(tc_kernels)} tensor-core flash "
+            f"kernels, not 3")
 
     rows = kernel_phase(dev)
     release_kernel_phase()
@@ -1986,11 +2043,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     lm = lm_path_phase(dev)
     lm_rows = lm_rows_phase(dev)
-    launches["flash_attention"] = sum(
-        r["flash_launches_by_route"]["tensor_core"]
-        for r in (lm, *lm_rows.values()))
-    launches["flash_attention_mla"] = sum(
-        r["flash_launches_by_route"]["cuda_core"] for r in lm_rows.values())
+    # Each row's prefill launches are all on its route (serve_row gates
+    # it); the kernels line counts them under the row of their head dims.
+    launches["flash_attention"] = lm["launches"]["flash_attention"]
+    launches["flash_attention_mla"] = 0
+    for r in lm_rows.values():
+        launches[r["kernel_row"]] += r["launches"]["flash_attention"]
     torch.cuda.empty_cache()
     obs_phase(dev, designs)
     tenants_phase(dev)
@@ -2011,7 +2069,7 @@ def main() -> int:
                    "src/repro_torch/csrc/flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99"),
                "flash_attention_mla": (
-                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro_torch/csrc/flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": repl, "launches": launches[name],

@@ -30,9 +30,12 @@
 // At MLA's shape (B 4, H 128, K 128, S 2048, d 192, dv 128, bf16, causal)
 // the work is 2 (d + dv) = 640 operations a visible (query, key) pair,
 // about 6.87e11 operations on 1.34 GB: 0.695 ms at the bf16 tensor-core
-// rate, 0.40 ms for the bytes.  Only this kernel takes d > 128 or dv != d;
-// the (192, 128) instance keeps Q and K transposed at 192 floats a column
-// and V at 128, 128 KB of shared memory, so one block fits on an SM.
+// rate, 0.40 ms for the bytes.  Aligned bf16 calls at (192, 128) go to
+// the tensor-core kernel (flash_attention_sm90.cu); this kernel's (192, 128)
+// instance takes the fp32 ones (MLA's fp32 parity runs) and views that TMA
+// cannot read.  It keeps Q and K transposed at 192 floats a column and V at
+// 128, 128 KB of shared memory, so one block fits on an SM.  Only this
+// kernel takes the other pairs with dv != d.
 //
 // Why it does not reach that bound yet: this first design runs on the CUDA
 // cores in fp32 (67 TFLOP/s, so no faster than 2.05 ms at that shape), as
@@ -47,7 +50,7 @@
 // (dv / 16)-column block of the output in registers.  Loads are not
 // overlapped with compute beyond what two resident blocks per SM give.
 // The tensor-core design (wgmma on bf16 tiles fed by TMA, warp-specialised)
-// is the redesign's work.
+// is flash_attention_sm90.cu.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

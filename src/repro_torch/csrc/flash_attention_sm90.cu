@@ -1,7 +1,9 @@
 // Flash attention on Hopper's tensor cores: bf16 wgmma fed by TMA, with
 // one producer warpgroup and two consumer warpgroups per thread block.
 // GQA, causal masking aligned at the end (delta = Sk - Sq), a sliding
-// window and a tanh logit softcap, on [B, H, S, d] views with d in {64, 128}.
+// window and a tanh logit softcap, on q, k [B, H, S, DQK] and v [B, H, S, DV]
+// views with (DQK, DV) in {(64, 64), (128, 128), (192, 128)}: the last is
+// DeepSeek's MLA prefill (128 nope + 64 rope dims for q and k, 128 for v).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, `flash_attention`
 // (`_flash_kernel`), the TPU kernel whose innermost, sequential grid axis
@@ -13,45 +15,60 @@
 // Bound on the card: operations.  At the prefill step's shape (B 4, H 32,
 // K 8, S 2048, d 128, bf16, causal) the work is about 1.37e11 operations
 // on 168 MB of operands and output: 0.139 ms at the bf16 tensor-core rate
-// (989 TFLOP/s), 0.050 ms for the bytes.
+// (989 TFLOP/s), 0.050 ms for the bytes.  At MLA's (B 4, H = K 128,
+// S 2048, DQK 192, DV 128) it is 2 (DQK + DV) = 640 operations a visible
+// (query, key) pair, about 6.87e11 on 1.34 GB: 0.695 ms, 0.40 ms for the
+// bytes.
 //
 // Design.  A block owns 128 query rows of one (batch, head) and walks the
 // visible keys in tiles of 128 (the loop bounds skip the fully masked
-// tiles, the TPU kernel's `run`; the heaviest causal blocks, the last
-// rows, are issued first).
+// tiles, the TPU kernel's `run`).  The grid takes the (batch, head) pairs
+// in groups of eight, each group's heaviest causal blocks (the last rows)
+// first, so the blocks in flight read the K and V of a few heads, which
+// stay in L2 (see the kernel).
 // - Producer warpgroup (setmaxnreg down to 24 registers): one thread loads
-//   the Q tile once and K and V tiles into a ring of two stages by TMA,
-//   each stage guarded by a "full" and an "empty" mbarrier.  Tensor maps
-//   over (d, S, heads, batch) read the model's [B, S, H, d] tensors through
-//   their strides; rows past Sq or Sk arrive as zeros (TMA's out-of-bounds
-//   fill), so nothing is padded in device memory.  Each 128-row tile lies
-//   in shared memory as d / 64 chunks of [128 rows][64 bf16] in the
-//   128-byte swizzle that the wgmma descriptors name.
+//   the Q tile once, and K and V tiles into two rings of two stages by TMA,
+//   each stage guarded by a "full" and an "empty" mbarrier (a K stage is
+//   free once its Q K^T has retired, a V stage only after its P V, one
+//   turn later).  Tensor maps over (d, S, heads, batch) read the model's
+//   [B, S, H, d] tensors through their strides; rows past Sq or Sk arrive
+//   as zeros (TMA's out-of-bounds fill), so nothing is padded in device
+//   memory.  Each 128-row tile lies in shared memory as width / 64 chunks
+//   of [128 rows][64 bf16] in the 128-byte swizzle that the wgmma
+//   descriptors name: Q and K DQK / 64 chunks, V DV / 64.
 // - Consumer warpgroups (setmaxnreg up to 240), 64 query rows each:
-//   S = Q K^T is wgmma m64n128k16 with both operands in shared memory
-//   (K stored [keys, d] is the K-major B operand), fp32 accumulator.  The
-//   online softmax runs on the accumulator fragments: a row lives in the 4
-//   threads of a quad, so its max takes two xor shuffles.  Scores are
-//   scaled first, then softcap * tanh(s / softcap), then masked with
-//   -1e30 (never -inf: a row whose keys so far are all masked takes p = 1
-//   and the first visible key wipes that with alpha = 0), in the log2
-//   domain (exp2 with log2(e) folded into the scale).  Masks are computed
-//   only on tiles that cross the causal diagonal, the window edge or the
-//   Sk tail.  m, l and the output accumulator stay fp32; l sums the
-//   unrounded p; p is rounded to bf16 as it becomes the register A operand
-//   of O += P V (wgmma m64n{d}k16, V [keys, d] the MN-major B operand,
-//   transposed by the instruction).  A stage goes back to the producer when
-//   both products of both warpgroups have retired.  The output is
-//   acc / l (l == 0 divides by 1), rounded to bf16 and stored from
-//   registers in q's layout.
-// Shared memory at d = 128: Q 32 KB, two stages of K and V 128 KB, so one
-// block per SM.
+//   S = Q K^T is DQK / 16 steps of wgmma m64n128k16 with both operands in
+//   shared memory (K stored [keys, DQK] is the K-major B operand), fp32
+//   accumulator.  The online softmax runs on the accumulator fragments: a
+//   row lives in the 4 threads of a quad, so its max takes two xor
+//   shuffles.  Scores are scaled first, then softcap * tanh(s / softcap),
+//   then masked with -1e30 (never -inf: a row whose keys so far are all
+//   masked takes p = 1 and the first visible key wipes that with
+//   alpha = 0), in the log2 domain (exp2 with log2(e) folded into the
+//   scale).  Masks are computed only on tiles that cross the causal
+//   diagonal, the window edge or the Sk tail.  m, l and the output
+//   accumulator stay fp32; l sums the unrounded p; p is rounded to bf16 as
+//   it becomes the register A operand of O += P V (wgmma m64n{DV}k16,
+//   V [keys, DV] the MN-major B operand, transposed by the instruction).
+//   The two warpgroups take turns at the tensor cores (an mbarrier each):
+//   a turn issues the previous tile's P V and the next tile's Q K^T as one
+//   group and hands over before waiting for it, so one warpgroup's softmax
+//   runs beside the other's products.  The output is acc / l (l == 0
+//   divides by 1), rounded to bf16 and stored from registers in q's
+//   layout.
+// Shared memory at (128, 128): Q 32 KB, two stages of K and V 128 KB; at
+// (192, 128): Q 48 KB, two stages of K (48 KB) and V (32 KB) 160 KB, 209 KB
+// with the barriers and the alignment slack, under the 227 KB a block may
+// take.  One block per SM either way.  A consumer's registers are the same
+// at both: 64 of S and DV / 2 = 64 of O.
 //
 // What is left between it and the bound: inside a warpgroup the softmax
-// does not overlap the products (the two warpgroups overlap each other's),
-// and with one block per SM a block's first loads and its output stores
-// are not hidden behind another block's work, which weighs most on the
-// short causal blocks.
+// still waits for both products (running it while the warpgroup's own P V
+// is in flight, that P V a group of its own, measured slower on the card),
+// and with one block per SM a block's first loads (128 KB at (192, 128))
+// and its output stores are not hidden behind another block's work, which
+// weighs most on the short causal blocks; the two stages fill shared
+// memory at (192, 128), so a third has no room.
 // The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint so the library needs no -lcuda)
 // and passed by value as a __grid_constant__ parameter, which a CUDA graph
@@ -69,6 +86,7 @@ constexpr int kBlockN = 128;            // keys per tile
 constexpr int kChunk = 64;              // bf16 per 128-byte swizzled row
 constexpr int kChunkBytes = kBlockN * 128;   // one chunk of a 128-row tile
 constexpr int kStages = 2;
+constexpr int kHeadGroup = 8;           // (batch, head) pairs in a grid group
 constexpr int kConsumers = 256;         // two warpgroups
 constexpr int kThreads = kConsumers + 128;
 constexpr float kNegInf = -1e30f;       // the TPU kernel's NEG_INF
@@ -86,20 +104,29 @@ struct Params {
 };
 
 // Shared memory, from a 1024-byte aligned base: Q, then stage s's K and V,
-// then the barriers.
-template <int DP>
+// then the barriers.  Every tile is a whole number of 16 KB chunks, so each
+// starts 1024-byte aligned, as the 128-byte swizzle needs.
+template <int DQK, int DV>
 struct Layout {
-  static constexpr int kTile = (DP / kChunk) * kChunkBytes;
+  static_assert(DQK % kChunk == 0 && DV % kChunk == 0, "64-wide chunks");
+  static constexpr int kQKChunks = DQK / kChunk;
+  static constexpr int kVChunks = DV / kChunk;
+  static constexpr int kQKTile = kQKChunks * kChunkBytes;  // Q or K
+  static constexpr int kVTile = kVChunks * kChunkBytes;
+  static constexpr int kStageBytes = kQKTile + kVTile;     // one K and V
   static constexpr int kQ = 0;
   __host__ __device__ static constexpr int k(int s) {
-    return (1 + 2 * s) * kTile;
+    return kQKTile + s * kStageBytes;
   }
   __host__ __device__ static constexpr int v(int s) {
-    return (2 + 2 * s) * kTile;
+    return k(s) + kQKTile;
   }
-  static constexpr int kBars = (1 + 2 * kStages) * kTile;
-  // q_full, full[kStages], empty[kStages]; 1024 bytes of alignment slack.
-  static constexpr int kBytes = kBars + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kBars = kQKTile + kStages * kStageBytes;
+  // q_full, full_k, full_v, empty_k, empty_v (kStages each), turn[2].
+  static constexpr int kBarriers = 3 + 4 * kStages;
+  // 1024 bytes of alignment slack.
+  static constexpr int kBytes = kBars + 8 * kBarriers + 1024;
+  static_assert(kBytes <= 232448, "over the 227 KB a block may take");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -284,11 +311,12 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// O += P V for one 16-key slice: m64n{DP}k16, A = P from registers.
-template <int DP>
+// O += P V for one 16-key slice: m64n{DV}k16, A = P from registers.
+template <int DV>
 __device__ __forceinline__ void pv_product(float* o, const uint32_t* a,
                                            uint64_t db) {
-  if constexpr (DP == 128) {
+  static_assert(DV == 64 || DV == 128, "P V takes n = 64 or 128");
+  if constexpr (DV == 128) {
     wgmma_rs_n128(o, a, db);
   } else {
     wgmma_rs_n64(o, a, db);
@@ -333,24 +361,39 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Grid: x = batch * head, y = query block, the last rows first.  Threads
-// 0..255 are the consumer warpgroups, 256..383 the producer.
-template <int DP>
+// Grid: one block per (batch, head, query block).  The (batch, head) pairs
+// go in groups of kHeadGroup, one group after the other; inside a group the
+// query blocks go heaviest first (the last rows, which see the most keys
+// under the causal mask), each over the group's pairs.  So the blocks in
+// flight read the K and V of one or two groups, which stay in L2 (MLA's K
+// and V, 671 MB over its 512 pairs, would otherwise be read from device
+// memory by each of a pair's 16 query blocks), and the long blocks of a
+// group start before its short ones.  Threads 0..255 are the consumer
+// warpgroups, 256..383 the producer.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_sm90_kernel(const __grid_constant__ Params p) {
-  using L = Layout<DP>;
-  constexpr int kChunks = DP / kChunk;
+  using L = Layout<DQK, DV>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // Barriers: stage s of each ring at + 8 s; turn[wg] at turn0 + 8 wg.
   const uint32_t q_full = base + L::kBars;
-  const uint32_t full0 = q_full + 8;                  // full[s]: + 8 s
-  const uint32_t empty0 = full0 + 8 * kStages;        // empty[s]: + 8 s
+  const uint32_t full_k0 = q_full + 8;
+  const uint32_t full_v0 = full_k0 + 8 * kStages;
+  const uint32_t empty_k0 = full_v0 + 8 * kStages;
+  const uint32_t empty_v0 = empty_k0 + 8 * kStages;
+  const uint32_t turn0 = empty_v0 + 8 * kStages;
 
-  const int bh = blockIdx.x;
+  const int n_qblocks = (p.Sq + kBlockM - 1) / kBlockM;
+  const int n_pairs = gridDim.x / n_qblocks;
+  const int group = blockIdx.x / (kHeadGroup * n_qblocks);
+  const int in_group = blockIdx.x % (kHeadGroup * n_qblocks);
+  const int group_size = min(kHeadGroup, n_pairs - group * kHeadGroup);
+  const int bh = group * kHeadGroup + in_group % group_size;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int kvh = h / p.G;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockM;
+  const int q0 = (n_qblocks - 1 - in_group / group_size) * kBlockM;
   const int delta = p.Sk - p.Sq;
 
   // Visible keys of this block's rows, in whole tiles of 128.
@@ -366,9 +409,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, kConsumers);
+      mbar_init(full_k0 + 8 * s, 1);
+      mbar_init(full_v0 + 8 * s, 1);
+      mbar_init(empty_k0 + 8 * s, kConsumers);
+      mbar_init(empty_v0 + 8 * s, kConsumers);
     }
+    mbar_init(turn0, 128);                   // one warpgroup's threads
+    mbar_init(turn0 + 8, 128);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -377,22 +424,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Producer: one thread keeps the ring of K and V tiles filled.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers) {
-      mbar_expect_tx(q_full, L::kTile);
+      // Every box counts its full bytes, the out-of-bounds fill too.
+      mbar_expect_tx(q_full, L::kQKTile);
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
+      for (int c = 0; c < L::kQKChunks; ++c) {
         tma_load(base + L::kQ + c * kChunkBytes, &p.tq, q_full, c * kChunk,
                  q0, h, b);
       }
+      // K and V have a ring each: a tile's K is free once its Q K^T has
+      // retired, its V only after its P V, one turn later.
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
-        mbar_wait(empty0 + 8 * s, ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(full0 + 8 * s, 2 * L::kTile);
+        const int free = ((i / kStages) & 1) ^ 1;
         const int k0 = (t_begin + i) * kBlockN;
+        mbar_wait(empty_k0 + 8 * s, free);
+        mbar_expect_tx(full_k0 + 8 * s, L::kQKTile);
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          tma_load(base + L::k(s) + c * kChunkBytes, &p.tk, full0 + 8 * s,
+        for (int c = 0; c < L::kQKChunks; ++c) {
+          tma_load(base + L::k(s) + c * kChunkBytes, &p.tk, full_k0 + 8 * s,
                    c * kChunk, k0, kvh, b);
-          tma_load(base + L::v(s) + c * kChunkBytes, &p.tv, full0 + 8 * s,
+        }
+        mbar_wait(empty_v0 + 8 * s, free);
+        mbar_expect_tx(full_v0 + 8 * s, L::kVTile);
+#pragma unroll
+        for (int c = 0; c < L::kVChunks; ++c) {
+          tma_load(base + L::v(s) + c * kChunkBytes, &p.tv, full_v0 + 8 * s,
                    c * kChunk, k0, kvh, b);
         }
       }
@@ -411,34 +467,76 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int col = 2 * (lane % 4);
     const uint32_t q_tile = base + L::kQ + wg * 64 * 128;
 
-    float o[DP / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
+    for (int j = 0; j < DV / 2; ++j) o[j] = 0.f;
     float m_a = kNegInf, m_b = kNegInf;   // running max, log2 domain
     float l_a = 0.f, l_b = 0.f;           // the thread's share of the sum
 
-    mbar_wait(q_full, 0);
-    for (int i = 0; i < n_tiles; ++i) {
-      const int s = i % kStages;
-      const int k0 = (t_begin + i) * kBlockN;
-      const uint32_t k_tile = base + L::k(s);
-      const uint32_t v_tile = base + L::v(s);
-      mbar_wait(full0 + 8 * s, (i / kStages) & 1);
+    // P of the previous tile, as the A registers of its P V: fragments
+    // 8 kk .. 8 kk + 7 of the scores are those of keys 16 kk .. 16 kk + 15.
+    uint32_t pa[kBlockN / 16][4];
+    const uint32_t my_turn = turn0 + 8 * wg;
+    const uint32_t other_turn = turn0 + 8 * (wg ^ 1);
 
-      // S = Q K^T: d / 16 steps of 16 along d; a 64-wide chunk's 128-byte
-      // rows advance 32 bytes a step.
+    mbar_wait(q_full, 0);
+    // The two warpgroups take turns at the tensor cores.  Turn i issues the
+    // previous tile's P V and tile i's Q K^T as one group and hands the
+    // turn to the other warpgroup before waiting for them, so one
+    // warpgroup's softmax runs while the other's products do.  Each takes
+    // n_tiles + 1 turns (the last one P V alone); warpgroup 1 opens
+    // warpgroup 0's first turn and does not hand over after its last, so
+    // every arrival on a turn barrier is waited for.
+    if (n_tiles > 0 && wg == 1) mbar_arrive(other_turn);
+    for (int i = 0; n_tiles > 0 && i <= n_tiles; ++i) {
+      const bool last = i == n_tiles;
+      const int s = i % kStages;                     // tile i's stage
+      const int sp = (i + kStages - 1) % kStages;    // tile i - 1's
+      const int k0 = (t_begin + i) * kBlockN;
+      if (!last) mbar_wait(full_k0 + 8 * s, (i / kStages) & 1);
+      if (i > 0) mbar_wait(full_v0 + 8 * sp, ((i - 1) / kStages) & 1);
+      mbar_wait(my_turn, i & 1);
+
+      // O += P V of tile i - 1: 8 steps of 16 keys; V's rows advance
+      // 16 x 128 bytes a step, its 64-wide chunks lie kChunkBytes apart.
+      // S = Q K^T of tile i: DQK / 16 steps of 16 along DQK; a 64-wide
+      // chunk's 128-byte rows advance 32 bytes a step.
       float sc[kBlockN / 2];
-      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
-        wgmma_ss_n128(sc, desc_sw128(q_tile + off, 16, 1024),
-                      desc_sw128(k_tile + off, 16, 1024), kk > 0);
+      for (int j = 0; j < DV / 2; ++j) fence_reg(o[j]);
+      wgmma_fence();
+      if (i > 0) {
+        const uint32_t v_tile = base + L::v(sp);
+#pragma unroll
+        for (int kk = 0; kk < kBlockN / 16; ++kk) {
+          pv_product<DV>(o, pa[kk],
+                         desc_sw128(v_tile + kk * 16 * 128, kChunkBytes, 1024));
+        }
+      }
+      if (!last) {
+        const uint32_t k_tile = base + L::k(s);
+#pragma unroll
+        for (int kk = 0; kk < DQK / 16; ++kk) {
+          const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
+          wgmma_ss_n128(sc, desc_sw128(q_tile + off, 16, 1024),
+                        desc_sw128(k_tile + off, 16, 1024), kk > 0);
+        }
       }
       wgmma_commit();
+      if (wg == 0 || !last) mbar_arrive(other_turn);
       wgmma_wait_all();
 #pragma unroll
+      for (int j = 0; j < DV / 2; ++j) fence_reg(o[j]);
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fence_reg(pa[kk][e]);
+      }
+      if (i > 0) mbar_arrive(empty_v0 + 8 * sp);
+      if (last) break;
+#pragma unroll
       for (int j = 0; j < kBlockN / 2; ++j) fence_reg(sc[j]);
+      mbar_arrive(empty_k0 + 8 * s);
 
       const bool mask =
           k0 + kBlockN > p.Sk ||
@@ -466,9 +564,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       m_b = mn_b;
 
       // p = exp(s - m): l sums it unrounded; the A operand of P V takes it
-      // rounded to bf16.  Fragments 8 kk .. 8 kk + 7 are the A registers of
-      // keys 16 kk .. 16 kk + 15, in order.
-      uint32_t pa[kBlockN / 16][4];
+      // rounded to bf16.
       float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
       for (int j = 0; j < kBlockN / 2; j += 2) {
@@ -485,28 +581,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       l_a = alpha_a * l_a + ps_a;
       l_b = alpha_b * l_b + ps_b;
 #pragma unroll
-      for (int j = 0; j < DP / 2; ++j) o[j] *= (j & 2) ? alpha_b : alpha_a;
-
-      // O += P V: 8 steps of 16 keys; V's rows advance 16 x 128 bytes a
-      // step, its 64-wide chunks lie kChunkBytes apart.
-#pragma unroll
-      for (int j = 0; j < DP / 2; ++j) fence_reg(o[j]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-        pv_product<DP>(o, pa[kk],
-                       desc_sw128(v_tile + kk * 16 * 128, kChunkBytes, 1024));
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-#pragma unroll
-      for (int j = 0; j < DP / 2; ++j) fence_reg(o[j]);
-#pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) fence_reg(pa[kk][e]);
-      }
-      mbar_arrive(empty0 + 8 * s);
+      for (int j = 0; j < DV / 2; ++j) o[j] *= (j & 2) ? alpha_b : alpha_a;
     }
 
     const float den_a = quad_sum(l_a);
@@ -517,7 +592,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row_a < p.Sq) {
       __nv_bfloat16* dst = ob + row_a * p.o_ss + col;
 #pragma unroll
-      for (int g = 0; g < DP / 8; ++g) {
+      for (int g = 0; g < DV / 8; ++g) {
         *reinterpret_cast<uint32_t*>(dst + 8 * g) =
             pack_bf16(o[4 * g] / div_a, o[4 * g + 1] / div_a);
       }
@@ -525,7 +600,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (row_b < p.Sq) {
       __nv_bfloat16* dst = ob + row_b * p.o_ss + col;
 #pragma unroll
-      for (int g = 0; g < DP / 8; ++g) {
+      for (int g = 0; g < DV / 8; ++g) {
         *reinterpret_cast<uint32_t*>(dst + 8 * g) =
             pack_bf16(o[4 * g + 2] / div_b, o[4 * g + 3] / div_b);
       }
@@ -533,19 +608,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int DP>
+template <int DQK, int DV>
 cudaError_t launch(const Params& p, int BH, int Sq, cudaStream_t stream) {
-  constexpr int smem = Layout<DP>::kBytes;
+  constexpr int smem = Layout<DQK, DV>::kBytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_sm90_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        flash_sm90_kernel<DQK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const dim3 grid(BH, (Sq + kBlockM - 1) / kBlockM);
-  flash_sm90_kernel<DP><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(BH * ((Sq + kBlockM - 1) / kBlockM));
+  flash_sm90_kernel<DQK, DV><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -595,9 +670,10 @@ int encode(CUtensorMap* map, const void* ptr, const long long* g) {
 
 }  // namespace
 
-// bf16 q [B,H,Sq,d], k and v [B,K,Sk,d] (d = 64 or 128) read through the
-// tensor maps that geom describes (11 values each for q, k, v in turn, see
-// encode); o written through its element strides (batch, head, seq).
+// bf16 q [B,H,Sq,d], k [B,K,Sk,d] and v [B,K,Sk,dv], (d, dv) one of (64, 64),
+// (128, 128) and (192, 128), read through the tensor maps that geom
+// describes (11 values each for q, k, v in turn, see encode); o
+// [B,H,Sq,dv] written through its element strides (batch, head, seq).
 // Returns the cudaError_t of the launch (0 = cudaSuccess), or -r when
 // encoding a tensor map failed with CUresult r.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
@@ -605,11 +681,13 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
                                           const long long* geom,
                                           const long long* o_strides, int B,
                                           int H, int K, int Sq, int Sk, int d,
-                                          float scale, float softcap,
+                                          int dv, float scale, float softcap,
                                           int causal, int window,
                                           void* stream) {
+  const bool pair = (d == 64 && dv == 64) || (d == 128 && dv == 128) ||
+                    (d == 192 && dv == 128);
   if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Sk <= 0 ||
-      (d != 64 && d != 128)) {
+      !pair) {
     return cudaErrorInvalidValue;
   }
   Params p;
@@ -632,5 +710,7 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
   p.causal = causal;
   p.window = window;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(p, B * H, Sq, s) : launch<128>(p, B * H, Sq, s);
+  if (d == 64) return launch<64, 64>(p, B * H, Sq, s);
+  if (d == 128) return launch<128, 128>(p, B * H, Sq, s);
+  return launch<192, 128>(p, B * H, Sq, s);
 }

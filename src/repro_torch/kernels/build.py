@@ -132,7 +132,7 @@ _SIGNATURES = {
                               _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                               _F32, _F32, _INT, _INT, _INT, _VP],
     "repro_flash_attention_sm90": [_VP, _VP, _VP, _VP, _VP, _VP,
-                                   _INT, _INT, _INT, _INT, _INT, _INT,
+                                   _INT, _INT, _INT, _INT, _INT, _INT, _INT,
                                    _F32, _F32, _INT, _INT, _VP],
 }
 

@@ -4,13 +4,13 @@ Both replace the TPU kernel ``repro/kernels/flash_attention/kernel.py::
 flash_attention``.  :func:`route` picks one per call by a fixed rule:
 
 - ``"tensor_core"`` (``csrc/flash_attention_sm90.cu``): bf16 wgmma fed by
-  TMA, for bf16 operands with one head dim d in {64, 128} for q, k and v
-  that TMA can read in place (every base pointer 16-byte aligned, every
-  stride but the head dim's a multiple of 16 bytes);
+  TMA, for bf16 operands whose q/k head dim d and v head dim dv are one
+  of the pairs in ``TC_HEAD_DIMS`` ((64, 64), (128, 128), and MLA's
+  (192, 128)) and that TMA can read in place (every base pointer 16-byte
+  aligned, every stride but the head dim's a multiple of 16 bytes);
 - ``"cuda_core"`` (``csrc/flash_attention.cu``): fp32 arithmetic on the
-  CUDA cores, for every other call the wrapper accepts (fp32, other head
-  dims, a v head dim dv other than d as MLA's 192 and 128, misaligned
-  views).
+  CUDA cores, for every other call the wrapper accepts (fp32, MLA's fp32
+  parity runs among them, other (d, dv) pairs, misaligned views).
 
 Both read q, k and v through their strides (the head dim must be unit
 stride), so a ``[B,S,H,d]`` tensor seen as ``[B,H,S,d]`` needs no copy, and
@@ -33,7 +33,8 @@ TC_LAUNCHES = build.LaunchCounter("flash_attention_tc")
 #: The CUDA-core kernel's largest q/k head dim and v head dim.
 MAX_HEAD_DIM = 192
 MAX_V_HEAD_DIM = 128
-TC_HEAD_DIMS = (64, 128)
+#: The (q/k head dim, v head dim) pairs of the tensor-core kernel.
+TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 #: One TMA load of the tensor-core kernel: 64 of d (128 bytes, the swizzle
 #: span) by 128 rows of one head of one batch.
 TC_BOX = (64, 128, 1, 1)
@@ -49,15 +50,14 @@ def _aligned(t: torch.Tensor) -> bool:
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel that takes ``flash_attention(q, k, v)``: ``"tensor_core"``
-    when q, k and v are bf16 with one head dim d in {64, 128}, unit stride
-    along d, and TMA can read them in place (16-byte aligned base pointers,
-    the other strides multiples of 16 bytes); ``"cuda_core"`` otherwise.
-    Reads only dtypes, shapes, strides and pointers, so it answers for CPU
-    tensors too."""
+    when q, k and v are bf16, (q's head dim, v's head dim) is a pair of
+    ``TC_HEAD_DIMS``, each is unit stride along its head dim, and TMA can
+    read them in place (16-byte aligned base pointers, the other strides
+    multiples of 16 bytes); ``"cuda_core"`` otherwise.  Reads only dtypes,
+    shapes, strides and pointers, so it answers for CPU tensors too."""
     ts = (q, k, v)
     if (any(t.dtype != torch.bfloat16 for t in ts)
-            or q.shape[-1] not in TC_HEAD_DIMS
-            or v.shape[-1] != q.shape[-1]):
+            or (q.shape[-1], v.shape[-1]) not in TC_HEAD_DIMS):
         return "cuda_core"
     for t in ts:
         if t.stride(-1) != 1 or t.data_ptr() % 16:
@@ -130,20 +130,20 @@ def _launch_tensor_core(q, k, v, *, causal=True, window=None, softcap=None,
     """The tensor-core kernel on operands that :func:`flash_attention` has
     checked; raises where :func:`route` says it cannot take them."""
     if route(q, k, v) != "tensor_core":
-        raise ValueError("flash_attention: the tensor-core kernel takes "
-                         "bf16 with one d in (64, 128) and 16-byte aligned "
-                         "pointers and strides only")
+        raise ValueError(f"flash_attention: the tensor-core kernel takes "
+                         f"bf16 with (d, dv) in {TC_HEAD_DIMS} and 16-byte "
+                         f"aligned pointers and strides only")
     B, H, Sq, d = q.shape
-    K, Sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)           # q's layout, so unit stride in d
+    K, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = empty_like_q(q, dv)           # q's layout, unit stride in dv
     geom = (ctypes.c_longlong * 33)(
         *(x for t in (q, k, v) for part in tma_geometry(t) for x in part))
     o_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
     err = build.library().repro_flash_attention_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.addressof(geom), ctypes.addressof(o_strides),
-        B, H, K, Sq, Sk, d, _scale(scale, d), softcap or 0.0, int(causal),
-        window or 0, build.stream_handle(q.device))
+        B, H, K, Sq, Sk, d, dv, _scale(scale, d), softcap or 0.0,
+        int(causal), window or 0, build.stream_handle(q.device))
     build.check(err, "flash_attention (tensor cores)")
     TC_LAUNCHES.count += 1
     LAUNCHES.count += 1

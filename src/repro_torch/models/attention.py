@@ -7,10 +7,10 @@ kernel (``kernels/flash_attention``, the TPU's flash path for the same
 function): on the card it launches the hand-written kernel, on the CPU it
 takes the kernel's plain version.  Scores are never materialised at
 [B,H,S,S] on the card.  MLA's prefill expands the latents to per-head K
-and V (q/k head dim 192, v 128 at full width), which the CUDA-core kernel
-takes.  Decode uses a ring-buffer cache for windowed layers and MLA's
-absorbed latent-space decode; both stay plain torch, as in JAX, and update
-their cache in place.
+and V (q/k head dim 192, v 128 at full width), which the tensor-core
+kernel takes in bf16 and the CUDA-core kernel in fp32.  Decode uses a
+ring-buffer cache for windowed layers and MLA's absorbed latent-space
+decode; both stay plain torch, as in JAX, and update their cache in place.
 
 Cross attention (enc-dec) is not ported yet (ROADMAP).
 """

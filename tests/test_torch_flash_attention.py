@@ -153,8 +153,9 @@ def test_plain_version_v_head_dim_matches_jax_attention_core(d, dv, kwargs):
 
 def test_v_head_dim_routes_to_the_cuda_cores():
     """bf16 at a tensor-core head dim still takes the CUDA cores when v's
-    head dim differs; the wrapper's output is [B,H,Sq,dv] laid out like
-    q."""
+    head dim differs and (d, dv) is not MLA's (192, 128), the one unequal
+    pair of the tensor cores: (128, 64) here.  The wrapper's output is
+    [B,H,Sq,dv] laid out like q."""
     from repro_torch.kernels.flash_attention.kernel import (empty_like_q,
                                                             route)
     q = torch.zeros(2, 32, 4, 128, dtype=torch.bfloat16).transpose(1, 2)

@@ -4,7 +4,8 @@ the launch counters, a small compile → execute on ``cuda`` (the HBM apps
 through the bank model and the ideal path), PageRank at 2^20 edges (its
 fixed-order segment sums: the same bits on every run and through the
 fabric), and the LM serving side's prefill (flash attention kernel, MLA's
-head dims on the CUDA cores) against its cached decode.
+head dims on the tensor cores in bf16 and the CUDA cores in fp32) against
+its cached decode.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided in the fixture, never at import).  On a machine with one:
@@ -428,11 +429,12 @@ def _flash_err(q, k, v, **kw):
     also held row by row; on the tensor cores, the CUDA-core kernel on the
     same inputs is held to the same limits, and the tensor cores may lie at
     most twice its error from the fp32 plain version (both round p and the
-    output at the same places)."""
+    output at the same places).  The output is [B, H, Sq, dv]."""
     reset_launch_counts()
     got = flash_attention_op(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert got.dtype == q.dtype and got.shape == q.shape
+    assert got.dtype == q.dtype
+    assert got.shape == (*q.shape[:3], v.shape[3])
     on_tc = flash_kernel.route(q, k, v) == "tensor_core"
     assert launch_counts()["flash_attention"] == 1
     assert launch_counts()["flash_attention_tc"] == int(on_tc)
@@ -511,6 +513,11 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
                            _randn(cuda, 1, 3, 8, 16))
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         flash_kernel._launch_tensor_core(q, q, q)
+    # bf16 and aligned, but (128, 64) is no pair of the tensor cores.
+    qb = _randn(cuda, 1, 2, 8, 128).bfloat16()
+    vb = _randn(cuda, 1, 2, 8, 64).bfloat16()
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        flash_kernel._launch_tensor_core(qb, qb, vb)
 
 
 MLA_HEAD_DIMS = [(192, 128), (24, 16), (128, 64), (72, 40)]
@@ -522,14 +529,22 @@ MLA_HEAD_DIMS = [(192, 128), (24, 16), (128, 64), (72, 40)]
                          [case[1:] for case in flash_cases.FEATURE_CASES],
                          ids=[case[0] for case in flash_cases.FEATURE_CASES])
 def test_flash_attention_v_head_dim(cuda, shape, kwargs, d, dv, dtype):
-    """q and k at head dim d, v at dv (MLA's 192 and 128 among them) on
-    the CUDA-core kernel, every feature case, against the plain version
-    (fp32 within 2e-5; bf16 elementwise and row by row)."""
+    """q and k at head dim d, v at dv, every feature case.  bf16 at MLA's
+    (192, 128) takes the tensor cores and is held as the square head dims
+    are (``_flash_err``: the plain version elementwise and row by row, the
+    CUDA-core kernel beside it, at most twice its error from fp32); fp32
+    and the other pairs take the CUDA-core kernel, against the plain
+    version (fp32 within 2e-5; bf16 elementwise and row by row)."""
     B, H, K, Sq, Sk = shape
     q = _randn(cuda, B, H, Sq, d).to(dtype)
     k = _randn(cuda, B, K, Sk, d, seed=1).to(dtype)
     v = _randn(cuda, B, K, Sk, dv, seed=2).to(dtype)
-    assert flash_kernel.route(q, k, v) == "cuda_core"
+    on_tc = dtype == torch.bfloat16 and (d, dv) == (192, 128)
+    assert flash_kernel.route(q, k, v) == \
+        ("tensor_core" if on_tc else "cuda_core")
+    if on_tc:
+        assert _flash_err(q, k, v, **kwargs) <= FLASH_TOL[dtype]
+        return
     reset_launch_counts()
     got = flash_attention_op(q, k, v, **kwargs)
     torch.cuda.synchronize()
@@ -547,15 +562,25 @@ def test_flash_attention_v_head_dim(cuda, shape, kwargs, d, dv, dtype):
 
 def test_flash_attention_v_head_dim_strided_views(cuda):
     """MLA's prefill operands as the model gives them: [B,S,H,d] seen as
-    [B,H,S,d]; the output laid out like q."""
+    [B,H,S,d], read by TMA in place on the tensor cores; the output
+    [B,H,S,128] laid out like q.  The same v 2 bytes off a 16-byte boundary
+    sends the call to the CUDA cores."""
     q = _randn(cuda, 2, 96, 8, 192).bfloat16().transpose(1, 2)
     k = _randn(cuda, 2, 96, 8, 192, seed=1).bfloat16().transpose(1, 2)
     v = _randn(cuda, 2, 96, 8, 128, seed=2).bfloat16().transpose(1, 2)
+    assert flash_kernel.route(q, k, v) == "tensor_core"
     got = flash_attention_op(q, k, v)
     assert got.shape == (2, 8, 96, 128)
     assert got.transpose(1, 2).is_contiguous()
     want = attention_ref(q, k, v)
     assert flash_cases.row_rel_err(got, want) <= flash_cases.ROW_REL_LIMIT
+    assert _flash_err(q, k, v) <= FLASH_TOL[torch.bfloat16]
+    base = torch.empty(v.numel() + 8, dtype=v.dtype, device=cuda)
+    v_off = base[1:1 + v.numel()].view(2, 96, 8, 128)
+    v_off.copy_(v.transpose(1, 2))
+    v_off = v_off.transpose(1, 2)
+    assert flash_kernel.route(q, k, v_off) == "cuda_core"
+    assert _flash_err(q, k, v_off) <= FLASH_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "deepseek-v3-671b"])

@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the final line):
 2. Build: compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` (one
    ``nvcc`` per source, in parallel) and prints ``ptxas -v`` on a fresh
    build (a spill in the tensor-core flash kernel's (192, 128) instance
-   is a failure); counts the ``HGMMA`` instructions that ``cuobjdump
+   is a failure; the CUDA-core kernel's two (256, 256) instances, fp32
+   and bf16, are printed on a line of their own); counts the ``HGMMA`` instructions that ``cuobjdump
    -sass`` finds in each of the three tensor-core flash attention
    instances (none is a failure).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
@@ -92,6 +93,16 @@ Phases (any failure exits non-zero before the final line):
    prompts within 1e-4 of the logits' largest magnitude.  Only here ``capacity_factor`` is num_experts /
    top_k: any smaller capacity drops tokens in a 32-token prefill and
    none in decode, so the two paths would rightly differ.
+   (e) The recurrent archs, as the rows of (c), at full width and depth:
+   recurrentgemma-9b (38 layers, 17.5 GiB of bf16 weights; its 12
+   local-attention layers launch the CUDA-core kernel's (256, 256)
+   instance once each, none on the tensor cores; its RG-LRU layers none)
+   and xlstm-1.3b (48 mLSTM and sLSTM layers, 3.4 GiB; no launch).  The
+   engine keeps its cache from one request to the next, as JAX's does, so
+   each engine call that a gate compares gets a fresh engine.  Then their
+   fp32 parity as in (d): recurrentgemma at 1 super-block and its 2 extra
+   layers (the GQA layer on the fp32 (256, 256) instance), xlstm at 1
+   super-block (8 layers; the 32-token prefill is one mLSTM chunk).
 
 6. Observability and snapshots (``[obs]`` lines; nothing compiled again
    that phase 4 compiled).  (a) The obs smoke's logic
@@ -180,6 +191,15 @@ events around 10 back-to-back calls.  After the build, ``ptxas``
 registers and spills of each flash_kernel and flash_sm90_kernel instance
 are printed.
 
+The ``flash_attention_hd256`` row holds the CUDA-core kernel's (256, 256)
+instance at recurrentgemma-9b's prefill shape (q [4, 16, 2048, 256], k, v
+[4, 1, 2048, 256], causal, window 2048) in bf16 (elementwise and row by
+row, with the two planted faults) and fp32 (within 2e-5), at B 1, S 4096,
+where the window bites, and at ``cases.HD256_CASES`` in both dtypes.  Its
+bound counts 2·(d + dv) operations a visible pair at the bf16 tensor-core
+rate, its yardstick is ``F.scaled_dot_product_attention(is_causal=True,
+enable_gqa=True)``.
+
 Prints the ``kernels`` JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``.  Needs no network and one card.
 """
@@ -266,7 +286,23 @@ LM_ROWS = (
     ("deepseek-v3-671b", 1, "tensor_core", "flash_attention_mla",
      "full width, depth cut from 61 to 1 layer: one H100 holds 80 GB, "
      "the 61 layers are 1312 GiB of bf16 weights"),
+    ("recurrentgemma-9b", None, "cuda_core", "flash_attention_hd256",
+     "full depth, 38 layers: 26 RG-LRU and 12 local-attention layers "
+     "(head dim 256, one kv head, window 2048)"),
+    ("xlstm-1.3b", None, "none", None,
+     "full depth, 48 layers: 42 mLSTM and 6 sLSTM, no attention"),
 )
+# The recurrent archs' fp32 prefill-against-decode parity: (arch,
+# superblocks kept, prompt tokens).  recurrentgemma keeps its 2 extra
+# layers, so its GQA layer runs the fp32 (256, 256) instance; xlstm's one
+# super-block is 8 layers, its 32-token prefill one mLSTM chunk and its
+# 1024-token prefill two 512-token chunks, whose (C, n, m) carry decode
+# must reproduce.
+RECURRENT_PARITY = (("recurrentgemma-9b", 1, SERVE_PROMPT),
+                    ("xlstm-1.3b", 1, SERVE_PROMPT), ("xlstm-1.3b", 1, 1024))
+# recurrentgemma-9b's local attention: q [B, 16, S, 256], k, v
+# [B, 1, S, 256], window 2048; the window bites at S = 4096.
+HD256_HEADS, HD256_KV_HEADS, HD256_D, HD256_WINDOW = 16, 1, 256, 2048
 MLA_PARITY_ARCH, MLA_PARITY_SUPERBLOCKS = "deepseek-v2-236b", 1
 # MLA's prefill operands at full width: q, k [B, 128, S, 192] and v
 # [B, 128, S, 128].
@@ -637,6 +673,9 @@ def kernel_phase(dev) -> dict:
     rows.update(blas_kernel_rows(dev, gen))
     rows["flash_attention"] = flash_kernel_row(dev, gen)
     rows["flash_attention_mla"] = flash_mla_row(dev, gen)
+    t0 = time.perf_counter()
+    rows["flash_attention_hd256"] = flash_hd256_row(dev, gen)
+    rows["flash_attention_hd256"]["row_s"] = time.perf_counter() - t0
     for name, row in rows.items():
         print(f"[kernel] {name} {json.dumps(row)}", flush=True)
     return rows
@@ -658,24 +697,47 @@ def norm_rel(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def flash_bf16_check(label, q, k, v, **kw) -> tuple:
-    """Both flash kernels on the same bf16 inputs, each held to the plain
-    version elementwise and row by row; the tensor cores at most twice the
-    CUDA cores' error from the fp32 plain version (both round p and the
-    output at the same places).  The output must be [B, H, Sq, dv].
-    Returns the readings, the tensor cores' output and the plain one."""
+def flash_fp32_check(label, q, k, v, **kw) -> float:
+    """flash_attention in fp32 on the CUDA cores, within FP32_ATOL of the
+    plain version and of its shape.  Returns the error."""
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            route)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    require(route(q, k, v) == "cuda_core",
+            f"flash_attention fp32 {label} not on the CUDA cores")
+    got = flash_attention(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    require(got.shape == want.shape,
+            f"flash_attention fp32 {label}: shape {tuple(got.shape)}")
+    err = max_abs(got, want)
+    require(err <= cases.FP32_ATOL,
+            f"flash_attention fp32 {label}: err {err:.3e}")
+    return err
+
+
+def flash_bf16_check(label, q, k, v, expect="tensor_core", **kw) -> tuple:
+    """flash_attention on bf16 inputs, routed to ``expect``, held to the
+    plain version elementwise and row by row.  Where that is the tensor
+    cores, the CUDA cores run too under the same gates, and the tensor
+    cores must be at most twice the CUDA cores' error from the fp32 plain
+    version (both round p and the output at the same places).  The output
+    must be [B, H, Sq, dv].  Returns the readings by kernel ("tc", "cc"),
+    the routed kernel's output and the plain one."""
     from repro_torch.kernels.flash_attention import cases
     from repro_torch.kernels.flash_attention.kernel import (
         _launch_cuda_core, flash_attention, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    require(route(q, k, v) == "tensor_core",
-            f"flash_attention bf16 {label} not on the tensor cores")
+    require(route(q, k, v) == expect,
+            f"flash_attention bf16 {label} not routed to {expect}")
     want = attention_ref(q, k, v, **kw)
     exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+    kernels = (("tc", flash_attention), ("cc", _launch_cuda_core)) \
+        if expect == "tensor_core" else (("cc", flash_attention),)
     out, reading = None, {}
-    for name, launch in (("tc", flash_attention),
-                         ("cc", _launch_cuda_core)):
+    for name, launch in kernels:
         got = launch(q, k, v, **kw)
         require(got.shape == want.shape and got.dtype == q.dtype,
                 f"flash_attention bf16 {label} ({name}): "
@@ -695,10 +757,11 @@ def flash_bf16_check(label, q, k, v, **kw) -> tuple:
                 f"version > {cases.ROW_REL_LIMIT}")
         reading[name] = r
         out = got if out is None else out
-    require(reading["tc"]["vs_fp32"] <= 2 * reading["cc"]["vs_fp32"],
-            f"flash_attention bf16 {label}: tensor cores "
-            f"{reading['tc']['vs_fp32']:.3e} from fp32, CUDA cores "
-            f"{reading['cc']['vs_fp32']:.3e}")
+    if "tc" in reading:
+        require(reading["tc"]["vs_fp32"] <= 2 * reading["cc"]["vs_fp32"],
+                f"flash_attention bf16 {label}: tensor cores "
+                f"{reading['tc']['vs_fp32']:.3e} from fp32, CUDA cores "
+                f"{reading['cc']['vs_fp32']:.3e}")
     return reading, out, want
 
 
@@ -751,14 +814,7 @@ def flash_kernel_row(dev, gen) -> dict:
             k = torch.randn(B, K, Sk, d, device=dev, generator=gen)
             v = torch.randn(B, K, Sk, d, device=dev, generator=gen)
             label = f"{name} d{d}"
-            require(route(q, k, v) == "cuda_core",
-                    f"flash_attention fp32 {label} routed to the tensor "
-                    f"cores")
-            err = max_abs(flash_attention(q, k, v, **kw),
-                          attention_ref(q, k, v, **kw))
-            require(err <= cases.FP32_ATOL,
-                    f"flash_attention fp32 {label}: err {err:.3e}")
-            fp32_cases[label] = err
+            fp32_cases[label] = flash_fp32_check(label, q, k, v, **kw)
         for d in FLASH_BF16_DIMS:
             q, k, v = (torch.randn(B, n, S, d, device=dev,
                                    generator=gen).to(torch.bfloat16)
@@ -844,29 +900,16 @@ def flash_mla_row(dev, gen) -> dict:
                                generator=gen).to(dtype)
         return one(H, Sq, MLA_D), one(K, Sk, MLA_D), one(K, Sk, MLA_DV)
 
-    def fp32_check(label, q, k, v, **kw) -> float:
-        require(route(q, k, v) == "cuda_core",
-                f"flash_attention_mla fp32 {label} not on the CUDA cores")
-        got = flash_attention(q, k, v, **kw)
-        want = attention_ref(q, k, v, **kw)
-        require(got.shape == want.shape,
-                f"flash_attention_mla fp32 {label}: shape "
-                f"{tuple(got.shape)}")
-        err = max_abs(got, want)
-        require(err <= cases.FP32_ATOL,
-                f"flash_attention_mla fp32 {label}: err {err:.3e}")
-        return err
-
     fp32_cases, bf16_cases = {}, {}
     for name, (B, H, K, Sq, Sk), kw in cases.FEATURE_CASES:
-        fp32_cases[name] = fp32_check(
-            name, *qkv(B, H, K, Sq, Sk, torch.float32), **kw)
+        fp32_cases[name] = flash_fp32_check(
+            f"MLA {name}", *qkv(B, H, K, Sq, Sk, torch.float32), **kw)
         bf16_cases[name] = flash_bf16_check(
             f"MLA {name}", *qkv(B, H, K, Sq, Sk, torch.bfloat16), **kw)[0]
 
     B, S, H = PREFILL_BATCH, PREFILL_LEN, MLA_HEADS
     q, k, v = qkv(B, H, H, S, S, torch.float32, bshd=True)
-    fp32_err = fp32_check("main shape", q, k, v)
+    fp32_err = flash_fp32_check("MLA main shape", q, k, v)
     del q, k, v
     torch.cuda.empty_cache()
     q, k, v = qkv(B, H, H, S, S, torch.bfloat16, bshd=True)
@@ -911,6 +954,90 @@ def flash_mla_row(dev, gen) -> dict:
                 bytes=nbytes, ops=ops,
                 device_kernels=device_kernels(
                     lambda: flash_attention(q, k, v), 5))
+
+
+def flash_hd256_row(dev, gen) -> dict:
+    """The CUDA-core kernel's (256, 256) instance at recurrentgemma-9b's
+    prefill shape (q [4, 16, 2048, 256], k, v [4, 1, 2048, 256]; [B, S, H,
+    d] tensors seen as [B, H, S, d], as the model gives them; causal,
+    window 2048) in bf16 and fp32, at a shape where the window bites (B 1,
+    S 4096), and at ``cases.HD256_CASES``: bf16 elementwise and row by row
+    against the plain version, fp32 within FP32_ATOL; every call on the
+    CUDA cores.  The two planted faults at the main shape must fail the
+    row gate.  Times the kernel (CUDA-graph replay), the plain version and
+    SDPA (``is_causal=True, enable_gqa=True``; the window does not bite at
+    S = 2048, so that is the same function)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            route)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def qkv(B, H, K, Sq, Sk, dtype, bshd=False):
+        def one(n, S):
+            if bshd:
+                t = torch.randn(B, S, n, HD256_D, device=dev, generator=gen)
+                return t.to(dtype).transpose(1, 2)
+            return torch.randn(B, n, S, HD256_D, device=dev,
+                               generator=gen).to(dtype)
+        return one(H, Sq), one(K, Sk), one(K, Sk)
+
+    fp32_cases, bf16_cases = {}, {}
+    for name, shape, kw in cases.HD256_CASES:
+        label = f"hd256 {name}"
+        fp32_cases[name] = flash_fp32_check(
+            label, *qkv(*shape, torch.float32), **kw)
+        bf16_cases[name] = flash_bf16_check(
+            label, *qkv(*shape, torch.bfloat16), expect="cuda_core",
+            **kw)[0]
+    H, K, W = HD256_HEADS, HD256_KV_HEADS, HD256_WINDOW
+    bites_shape = (1, H, K, 2 * PREFILL_LEN, 2 * PREFILL_LEN)
+    bites = dict(fp32=flash_fp32_check(
+        "hd256 window bites", *qkv(*bites_shape, torch.float32, bshd=True),
+        window=W))
+    torch.cuda.empty_cache()
+    bites["bf16"] = flash_bf16_check(
+        "hd256 window bites", *qkv(*bites_shape, torch.bfloat16, bshd=True),
+        expect="cuda_core", window=W)[0]
+    torch.cuda.empty_cache()
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    q, k, v = qkv(B, H, K, S, S, torch.float32, bshd=True)
+    fp32_main = flash_fp32_check("hd256 main shape", q, k, v, window=W)
+    del q, k, v
+    torch.cuda.empty_cache()
+    q, k, v = qkv(B, H, K, S, S, torch.bfloat16, bshd=True)
+    main, got, want = flash_bf16_check("hd256 main shape", q, k, v,
+                                       expect="cuda_core", window=W)
+    require(got.transpose(1, 2).is_contiguous(),
+            "flash_attention_hd256: the output is not laid out like q")
+    planted = planted_faults("flash_attention_hd256", q, k, v, got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, o; k, v
+    ops = 2 * 2 * HD256_D * B * H * visible_pairs(S, S)
+    b, by = bound(nbytes, ops, PEAK_BF16_PER_S)
+    ms = graph_ms(lambda i: flash_attention(q, k, v, window=W), 4,
+                  replays=2)
+    plain = cuda_ms(lambda: attention_ref(q, k, v, window=W), 2, warmup=1)
+    torch.cuda.empty_cache()
+    lib = graph_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 10, replays=3)
+    return dict(shape=[B, H, K, S, S, HD256_D, HD256_D], dtype="bf16",
+                causal=True, window=W, kernel=route(q, k, v),
+                max_abs_err=main["cc"]["max_abs_err"], main=main,
+                fp32_max_abs_err=fp32_main, window_bites=dict(
+                    shape=[1, H, K, 2 * S, 2 * S, HD256_D], **bites),
+                atol=cases.ATOL, rtol=cases.RTOL,
+                row_rel_limit=cases.ROW_REL_LIMIT, planted_faults=planted,
+                bf16_cases=bf16_cases, fp32_cases=fp32_cases, ms=ms,
+                tflops=ops / ms / 1e9, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib,
+                library="F.scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True), bf16",
+                bytes=nbytes, ops=ops,
+                device_kernels=device_kernels(
+                    lambda: flash_attention(q, k, v, window=W), 3))
 
 
 def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1325,13 +1452,17 @@ def lm_prompts(vocab: int) -> tuple:
 def serve_row(dev, cfg, route: str) -> dict:
     """One LM at ``cfg`` (bf16, weights drawn on the card from seed 0): the
     prefill step over PREFILL_BATCH prompts of PREFILL_LEN tokens, once to
-    warm up and once timed, each launching flash_attention once a layer on
-    ``route``; then a ServingEngine answering PREFILL_BATCH requests of
-    SERVE_PROMPT + SERVE_NEW tokens, and the bf16 prefill step against the
-    engine's sequential prefill (printed, not gated)."""
+    warm up and once timed, each launching flash_attention once an
+    attention layer on ``route`` (a recurrent layer launches none); then a
+    ServingEngine answering PREFILL_BATCH requests of SERVE_PROMPT +
+    SERVE_NEW tokens, and the bf16 prefill step against the engine's
+    sequential prefill (printed, not gated).  Each engine call that a gate
+    compares gets a fresh engine: like JAX's, the engine keeps its cache
+    from one request to the next, and a recurrent state carries over."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import init_params, param_count
+    from repro_torch.models.transformer import attention_layers
     from repro_torch.serving import ServeConfig, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
@@ -1354,11 +1485,14 @@ def serve_row(dev, cfg, route: str) -> dict:
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, launch_counts()))
     prefill_s, launches = runs[1]
-    want_tc = cfg.num_layers if route == "tensor_core" else 0
+    n_attn = attention_layers(cfg)
+    require((n_attn == 0) == (route == "none"),
+            f"{cfg.name}: {n_attn} attention layers on route {route}")
+    want_tc = n_attn if route == "tensor_core" else 0
     for _, counts in runs:
-        require(counts["flash_attention"] == cfg.num_layers,
+        require(counts["flash_attention"] == n_attn,
                 f"{cfg.name} prefill launched flash_attention "
-                f"{counts['flash_attention']} times, not {cfg.num_layers}")
+                f"{counts['flash_attention']} times, not {n_attn}")
         require(counts["flash_attention_tc"] == want_tc,
                 f"{cfg.name} prefill launched the tensor-core "
                 f"flash_attention {counts['flash_attention_tc']} times, not "
@@ -1369,15 +1503,18 @@ def serve_row(dev, cfg, route: str) -> dict:
     prefill_profile = device_breakdown(
         lambda: prefill(params, {"tokens": long_prompts}))
 
-    engine = ServingEngine(params, cfg, ServeConfig(
-        batch_slots=PREFILL_BATCH, max_len=SERVE_MAX_LEN))
+    def engine():
+        return ServingEngine(params, cfg, ServeConfig(
+            batch_slots=PREFILL_BATCH, max_len=SERVE_MAX_LEN))
+
     reset_launch_counts()
     t0 = time.perf_counter()
-    seq_logits, _ = engine.prefill(prompts)
+    seq_logits, _ = engine().prefill(prompts)
     torch.cuda.synchronize()
     seq_prefill_s = time.perf_counter() - t0
+    serving = engine()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, max_new=SERVE_NEW)
+    out = serving.generate(prompts, max_new=SERVE_NEW)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     engine_launches = launch_counts()
@@ -1385,9 +1522,9 @@ def serve_row(dev, cfg, route: str) -> dict:
     # Device time of the engine's steps: a generate of 4 new tokens runs
     # SERVE_PROMPT + 4 serve_steps.
     step_profile = device_breakdown(
-        lambda: engine.generate(prompts, max_new=4), top=3)
+        lambda: serving.generate(prompts, max_new=4), top=3)
     step_device_ms = step_profile["device_ms"] / (SERVE_PROMPT + 4)
-    step_ops = aten_ops(lambda: engine.generate(prompts, max_new=4)) / (
+    step_ops = aten_ops(lambda: serving.generate(prompts, max_new=4)) / (
         SERVE_PROMPT + 4)
     step_wall_ms = generate_s * 1e3 / (SERVE_PROMPT + SERVE_NEW)
     require(out.shape == (PREFILL_BATCH, SERVE_NEW) and out.dtype == np.int32
@@ -1404,7 +1541,7 @@ def serve_row(dev, cfg, route: str) -> dict:
                      / seq_logits.abs().max())
     bf16_argmax = int((kern_logits.argmax(-1)
                        == seq_logits.argmax(-1)).sum())
-    del params, engine, logits, kern_logits, seq_logits
+    del params, serving, logits, kern_logits, seq_logits
     torch.cuda.empty_cache()
 
     new_tokens = PREFILL_BATCH * SERVE_NEW
@@ -1417,6 +1554,7 @@ def serve_row(dev, cfg, route: str) -> dict:
             "prefill_device_ms": prefill_profile["device_ms"],
             "prefill_top_kernels": prefill_profile["top"],
             "launches": launches,
+            "attention_layers": n_attn,
             "flash_launches_by_route": {
                 "tensor_core": tc,
                 "cuda_core": launches["flash_attention"] - tc},
@@ -1435,31 +1573,37 @@ def serve_row(dev, cfg, route: str) -> dict:
             "bf16_full_depth_argmax_equal": bf16_argmax}
 
 
-def fp32_parity(dev, cfg) -> dict:
+def fp32_parity(dev, cfg, prompt_len: int = SERVE_PROMPT) -> dict:
     """The prefill step (the flash kernel) against the engine's sequential
-    prefill (decode) in fp32 on the SERVE_PROMPT-token prompts: within 1e-4
-    of the logits' largest magnitude, one CUDA-core launch a layer."""
+    prefill (decode) in fp32 on the SERVE_PROMPT-token prompts, or on the
+    first ``prompt_len`` tokens of the prefill step's: within 1e-4 of the
+    logits' largest magnitude, one CUDA-core launch an attention layer."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.steps import build_prefill_step
     from repro_torch.models import init_params
     from repro_torch.serving import ServeConfig, ServingEngine
 
-    _, prompts = lm_prompts(cfg.vocab)
+    long_prompts, prompts = lm_prompts(cfg.vocab)
+    if prompt_len != SERVE_PROMPT:
+        prompts = long_prompts[:, :prompt_len]
     params32 = init_params(torch.Generator(dev).manual_seed(1), cfg)
     reset_launch_counts()
     kern = build_prefill_step(cfg)(params32, {"tokens": prompts})
     counts = launch_counts()
     dec, _ = ServingEngine(params32, cfg, ServeConfig(
-        batch_slots=PREFILL_BATCH, max_len=SERVE_MAX_LEN)).prefill(prompts)
+        batch_slots=PREFILL_BATCH, max_len=max(SERVE_MAX_LEN, prompt_len))
+    ).prefill(prompts)
     rel = float((kern - dec).abs().max() / dec.abs().max())
     del params32
     torch.cuda.empty_cache()
-    return {"superblocks": cfg.num_superblocks, "rel_err": rel,
+    return {"superblocks": cfg.num_superblocks, "layers": cfg.num_layers,
+            "prompt_len": prompts.shape[1], "rel_err": rel,
             "flash_launches": counts["flash_attention"],
             "tc_launches": counts["flash_attention_tc"]}
 
 
 def check_fp32_parity(name: str, parity: dict, layers: int) -> None:
+    """``layers``: the attention layers, each one CUDA-core launch."""
     require(parity["flash_launches"] == layers,
             f"{name} fp32 parity prefill launched flash_attention "
             f"{parity['flash_launches']} times")
@@ -1475,6 +1619,7 @@ def lm_path_phase(dev) -> dict:
     """qwen3-4b at full width and depth: the prefill step (flash kernel)
     and the ServingEngine; then prefill-against-decode parity."""
     from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import attention_layers
 
     cfg = get_arch(LM_ARCH).full()
     row = serve_row(dev, cfg, "tensor_core")
@@ -1487,23 +1632,28 @@ def lm_path_phase(dev) -> dict:
                 "fp32_parity_flash_launches": parity["flash_launches"],
                 "fp32_parity_tc_launches": parity["tc_launches"]})
     print(f"[path] {json.dumps(row)}", flush=True)
-    check_fp32_parity(LM_ARCH, parity, cfg32.num_layers)
+    check_fp32_parity(LM_ARCH, parity, attention_layers(cfg32))
     return row
 
 
 def lm_rows_phase(dev) -> dict:
-    """chatglm3-6b and the DeepSeek archs (``LM_ROWS``), then MLA + MoE
-    parity on deepseek-v2 in fp32.  Returns each row by arch."""
+    """chatglm3-6b, the DeepSeek archs and the recurrent archs
+    (``LM_ROWS``), then MLA + MoE parity on deepseek-v2 and the recurrent
+    archs' parity (``RECURRENT_PARITY``) in fp32.  Returns each row by
+    arch."""
     from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import attention_layers
 
     rows = {}
     for arch, superblocks, route, kernel_row, note in LM_ROWS:
         cfg = get_arch(arch).full()
         if superblocks is not None:
             cfg = dataclasses.replace(cfg, num_superblocks=superblocks)
+        t0 = time.perf_counter()
         row = serve_row(dev, cfg, route)
         row["note"] = note
         row["kernel_row"] = kernel_row
+        row["row_s"] = time.perf_counter() - t0
         print(f"[path] {json.dumps(row)}", flush=True)
         rows[arch] = row
     cfg = get_arch(MLA_PARITY_ARCH).full()
@@ -1519,7 +1669,18 @@ def lm_rows_phase(dev) -> dict:
            "capacity_factor": cfg.moe.capacity_factor, **parity}
     print(f"[path] {json.dumps(row)}", flush=True)
     check_fp32_parity(f"{MLA_PARITY_ARCH} (MLA + MoE)", parity,
-                      cfg.num_layers)
+                      attention_layers(cfg))
+    for arch, superblocks, prompt_len in RECURRENT_PARITY:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(
+            get_arch(arch).full(), num_superblocks=superblocks,
+            dtype=torch.float32, param_dtype=torch.float32)
+        parity = fp32_parity(dev, cfg, prompt_len)
+        row = {"app": "recurrent_fp32_parity", "arch": arch, **parity,
+               "row_s": time.perf_counter() - t0}
+        print(f"[path] {json.dumps(row)}", flush=True)
+        check_fp32_parity(f"{arch} (recurrent, {prompt_len} tokens)",
+                          parity, attention_layers(cfg))
     return rows
 
 
@@ -2004,9 +2165,14 @@ def main() -> int:
           f"in {info.seconds:.2f} s", flush=True)
     if info.built:
         print(info.log.rstrip(), flush=True)
-        print(f"ptxas: flash_kernel instances "
-              f"{json.dumps(ptxas_report(info.log, 'flash_kernel'))}",
+        cuda_core = ptxas_report(info.log, "flash_kernel")
+        print(f"ptxas: flash_kernel instances {json.dumps(cuda_core)}",
               flush=True)
+        hd256 = {n: r for n, r in cuda_core.items() if "Li256ELi256E" in n}
+        print(f"ptxas: the (256, 256) flash_kernel instances "
+              f"{json.dumps(hd256)}", flush=True)
+        require(len(hd256) == 2, f"ptxas: {len(hd256)} (256, 256) "
+                f"flash_kernel instances, not 2 (fp32, bf16)")
         sm90 = ptxas_report(info.log, "flash_sm90_kernel")
         print(f"ptxas: flash_sm90_kernel instances {json.dumps(sm90)}",
               flush=True)
@@ -2046,9 +2212,10 @@ def main() -> int:
     # Each row's prefill launches are all on its route (serve_row gates
     # it); the kernels line counts them under the row of their head dims.
     launches["flash_attention"] = lm["launches"]["flash_attention"]
-    launches["flash_attention_mla"] = 0
+    launches["flash_attention_mla"] = launches["flash_attention_hd256"] = 0
     for r in lm_rows.values():
-        launches[r["kernel_row"]] += r["launches"]["flash_attention"]
+        if r["kernel_row"] is not None:
+            launches[r["kernel_row"]] += r["launches"]["flash_attention"]
     torch.cuda.empty_cache()
     obs_phase(dev, designs)
     tenants_phase(dev)
@@ -2070,6 +2237,9 @@ def main() -> int:
                    "src/repro/kernels/flash_attention/kernel.py:99"),
                "flash_attention_mla": (
                    "src/repro_torch/csrc/flash_attention_sm90.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:99"),
+               "flash_attention_hd256": (
+                   "src/repro_torch/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": repl, "launches": launches[name],

@@ -3,10 +3,12 @@
 dispatches.
 
     PYTHONPATH=src python scripts/torch_decode_step.py --arch qwen3-4b \
-        [--rounds 5] [--label NAME] [--smoke --device cpu]
+        [--superblocks N] [--rounds 5] [--label NAME] [--smoke --device cpu]
 
 Runs on the CUDA card unless ``--device cpu`` is given; bf16 weights of
-``full()`` (or ``smoke()``) drawn from ``--seed``.  One warm-up generate,
+``full()`` (or ``smoke()``) drawn from ``--seed``, cut to ``--superblocks``
+super-blocks where given (deepseek-v2-236b's 60 layers do not fit one
+card).  One warm-up generate,
 then ``--rounds`` timed ones: ``step_wall_ms`` is a round's wall time over
 its prompt + new tokens (every one is one ``serve_step``).  Prints the
 card's name and power limit and one JSON line.  It uses only the engine's
@@ -17,6 +19,7 @@ it in one session on the same card with each tree's ``src`` on
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -56,6 +59,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--superblocks", type=int, default=None)
     ap.add_argument("--device", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--requests", type=int, default=4)
@@ -68,6 +72,8 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     mod = get_arch(args.arch)
     cfg = mod.smoke() if args.smoke else mod.full()
+    if args.superblocks is not None:
+        cfg = dataclasses.replace(cfg, num_superblocks=args.superblocks)
     params = init_params(torch.Generator(dev).manual_seed(args.seed), cfg)
     prompts = np.random.default_rng(args.seed).integers(
         1, cfg.vocab, (args.requests, args.prompt_len))
@@ -96,6 +102,7 @@ def main(argv=None) -> int:
     print(_card() if dev.type == "cuda" else "cpu")
     print(json.dumps({
         "label": args.label, "arch": cfg.name, "device": str(dev),
+        "layers": cfg.num_layers,
         "requests": args.requests, "prompt_len": args.prompt_len,
         "max_new": args.max_new, "rounds": args.rounds,
         "step_wall_ms": wall_ms,

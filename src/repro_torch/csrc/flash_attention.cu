@@ -37,6 +37,15 @@
 // 128, 128 KB of shared memory, so one block fits on an SM.  Only this
 // kernel takes the other pairs with dv != d.
 //
+// recurrentgemma-9b's local attention has d = dv = 256 with one kv head for
+// 16 query heads (B 4, S 2048, window 2048, causal): 2 (d + dv) = 1024
+// operations a visible pair, about 1.37e11 operations on 142 MB, 0.139 ms
+// at the bf16 tensor-core rate, 0.042 ms for the bytes.  Only this kernel
+// takes (256, 256), bf16 and fp32 alike: its Q, K and V tiles at 256 floats
+// are 192 KB of shared memory (one block per SM, under the 227 KB opt-in),
+// and the accumulator is 64 registers a thread, so that instance asks for
+// one resident block per SM in its launch bounds, not two.
+//
 // Why it does not reach that bound yet: this first design runs on the CUDA
 // cores in fp32 (67 TFLOP/s, so no faster than 2.05 ms at that shape), as
 // the simple design that is right first.  One thread block of 256 threads
@@ -208,8 +217,17 @@ __host__ __device__ constexpr int smem_floats() {
 // last rows, are issued first).  Thread t owns rows 4 * (t / 16) + i and,
 // of each key tile, keys 4 * (t % 16) + j; of the output, columns
 // 4 * (t % 16) + 64 * u + e.  DP pads d, DV pads dv.
+// Resident blocks per SM that an instance's launch bounds ask for: two,
+// except at DV 256, whose shared memory holds one block an SM anyway and
+// whose accumulator needs the registers that two would forbid.
+template <int DV>
+constexpr int min_blocks() {
+  return DV > 128 ? 1 : 2;
+}
+
 template <typename T, int DP, int DV>
-__global__ void __launch_bounds__(kThreads, 2) flash_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, min_blocks<DV>())
+    flash_kernel(const Args a) {
   static_assert(DP % 64 == 0 && DV % 64 == 0, "DP, DV multiples of 64");
   constexpr int kColGroups = DV / 64;   // float4 column groups per thread
   extern __shared__ float4 smem4[];
@@ -377,20 +395,21 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The instance that takes (d, dv): (64, 64) when both fit, else (128, 128)
-// when d does, else (192, 128).
+// The instance that takes (d, dv): the first of (64, 64), (128, 128),
+// (192, 128) and (256, 256) that both fit.
 template <typename T>
 cudaError_t dispatch(const Args& a, cudaStream_t stream) {
   if (a.d <= 64 && a.dv <= 64) return launch<T, 64, 64>(a, stream);
-  if (a.d <= 128) return launch<T, 128, 128>(a, stream);
-  return launch<T, 192, 128>(a, stream);
+  if (a.d <= 128 && a.dv <= 128) return launch<T, 128, 128>(a, stream);
+  if (a.d <= 192 && a.dv <= 128) return launch<T, 192, 128>(a, stream);
+  return launch<T, 256, 256>(a, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16 (q, k, v and o all of it).  strides: 12
 // element strides, (batch, head, seq) of q, k, v and o in turn.  d is the
-// head dim of q and k (at most 192), dv that of v and o (at most 128).
+// head dim of q and k, dv that of v and o (each at most 256).
 // Returns the cudaError_t of the launch (0 = cudaSuccess).
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      const void* v, void* o,
@@ -399,7 +418,7 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
                                      float scale, float softcap, int causal,
                                      int window, int vec, void* stream) {
   if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Sk <= 0 ||
-      d <= 0 || d > 192 || dv <= 0 || dv > 128 ||
+      d <= 0 || d > 256 || dv <= 0 || dv > 256 ||
       (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }

@@ -29,6 +29,17 @@ FEATURE_CASES = (
     # rows are fully masked (the -1e30 rule, wiped by alpha = 0).
     ("masked_lead_block", (1, 4, 2, 64, 256), {"window": 40}),
 )
+#: The cases of the CUDA-core kernel's (256, 256) instance, run at
+#: d = dv = 256: recurrentgemma-9b's grouping (16 query heads on one kv
+#: head), a window that bites (each query past the first 128 of 512 drops
+#: keys), ragged lengths with Sq < Sk, softcap, and no mask.
+HD256_CASES = (
+    ("mqa_g16", (1, 16, 1, 128, 128), {}),
+    ("mqa_g16_window_bites", (1, 16, 1, 512, 512), {"window": 128}),
+    ("ragged_window", (1, 4, 1, 100, 200), {"window": 64}),
+    ("window_softcap", (1, 2, 2, 128, 128), {"window": 32, "softcap": 30.0}),
+    ("noncausal", (1, 2, 1, 96, 160), {"causal": False}),
+)
 #: bf16 elementwise limit: |got - ref| <= ATOL + RTOL * |ref|.
 ATOL = RTOL = 2e-2
 #: bf16 row limit on ||got - ref|| / ||ref||; both round p and the output

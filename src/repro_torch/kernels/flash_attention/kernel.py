@@ -10,7 +10,9 @@ flash_attention``.  :func:`route` picks one per call by a fixed rule:
   aligned, every stride but the head dim's a multiple of 16 bytes);
 - ``"cuda_core"`` (``csrc/flash_attention.cu``): fp32 arithmetic on the
   CUDA cores, for every other call the wrapper accepts (fp32, MLA's fp32
-  parity runs among them, other (d, dv) pairs, misaligned views).
+  parity runs among them, other (d, dv) pairs up to (256, 256) --
+  recurrentgemma-9b's local attention in either dtype -- and misaligned
+  views).
 
 Both read q, k and v through their strides (the head dim must be unit
 stride), so a ``[B,S,H,d]`` tensor seen as ``[B,H,S,d]`` needs no copy, and
@@ -31,8 +33,8 @@ LAUNCHES = build.LaunchCounter("flash_attention")
 #: Launches of the tensor-core kernel alone.
 TC_LAUNCHES = build.LaunchCounter("flash_attention_tc")
 #: The CUDA-core kernel's largest q/k head dim and v head dim.
-MAX_HEAD_DIM = 192
-MAX_V_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+MAX_V_HEAD_DIM = 256
 #: The (q/k head dim, v head dim) pairs of the tensor-core kernel.
 TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 #: One TMA load of the tensor-core kernel: 64 of d (128 bytes, the swizzle
@@ -83,14 +85,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,H,Sq,d]; k: [B,K,Sk,d]; v: [B,K,Sk,dv] (fp32 or bf16, one
-    dtype, one CUDA device, H % K == 0, d <= 192, dv <= 128, unit stride
+    dtype, one CUDA device, H % K == 0, d <= 256, dv <= 256, unit stride
     along the head dim).  Returns [B,H,Sq,dv] in q's dtype and memory
     layout, from the kernel that :func:`route` picks."""
-    ts = (q, k, v)
     dev = q.device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
+    if dev.type != "cuda" or any(t.device != dev for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be on one CUDA "
                          "device")
+    check_operands(q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got "
+                         f"{softcap}")
+    launch = (_launch_tensor_core if route(q, k, v) == "tensor_core"
+              else _launch_cuda_core)
+    return launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                  scale=scale)
+
+
+def check_operands(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> None:
+    """Raise unless one of the kernels takes q, k and v: one dtype, fp32
+    or bf16; 4-D with matching batch, kv heads and lengths, H % K == 0;
+    non-empty, d <= MAX_HEAD_DIM and dv <= MAX_V_HEAD_DIM; unit stride
+    along the head dim.  Reads only dtypes, shapes and strides, so it
+    answers for CPU tensors too."""
+    ts = (q, k, v)
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"flash_attention: fp32 or bf16, one dtype; got "
                         f"{[str(t.dtype) for t in ts]}")
@@ -113,16 +135,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(v.shape)}")
     if any(t.stride(3) != 1 for t in ts):
         raise ValueError("flash_attention: the head dim must be unit stride")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window must be >= 1, got "
-                         f"{window}")
-    if softcap is not None and not softcap > 0:
-        raise ValueError(f"flash_attention: softcap must be > 0, got "
-                         f"{softcap}")
-    launch = (_launch_tensor_core if route(q, k, v) == "tensor_core"
-              else _launch_cuda_core)
-    return launch(q, k, v, causal=causal, window=window, softcap=softcap,
-                  scale=scale)
 
 
 def _launch_tensor_core(q, k, v, *, causal=True, window=None, softcap=None,

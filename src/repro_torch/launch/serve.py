@@ -5,8 +5,9 @@ over the ServingEngine.
         --smoke --device cpu --requests 4 --prompt-len 8 --max-new 16
 
 ``--arch`` is any of ``repro_torch.configs.ALL_ARCHS`` (the GQA decoders,
-chatglm3-6b, and the MLA + MoE archs deepseek-v2-236b and
-deepseek-v3-671b).
+chatglm3-6b, the MLA + MoE archs deepseek-v2-236b and deepseek-v3-671b,
+and the recurrent archs recurrentgemma-9b and xlstm-1.3b, whose prompt
+lengths past one mLSTM chunk must be multiples of it).
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are drawn
 from ``--seed``; the prompts too (numpy).  The prefill step runs once over

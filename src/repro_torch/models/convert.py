@@ -3,12 +3,14 @@
 The JAX package stacks the decoder's super-blocks along a leading axis
 (``blocks["p{i}"]`` leaves are ``[num_superblocks, ...]``); the port holds
 one tree per layer in order.  Layer ``sb * len(pattern) + i`` is
-``blocks[f"p{i}"][sb]``.  Leaves arrive as numpy arrays (nested dicts, as
-``jax.tree.map(np.asarray, params)`` gives them); numpy has no bfloat16,
-so a bf16 leaf is handed over as float32 and cast back to
+``blocks[f"p{i}"][sb]``; the unstacked ``extra["e{i}"]`` layers follow
+as layer ``num_superblocks * len(pattern) + i``.  Leaves arrive as numpy
+arrays (nested dicts, as ``jax.tree.map(np.asarray, params)`` gives
+them); numpy has no bfloat16, so a bf16 leaf is handed over as float32 and cast back to
 ``cfg.param_dtype``, which loses nothing.  The leaves JAX keeps in fp32
-whatever the model's dtype (the MoE router, ``moe.FP32_LEAVES``) stay
-fp32.
+whatever the model's dtype (the MoE router, ``moe.FP32_LEAVES``; RG-LRU's
+Λ, mLSTM's gate projection and sLSTM's gate weights,
+``recurrent.FP32_LEAVES``) stay fp32.
 """
 from __future__ import annotations
 
@@ -18,9 +20,12 @@ import numpy as np
 import torch
 
 from ..exec.programs import resolve_device
-from . import layers
-from .moe import FP32_LEAVES
+from . import layers, moe, recurrent
 from .transformer import ModelConfig, check_supported
+
+
+#: The leaves that stay fp32 whatever ``cfg.param_dtype`` is.
+FP32_LEAVES = moe.FP32_LEAVES | recurrent.FP32_LEAVES
 
 
 def _to_torch(tree: Any, dtype, device) -> Any:
@@ -53,7 +58,9 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     check_supported(cfg)
     n = len(cfg.pattern)
     blocks = tree["blocks"]
-    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out = {k: v for k, v in tree.items() if k not in ("blocks", "extra")}
     out["blocks"] = [_index(blocks[f"p{i}"], sb)
                      for sb in range(cfg.num_superblocks) for i in range(n)]
+    out["blocks"] += [tree["extra"][f"e{i}"]
+                      for i in range(len(cfg.extra_layers))]
     return tree_from_numpy(out, cfg.param_dtype, device)

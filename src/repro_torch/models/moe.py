@@ -5,10 +5,13 @@ Dispatch is capacity-based, as in JAX: each group (a batch row) gives each
 expert ``C = max(1, int(S·k/E·capacity_factor))`` slots, filled in token
 order (a stable sort on the expert id ranks the slots), and the slots past
 ``C`` are dropped and add nothing.  Activations move by a gather into an
-[E, G·C, D] buffer and back by a scatter-add (``index_add_``); no
-[T, E, C] one-hot is built.  The buffer is laid out expert-major, so the
-expert products are one batched matmul each (JAX computes them outside any
-Pallas kernel too).  The router is fp32 whatever the model's dtype.
+[E, G·C, D] buffer and back by a gather of each token's k slots, summed
+in fp32 in a fixed order (``combine``: the CPU's ``index_add_`` bits, on
+every run on the card too, which a scatter-add's atomics do not give); no
+[T, E, C] one-hot is built.
+The buffer is laid out expert-major, so the expert products are one
+batched matmul each (JAX computes them outside any Pallas kernel too).
+The router is fp32 whatever the model's dtype.
 
 ``update_router_bias`` (aux-loss-free balancing) runs in training and waits
 for it (ROADMAP Queue 1 item 7).
@@ -128,6 +131,25 @@ def slot_positions(flat_e: torch.Tensor, E: int) -> torch.Tensor:
     return torch.empty_like(flat_e).scatter_(1, order, pos_sorted)
 
 
+def combine(contrib: torch.Tensor, slot_of: torch.Tensor,
+            idx: torch.Tensor) -> torch.Tensor:
+    """y [G, S, D]: each token's kept slots (``slot_of`` [G, S, k], rows of
+    ``contrib`` [E·G·C, D]; a dropped slot's E·G·C reads a zero row) added
+    to an fp32 zero in ascending expert id (``idx`` [G, S, k]), rounded
+    once to ``contrib``'s dtype.  That is the order and the rounding of the
+    CPU's ``index_add_`` over the expert-major buffer, so its bits; the
+    card's ``index_add_`` adds by atomics, in an order that changes from
+    run to run."""
+    G, S, k = idx.shape
+    D = contrib.shape[-1]
+    rows = torch.cat([contrib, contrib.new_zeros((1, D))])
+    slots = torch.gather(slot_of, 2, torch.argsort(idx, dim=-1))
+    y = torch.zeros((G, S, D), dtype=torch.float32, device=contrib.device)
+    for j in range(k):
+        y += rows[slots[..., j]]
+    return y.to(contrib.dtype)
+
+
 def moe_forward(params, cfg: MoEConfig, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [G, S, D] (G = token groups: the batch rows).  Returns
@@ -145,7 +167,10 @@ def moe_forward(params, cfg: MoEConfig, x: torch.Tensor
     # Rows of x_pad [G·(S+1), D]: token s of group g at g·(S+1) + s, the
     # group's zero pad row at g·(S+1) + S.
     src = g * (S + 1) + torch.arange(S * k, device=dev)[None, :] // k
-    dest = ((flat_e * G + g) * C + pos)[keep]             # [E, G, C] flat
+    # Each slot's place in the [E, G, C] buffer, flat; a dropped slot's is
+    # E·G·C, which the combine reads as a zero row.
+    slot_of = torch.where(keep, (flat_e * G + g) * C + pos, E * G * C)
+    dest = slot_of[keep]
     slot = torch.arange(E * G * C, device=dev)
     buf_src = (slot // C % G) * (S + 1) + S               # empty: the pad row
     buf_src[dest] = src[keep]
@@ -158,9 +183,7 @@ def moe_forward(params, cfg: MoEConfig, x: torch.Tensor
     h = layers.act_fn(cfg.activation)(torch.bmm(xe, params["wg_edf"])) * h
     ye = torch.bmm(h, params["wo_efd"])                   # [E, G·C, D]
     contrib = ye * w_buf.view(E, G * C, 1).to(ye.dtype)
-    y = torch.zeros((G * (S + 1), D), dtype=ye.dtype, device=dev)
-    y.index_add_(0, buf_src, contrib.view(-1, D))
-    y = y.view(G, S + 1, D)[:, :S]
+    y = combine(contrib.view(-1, D), slot_of.view(G, S, k), idx)
 
     if cfg.num_shared:
         y = y + ffn_forward(params["shared"], _shared_cfg(cfg), x)

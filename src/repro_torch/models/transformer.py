@@ -11,11 +11,15 @@ layers in order in an ``nn.ModuleList`` (``params["blocks"][l]`` is layer
 ``l = sb * len(pattern) + i``, of spec ``pattern[i]``) and loops over them
 in Python.  Decode carries one cache per layer in the same order.
 
-Ported: layers of the ``gqa`` and ``mla`` mixers and the ``dense`` and
-``moe`` FFNs, the DeepSeek-V3 ``mtp`` head's parameters, and the serving
-side (prefill stack, ``serve_step``).  Every other mixer or FFN,
-``extra_layers``, architecture style or frontend raises
-``NotImplementedError`` naming its ROADMAP item.  Training
+``extra_layers`` follow the super-blocks in the same list (layer
+``num_superblocks * len(pattern) + i`` is ``extra_layers[i]``).
+
+Ported: layers of the ``gqa``, ``mla``, ``rglru``, ``mlstm``, ``slstm``
+and ``none`` mixers and the ``dense``, ``moe`` and ``none`` FFNs,
+``extra_layers``, the DeepSeek-V3 ``mtp`` head's parameters, and the
+serving side (prefill stack, ``serve_step``, the recurrent states in the
+cache).  The enc-dec architecture and the frontends raise
+``NotImplementedError`` naming their ROADMAP item.  Training
 (``train_loss``, ``chunked_xent``) waits for the training slice, and with
 it the MTP head's forward, which only ``train_loss`` runs.
 """
@@ -31,6 +35,7 @@ from . import attention as attn
 from . import ffn as ffnmod
 from . import layers
 from . import moe as moemod
+from . import recurrent as rec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,10 +73,10 @@ class ModelConfig:
     moe: Optional[moemod.MoEConfig] = None
     # MLA
     mla: Optional[attn.MLAConfig] = None
-    # the recurrent mixers: configs of modules not ported yet
-    rglru: Optional[Any] = None
-    mlstm: Optional[Any] = None
-    slstm: Optional[Any] = None
+    # recurrent
+    rglru: Optional[rec.RGLRUConfig] = None
+    mlstm: Optional[rec.MLSTMConfig] = None
+    slstm: Optional[rec.SLSTMConfig] = None
     # architecture style
     arch: str = "decoder"           # decoder | encdec
     enc_superblocks: int = 0
@@ -108,15 +113,14 @@ class ModelConfig:
 
 # What waits, by the ROADMAP item (Queue 1) that ports it.
 _NOT_PORTED = {
-    "rglru": "item 6c (recurrent)", "mlstm": "item 6c (recurrent)",
-    "slstm": "item 6c (recurrent)", "none": "item 6c (recurrent)",
-    "extra_layers": "item 6c (recurrent)",
     "encdec": "item 6d (cross_forward / encdec)",
     "audio": "item 6d (cross_forward / encdec)",
     "vision": "item 6e (vision frontend)",
 }
-MIXERS = ("gqa", "mla")
-FFNS = ("dense", "moe")
+MIXERS = ("gqa", "mla", "rglru", "mlstm", "slstm", "none")
+FFNS = ("dense", "moe", "none")
+#: The mixers that run attention (a flash kernel launch a prefill layer).
+ATTENTION_MIXERS = ("gqa", "mla")
 #: The layer kind of the MTP head's block.
 MTP_SPEC = LayerSpec("gqa", "dense")
 
@@ -136,10 +140,8 @@ def _check_spec(spec: LayerSpec) -> None:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for any part of ``cfg`` the port lacks."""
-    for spec in cfg.pattern:
+    for spec in cfg.pattern + cfg.extra_layers:
         _check_spec(spec)
-    if cfg.extra_layers:
-        raise _not_ported("extra_layers", "extra_layers")
     if cfg.arch != "decoder":
         raise _not_ported(f"arch {cfg.arch!r}", cfg.arch)
     if cfg.frontend is not None:
@@ -147,8 +149,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
-    """The decoder stack's specs in layer order (``params["blocks"]``)."""
-    return [spec for _ in range(cfg.num_superblocks) for spec in cfg.pattern]
+    """The decoder stack's specs in layer order (``params["blocks"]``): the
+    super-blocks, then ``extra_layers``."""
+    return ([spec for _ in range(cfg.num_superblocks) for spec in cfg.pattern]
+            + list(cfg.extra_layers))
+
+
+def attention_layers(cfg: ModelConfig) -> int:
+    """Layers of the stack whose prefill runs attention (the flash kernel
+    once each)."""
+    return sum(s.mixer in ATTENTION_MIXERS for s in layer_specs(cfg))
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:
@@ -178,17 +188,26 @@ def check_on(params: torch.nn.Module, device: torch.device) -> None:
 def _init_layer(gen: torch.Generator, cfg: ModelConfig,
                 spec: LayerSpec) -> dict:
     dt, dev = cfg.param_dtype, gen.device
-    p: Dict[str, Any] = {
-        "ln_mixer": layers.rmsnorm_init(cfg.d_model, dt, dev),
-        "attn": (attn.init_mla(gen, cfg.mla, dt) if spec.mixer == "mla"
-                 else attn.init_gqa(gen, cfg.attn_cfg(spec), dt)),
-        "ln_ffn": layers.rmsnorm_init(cfg.d_model, dt, dev),
-        "ffn": (moemod.init_moe(gen, cfg.moe, dt) if spec.ffn == "moe"
-                else ffnmod.init_ffn(gen, cfg.ffn_cfg(), dt)),
-    }
+    p: Dict[str, Any] = {"ln_mixer": layers.rmsnorm_init(cfg.d_model, dt,
+                                                         dev)}
+    if spec.mixer == "gqa":
+        p["attn"] = attn.init_gqa(gen, cfg.attn_cfg(spec), dt)
+    elif spec.mixer == "mla":
+        p["attn"] = attn.init_mla(gen, cfg.mla, dt)
+    elif spec.mixer == "rglru":
+        p["attn"] = rec.init_rglru(gen, cfg.rglru, dt)
+    elif spec.mixer == "mlstm":
+        p["attn"] = rec.init_mlstm(gen, cfg.mlstm, dt)
+    elif spec.mixer == "slstm":
+        p["attn"] = rec.init_slstm(gen, cfg.slstm, dt)
+    if spec.ffn != "none":
+        p["ln_ffn"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+        p["ffn"] = (moemod.init_moe(gen, cfg.moe, dt) if spec.ffn == "moe"
+                    else ffnmod.init_ffn(gen, cfg.ffn_cfg(), dt))
     if cfg.use_post_norm:
         p["post_mixer"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
-        p["post_ffn"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+        if spec.ffn != "none":
+            p["post_ffn"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
     return p
 
 
@@ -215,14 +234,25 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> layers.ParamTree:
 
 def _layer_count(cfg: ModelConfig, spec: LayerSpec) -> int:
     D, hd = cfg.d_model, cfg.head_dim
-    if spec.mixer == "mla":
-        mixer = attn.mla_param_count(cfg.mla)
-    else:
+    mixer = 0
+    if spec.mixer == "gqa":
         mixer = (2 * D * hd * (cfg.num_heads + cfg.num_kv_heads)
                  + (2 * hd if cfg.qk_norm else 0))
-    ffn = (moemod.param_count(cfg.moe) if spec.ffn == "moe"
-           else 3 * D * cfg.d_ff)
-    return mixer + ffn + (4 if cfg.use_post_norm else 2) * D
+    elif spec.mixer == "mla":
+        mixer = attn.mla_param_count(cfg.mla)
+    elif spec.mixer == "rglru":
+        mixer = rec.rglru_param_count(cfg.rglru)
+    elif spec.mixer == "mlstm":
+        mixer = rec.mlstm_param_count(cfg.mlstm)
+    elif spec.mixer == "slstm":
+        mixer = rec.slstm_param_count(cfg.slstm)
+    ffn = 0
+    if spec.ffn == "moe":
+        ffn = moemod.param_count(cfg.moe)
+    elif spec.ffn == "dense":
+        ffn = 3 * D * cfg.d_ff
+    norms = (2 if cfg.use_post_norm else 1) * (1 + (spec.ffn != "none"))
+    return mixer + ffn + norms * D
 
 
 def param_count(cfg: ModelConfig) -> int:
@@ -255,25 +285,36 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
     _check_spec(spec)
     new_cache: Optional[dict] = None
     h = _norm(cfg, p["ln_mixer"], x)
-    if spec.mixer == "mla":
+    if spec.mixer == "gqa":
+        if cache is not None:
+            new_cache, h = attn.gqa_decode(p["attn"], cfg.attn_cfg(spec),
+                                           cache, h, pos)
+        else:
+            h = attn.gqa_forward(p["attn"], cfg.attn_cfg(spec), h, positions)
+    elif spec.mixer == "mla":
         if cache is not None:
             new_cache, h = attn.mla_decode(p["attn"], cfg.mla, cache, h, pos)
         else:
             h = attn.mla_forward(p["attn"], cfg.mla, h, positions)
-    elif cache is not None:
-        new_cache, h = attn.gqa_decode(p["attn"], cfg.attn_cfg(spec), cache,
-                                       h, pos)
+    elif spec.mixer == "rglru":
+        h, new_cache = rec.rglru_forward(p["attn"], cfg.rglru, h, cache)
+    elif spec.mixer == "mlstm":
+        h, new_cache = rec.mlstm_forward(p["attn"], cfg.mlstm, h, cache)
+    elif spec.mixer == "slstm":
+        h, new_cache = rec.slstm_forward(p["attn"], cfg.slstm, h, cache)
     else:
-        h = attn.gqa_forward(p["attn"], cfg.attn_cfg(spec), h, positions)
+        h = torch.zeros_like(x)
     if cfg.use_post_norm:
         h = _norm(cfg, p["post_mixer"], h)
     x = x + h
+    aux = 0.0
+    if spec.ffn == "none":
+        return x, new_cache, aux
     h = _norm(cfg, p["ln_ffn"], x)
     if spec.ffn == "moe":
         h, aux = moemod.moe_forward(p["ffn"], cfg.moe, h)
     else:
         h = ffnmod.ffn_forward(p["ffn"], cfg.ffn_cfg(), h)
-        aux = 0.0
     if cfg.use_post_norm:
         h = _norm(cfg, p["post_ffn"], h)
     return x + h, new_cache, aux
@@ -315,33 +356,46 @@ def _unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """One cache per layer, in the order of ``params["blocks"]``."""
+    """One cache per layer, in the order of ``params["blocks"]``: K/V for
+    attention, the fp32 recurrent state for RG-LRU, mLSTM and sLSTM, an
+    empty dict for mixer ``none``."""
     check_supported(cfg)
     dev = resolve_device(device)
 
     def one_layer(spec: LayerSpec) -> dict:
+        if spec.mixer == "gqa":
+            return attn.init_kv_cache(cfg.attn_cfg(spec), batch, max_len,
+                                      dtype=cfg.dtype, device=dev)
         if spec.mixer == "mla":
             return attn.init_mla_cache(cfg.mla, batch, max_len,
                                        dtype=cfg.dtype, device=dev)
-        return attn.init_kv_cache(cfg.attn_cfg(spec), batch, max_len,
-                                  dtype=cfg.dtype, device=dev)
+        if spec.mixer == "rglru":
+            return rec.init_rglru_state(cfg.rglru, batch, device=dev)
+        if spec.mixer == "mlstm":
+            return rec.init_mlstm_state(cfg.mlstm, batch, device=dev)
+        if spec.mixer == "slstm":
+            return rec.init_slstm_state(cfg.slstm, batch, device=dev)
+        return {}
     return {"blocks": [one_layer(s) for s in layer_specs(cfg)]}
 
 
 def serve_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
                pos: int) -> Tuple[dict, torch.Tensor]:
     """One decode step.  tokens: [B,1]; pos: the current absolute position,
-    the same for the whole batch.  Updates ``cache`` in place and returns
-    (cache, logits [B,V] fp32)."""
+    the same for the whole batch.  Updates ``cache`` in place (attention
+    writes its K/V slots; a recurrent layer's new state replaces its entry
+    of ``cache["blocks"]``) and returns (cache, logits [B,V] fp32)."""
     pos = int(pos)
     x = layers.embed_lookup(params["embed_vd"], tokens,
                             scale_by_dim=cfg.scale_embed).to(cfg.dtype)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
-    for spec, p, c in zip(layer_specs(cfg), params["blocks"],
-                          cache["blocks"]):
-        x, _, _ = apply_layer(cfg, spec, p, x, positions, cache=c,
-                              pos=pos)
+    blocks = cache["blocks"]
+    for i, (spec, p) in enumerate(zip(layer_specs(cfg), params["blocks"])):
+        x, nc, _ = apply_layer(cfg, spec, p, x, positions, cache=blocks[i],
+                               pos=pos)
+        if nc is not None:
+            blocks[i] = nc
     x = layers.rmsnorm(params["final_norm"], x,
                        zero_centered=cfg.zero_centered_norm)
     logits = layers.unembed(_unembed_table(params, cfg), x[:, 0, :])

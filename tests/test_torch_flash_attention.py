@@ -1,7 +1,8 @@
 """The port's flash attention op on the CPU (its plain version) against the
 JAX package's ``flash_attention_op`` in interpret mode, on the same numpy
 inputs: every case of ``tests/test_kernels.py``'s flash attention tests,
-fp32 within 2e-5 and bf16 within 2e-2; the card's feature cases in bf16
+fp32 within 2e-5 and bf16 within 2e-2; the cases of the (256, 256)
+instance at head dim 256; the card's feature cases in bf16
 under the gates that hold the CUDA kernels on the card; the row gate's
 power against a key tile skipped at the prefill step's length; and, with a
 v head dim other than q's (MLA), the plain version against the JAX
@@ -99,6 +100,24 @@ def test_feature_cases_in_bf16_pass_the_card_gates(shape, kwargs):
     B, H, K, Sq, Sk = shape
     jax_out, plain = (torch.from_numpy(a) for a in _both(
         _qkv(B, H, K, Sq, Sk, 64), jnp.bfloat16, torch.bfloat16, **kwargs))
+    assert cases.excess(jax_out, plain) <= cases.ATOL
+    assert cases.row_rel_err(jax_out, plain) <= cases.ROW_REL_LIMIT
+
+
+@pytest.mark.parametrize("shape,kwargs",
+                         [case[1:] for case in cases.HD256_CASES],
+                         ids=[case[0] for case in cases.HD256_CASES])
+def test_head_dim_256_cases_match_jax(shape, kwargs):
+    """The (256, 256) instance's cases (recurrentgemma-9b's head dim and
+    MQA grouping, a window that bites): the port's op against the JAX
+    kernel in interpret mode, fp32 within 2e-5, and bf16 under the card's
+    gates."""
+    B, H, K, Sq, Sk = shape
+    arrays = _qkv(B, H, K, Sq, Sk, 256)
+    want, got = _both(arrays, jnp.float32, torch.float32, **kwargs)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    jax_out, plain = (torch.from_numpy(a) for a in _both(
+        arrays, jnp.bfloat16, torch.bfloat16, **kwargs))
     assert cases.excess(jax_out, plain) <= cases.ATOL
     assert cases.row_rel_err(jax_out, plain) <= cases.ROW_REL_LIMIT
 

@@ -409,6 +409,8 @@ FLASH_SHAPES = [
     (1, 2, 2, 100, 200, 64),     # unaligned
     (2, 4, 2, 70, 70, 128),      # unaligned, d = 128
     (1, 4, 4, 33, 90, 8),        # small head dim
+    (1, 16, 1, 128, 128, 256),   # recurrentgemma's MQA, d = dv = 256
+    (2, 16, 1, 70, 130, 256),    # the same, ragged, Sq < Sk
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -473,6 +475,24 @@ def test_flash_attention_kernel_features(cuda, shape, kwargs, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,kwargs",
+                         [case[1:] for case in flash_cases.HD256_CASES],
+                         ids=[case[0] for case in flash_cases.HD256_CASES])
+def test_flash_attention_head_dim_256(cuda, shape, kwargs, dtype):
+    """The CUDA-core kernel's (256, 256) instance (recurrentgemma-9b's
+    local attention) on its cases, a window that bites among them, in
+    both dtypes: no tensor-core launch, the plain version's output within
+    the flash limits (bf16 also row by row)."""
+    q, k, v = _qkv(cuda, *shape, 256, dtype)
+    assert flash_kernel.route(q, k, v) == "cuda_core"
+    assert _flash_err(q, k, v, **kwargs) <= FLASH_TOL[dtype]
+    if dtype == torch.bfloat16:
+        got = flash_attention_op(q, k, v, **kwargs)
+        assert flash_cases.excess(got, attention_ref(q, k, v, **kwargs)) \
+            <= flash_cases.ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_fully_masked_leading_block(cuda, dtype):
     """Window 40 with Sk - Sq = 192: the first kv tiles of the last query
     rows are fully masked (the -1e30 rule, wiped by alpha = 0)."""
@@ -504,10 +524,12 @@ def test_flash_attention_refuses_what_it_cannot_take(cuda):
     q = _randn(cuda, 1, 2, 8, 16)
     with pytest.raises(TypeError):
         flash_attention_op(q.half(), q.half(), q.half())
-    with pytest.raises(ValueError, match="d <= 192"):
-        flash_attention_op(*(_randn(cuda, 1, 1, 4, 256),) * 3)
-    with pytest.raises(ValueError, match="dv <= 128"):
-        flash_attention_op(*(_randn(cuda, 1, 1, 4, 192),) * 3)
+    with pytest.raises(ValueError, match="d <= 256"):
+        flash_attention_op(*(_randn(cuda, 1, 1, 4, 257),) * 3)
+    with pytest.raises(ValueError, match="dv <= 256"):
+        flash_attention_op(_randn(cuda, 1, 1, 4, 192),
+                           _randn(cuda, 1, 1, 4, 192),
+                           _randn(cuda, 1, 1, 4, 264))
     with pytest.raises(ValueError, match="H % K"):
         flash_attention_op(q, _randn(cuda, 1, 3, 8, 16),
                            _randn(cuda, 1, 3, 8, 16))
@@ -684,3 +706,51 @@ def test_traced_fabric_run_on_cuda(cuda, app):
     cpu = execute(design, bind_programs(graph, device="cpu"), device="cpu")
     assert counters(run["result"].report) == counters(cpu.report)
     assert run["result"].report.metrics.total("exec.device.fired") > 0
+
+
+# -- the MoE FFN --------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_forward_gives_the_same_bits_on_every_run(cuda, dtype):
+    """The MoE combine sums each token's slots in a fixed order, so three
+    runs on the card give the same bits (a scatter-add's atomics would add
+    in a varying order), near the CPU's output."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(d_model=64, d_ff_expert=32, num_experts=16,
+                        top_k=4, num_shared=1, capacity_factor=1.0)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, dtype)
+    x = _randn("cpu", 4, 64, 64, seed=3).to(dtype)
+    want, _ = moe.moe_forward(params, cfg, x)
+    on_card = {k: v.to(cuda) for k, v in params.items() if k != "shared"}
+    on_card["shared"] = {k: v.to(cuda) for k, v in params["shared"].items()}
+    runs = [moe.moe_forward(on_card, cfg, x.to(cuda))[0] for _ in range(3)]
+    for got in runs[1:]:
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                           runs[0].view(torch.int16 if dtype == torch.bfloat16
+                                        else torch.int32))
+    scale = float(want.float().abs().max())
+    assert float((runs[0].cpu().float() - want.float()).abs().max()) <= \
+        (2e-2 if dtype == torch.bfloat16 else 1e-5) * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_gives_the_cpu_bits(cuda, dtype):
+    """``combine`` on the card gives the CPU's bits on the same inputs
+    (``tests/test_torch_moe.py`` holds the CPU's to ``index_add_``)."""
+    from repro_torch.models import moe
+
+    G, S, E, k, C, D = 3, 24, 8, 3, 6, 40
+    gen = torch.Generator().manual_seed(0)
+    idx = torch.rand(G, S, E, generator=gen).argsort(-1)[..., :k]
+    flat_e = idx.reshape(G, S * k)
+    pos = moe.slot_positions(flat_e, E)
+    g = torch.arange(G)[:, None].expand(G, S * k)
+    slot_of = torch.where(pos < C, (flat_e * G + g) * C + pos,
+                          E * G * C).view(G, S, k)
+    contrib = torch.randn(E * G * C, D, generator=gen).to(dtype)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    want = moe.combine(contrib, slot_of, idx)
+    got = moe.combine(contrib.to(cuda), slot_of.to(cuda), idx.to(cuda))
+    assert torch.equal(got.cpu().view(bits), want.view(bits))

@@ -3,7 +3,8 @@ package on the CPU, in fp32, on the same numpy inputs and the same weights
 (JAX's ``init_params`` carried over by ``params_from_jax``): within 1e-5
 of the output's scale (at least 1).  GQA and MLA (prefill and absorbed
 decode), the dense and MoE FFNs, and the stack of every ported arch's
-``smoke()``.  Also the port's own prefill-path against decode parity
+``smoke()`` (the recurrent archs' with their extra layers, the
+recurrentgemma ring buffer wrapped, xlstm over two chunks).  Also the port's own prefill-path against decode parity
 (``tests/test_models_parity.py``'s contract, its ``mla`` config included)
 and its config registry against the JAX configs.
 """
@@ -19,22 +20,25 @@ import repro.configs as jax_configs
 from repro.models import LayerSpec as JLayerSpec
 from repro.models import MLAConfig as JMLAConfig
 from repro.models import ModelConfig as JModelConfig
-from repro.models import MoEConfig as JMoEConfig
+import repro.models as jmodels
 from repro.models import attention as jattn
 from repro.models import init_cache as j_init_cache
+from repro.launch.steps import build_prefill_step as j_build_prefill_step
 from repro.models.transformer import apply_layer as j_apply_layer
 from repro.models import init_params as j_init_params
 from repro.models import layers as jlayers
 from repro.models import param_count as j_param_count
 from repro.models import serve_step as j_serve_step
+import repro_torch.models as tmodels
 from repro_torch import configs
-from repro_torch.models import (LayerSpec, MLAConfig, MoEConfig, init_cache,
+from repro_torch.models import (LayerSpec, MLAConfig, init_cache,
                                 init_params, param_count, params_from_jax,
                                 serve_step)
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
-from repro_torch.models.convert import tree_from_numpy
+from repro_torch.launch.steps import build_prefill_step
+from repro_torch.models.convert import FP32_LEAVES, tree_from_numpy
 
 from _torch_parity import np_tree as _np_tree
 from _torch_parity import scaled_err
@@ -43,7 +47,8 @@ from _torch_parity import torch_model_config as _torch_cfg
 TOL = 1e-5
 B, S, V = 2, 8, 64
 ARCHS = ["qwen3-4b", "gemma2-27b", "mistral-nemo-12b", "chatglm3-6b",
-         "deepseek-v2-236b", "deepseek-v3-671b"]
+         "deepseek-v2-236b", "deepseek-v3-671b", "recurrentgemma-9b",
+         "xlstm-1.3b"]
 
 
 def _rand(*shape, seed=0):
@@ -83,9 +88,10 @@ def _fields(cfg):
         v = getattr(cfg, f.name)
         if f.name in ("dtype", "param_dtype"):
             v = str(v).replace("torch.", "").split(".")[-1].strip("'>")
-        elif f.name == "pattern":
+        elif f.name in ("pattern", "extra_layers"):
             v = tuple(dataclasses.astuple(s) for s in v)
-        elif f.name in ("mla", "moe") and v is not None:
+        elif (f.name in ("mla", "moe", "rglru", "mlstm", "slstm")
+              and v is not None):
             # A port MLAConfig never equals a JAX one: compare the fields.
             v = (type(v).__name__, dataclasses.astuple(v))
         out[f.name] = v
@@ -107,7 +113,7 @@ def test_registry_and_shapes():
     assert configs.SHAPES == {k: configs.ShapeCell(**dataclasses.asdict(v))
                               for k, v in jax_configs.SHAPES.items()}
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_arch("xlstm-1.3b")
+        configs.get_arch("seamless-m4t-large-v2")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -121,41 +127,58 @@ def test_param_count_matches_jax(arch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"pattern": (LayerSpec("slstm", "dense"),)},
-    {"pattern": (LayerSpec("gqa", "none"),)},
-    {"pattern": (LayerSpec("rglru", "dense"),)},
-    {"pattern": (LayerSpec("mlstm", "none"),)},
-    {"extra_layers": (LayerSpec("gqa", "dense"),)},
+    {"pattern": (LayerSpec("slstm", "dense"),), "frontend": "vision"},
+    {"pattern": (LayerSpec("gqa", "none"),), "arch": "encdec"},
+    {"pattern": (LayerSpec("rglru", "dense"),), "frontend": "audio"},
+    {"pattern": (LayerSpec("mlstm", "none"),), "arch": "encdec"},
+    {"extra_layers": (LayerSpec("gqa", "dense"),), "frontend": "vision"},
     {"arch": "encdec"}, {"frontend": "vision"}, {"frontend": "audio"},
 ])
 def test_unported_parts_raise(kw):
+    """The enc-dec stack and the frontends, alone or beside a ported
+    layer kind (the recurrent mixers, ffn ``none``, ``extra_layers``):
+    the refusal names the ROADMAP item that ports them."""
     cfg = dataclasses.replace(configs.get_arch("qwen3-4b").smoke(), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(torch.Generator().manual_seed(0), cfg)
 
 
-# The parts that test_unported_parts_raise refused before MLA, MoE and the
-# MTP head were ported, on qwen3-4b's smoke() (the nested configs at
-# deepseek's smoke() widths), built from either package's classes.
+# The parts that test_unported_parts_raise refused before they were
+# ported (MLA, MoE and the MTP head; the recurrent mixers, ffn "none" and
+# extra_layers), on qwen3-4b's smoke() (the nested configs at the smoke()
+# widths of deepseek, recurrentgemma and xlstm), built from either
+# package's classes (``m``: ``repro.models`` or ``repro_torch.models``).
 MOE_KW = dict(d_model=64, d_ff_expert=32, num_experts=8, top_k=2,
               num_shared=2, aux_loss_free=False)
 
 
-def _formerly_unported(name, spec, mla, moe):
+def _formerly_unported(name, m):
+    spec = m.LayerSpec
     return {"mla": {"pattern": (spec("mla", "dense"),),
-                    "mla": mla(**{**MLA_KW, "d_model": 64})},
-            "moe": {"pattern": (spec("gqa", "moe"),), "moe": moe(**MOE_KW)},
-            "mtp": {"mtp": True}}[name]
+                    "mla": m.MLAConfig(**{**MLA_KW, "d_model": 64})},
+            "moe": {"pattern": (spec("gqa", "moe"),),
+                    "moe": m.MoEConfig(**MOE_KW)},
+            "mtp": {"mtp": True},
+            "rglru": {"pattern": (spec("rglru", "dense"),),
+                      "rglru": m.RGLRUConfig(d_model=64, d_rnn=64)},
+            "mlstm": {"pattern": (spec("mlstm", "dense"),),
+                      "mlstm": m.MLSTMConfig(d_model=64, num_heads=4,
+                                             chunk=8)},
+            "slstm": {"pattern": (spec("slstm", "none"),),
+                      "slstm": m.SLSTMConfig(d_model=64, num_heads=4)},
+            "ffn_none": {"pattern": (spec("gqa", "none"), spec("none"))},
+            "extra_layers": {"extra_layers": (spec("gqa", "none"),
+                                              spec("gqa", "dense", 4))},
+            }[name]
 
 
-@pytest.mark.parametrize("name", ["mla", "moe", "mtp"])
+@pytest.mark.parametrize("name", ["mla", "moe", "mtp", "rglru", "mlstm",
+                                  "slstm", "ffn_none", "extra_layers"])
 def test_formerly_unported_parts_build(name):
-    cfg = dataclasses.replace(
-        configs.get_arch("qwen3-4b").smoke(),
-        **_formerly_unported(name, LayerSpec, MLAConfig, MoEConfig))
-    jcfg = dataclasses.replace(
-        jax_configs.get_arch("qwen3-4b").smoke(),
-        **_formerly_unported(name, JLayerSpec, JMLAConfig, JMoEConfig))
+    cfg = dataclasses.replace(configs.get_arch("qwen3-4b").smoke(),
+                              **_formerly_unported(name, tmodels))
+    jcfg = dataclasses.replace(jax_configs.get_arch("qwen3-4b").smoke(),
+                               **_formerly_unported(name, jmodels))
     params = init_params(torch.Generator().manual_seed(0), cfg)
     n = sum(p.numel() for p in params.parameters())
     assert n == param_count(cfg) == j_param_count(jcfg)
@@ -222,17 +245,23 @@ def test_mask_bias_matches_jax(window, causal):
     {"window": None, "softcap": None}, {"window": 4, "softcap": None},
     {"window": None, "softcap": 50.0}, {"window": 4, "softcap": 30.0},
     {"window": None, "softcap": None, "causal": False},
+    # recurrentgemma's head dim (256) with one kv head, windows that bite.
+    {"window": 4, "softcap": None, "d": 256, "kv": 1},
+    {"window": 6, "softcap": 30.0, "d": 256, "kv": 1},
 ])
 def test_attention_core_matches_jax(kw):
-    q, k, v = _rand(2, 16, 4, 8), _rand(2, 16, 2, 8, seed=1), \
-        _rand(2, 16, 2, 8, seed=2)
+    kw = dict(kw)
+    d, K = kw.pop("d", 8), kw.pop("kv", 2)
+    q, k, v = _rand(2, 16, 4, d), _rand(2, 16, K, d, seed=1), \
+        _rand(2, 16, K, d, seed=2)
+    scale = 0.3 if d == 8 else d ** -0.5
     pos = jnp.broadcast_to(jnp.arange(16), (2, 16))
     want = jattn.attention_core(jnp.asarray(q), jnp.asarray(k),
-                                jnp.asarray(v), pos, pos, scale=0.3,
+                                jnp.asarray(v), pos, pos, scale=scale,
                                 q_chunk=4, **kw)
     got = attn.attention_core(torch.from_numpy(q), torch.from_numpy(k),
-                              torch.from_numpy(v), scale=0.3, **kw)
-    assert got.shape == (2, 16, 4, 8)
+                              torch.from_numpy(v), scale=scale, **kw)
+    assert got.shape == (2, 16, 4, d)
     assert scaled_err(got, want) <= TOL
 
 
@@ -372,6 +401,29 @@ def test_params_from_jax_unstacks_the_superblocks():
     assert param_count(cfg) == j_param_count(jcfg)
 
 
+def test_params_from_jax_appends_the_extra_layers():
+    """recurrentgemma's extra layers follow the super-blocks in
+    ``params["blocks"]``; in bf16 the leaves JAX keeps in fp32 (RG-LRU's
+    Λ) stay fp32 and the rest are bf16."""
+    jcfg = dataclasses.replace(
+        jax_configs.get_arch("recurrentgemma-9b").smoke(),
+        dtype=jnp.bfloat16, param_dtype=jnp.bfloat16)
+    jp = j_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = _torch_cfg(jcfg)
+    p = params_from_jax(_np_tree(jp), cfg, device="cpu")
+    n, nsb = len(cfg.pattern), cfg.num_superblocks
+    assert len(p["blocks"]) == cfg.num_layers == n * nsb + 1
+    got = p["blocks"][n * nsb]["attn"]["wx_dr"]
+    want = np.asarray(jp["extra"]["e0"]["attn"]["wx_dr"], np.float32)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    for name, leaf in p.named_parameters():
+        leaf_name = name.split(".")[-1]
+        assert leaf.dtype == (torch.float32 if leaf_name in FP32_LEAVES
+                              else torch.bfloat16), name
+    assert p["blocks"][0]["attn"]["lambda_r"].dtype == torch.float32
+    assert param_count(cfg) == j_param_count(jcfg)
+
+
 @pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
 def test_serve_step_matches_jax(name):
     jcfg, jp, cfg, p = _params(name)
@@ -445,3 +497,59 @@ def test_prefill_path_decode_parity(name):
     scale = float(full.abs().max()) + 1e-9
     np.testing.assert_allclose((dec / scale).numpy(),
                                (full / scale).numpy(), atol=2e-5)
+
+
+# 16 tokens: past recurrentgemma smoke()'s window of 8 (its ring buffer,
+# L = 8, wraps), two of xlstm's chunks of 8, and a multiple of the JAX
+# prefill's q_chunk.
+RECURRENT_ARCHS, RECURRENT_TOKENS = ["recurrentgemma-9b", "xlstm-1.3b"], 16
+
+
+def _jax_layer_cache(jcache, cfg, layer):
+    n = len(cfg.pattern)
+    if layer < cfg.num_superblocks * n:
+        return jax.tree.map(lambda a: a[layer // n],
+                            jcache["blocks"][f"p{layer % n}"])
+    return jcache["extra"][f"e{layer - cfg.num_superblocks * n}"]
+
+
+@pytest.mark.parametrize("name", RECURRENT_ARCHS)
+def test_recurrent_archs_match_jax(name):
+    """serve_step's logits at every step and the prefill step's over the
+    whole prompt equal JAX's within 1e-5, with equal greedy tokens; every
+    layer's cache (recurrent states, K/V and ring positions) equals
+    JAX's at the end."""
+    jcfg = jax_configs.get_arch(name).smoke()
+    jp = j_init_params(jax.random.PRNGKey(3), jcfg)
+    cfg = _torch_cfg(jcfg)
+    p = params_from_jax(_np_tree(jp), cfg, device="cpu")
+    n = RECURRENT_TOKENS
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, n))
+    jcache = j_init_cache(jcfg, B, n)
+    cache = init_cache(cfg, B, n, device="cpu")
+    for t in range(n):
+        jcache, want = j_serve_step(jp, jcfg, jcache,
+                                    jnp.asarray(toks[:, t:t + 1]),
+                                    jnp.int32(t))
+        cache, got = serve_step(p, cfg, cache,
+                                torch.from_numpy(toks[:, t:t + 1]), t)
+        assert scaled_err(got, want) <= TOL, t
+        np.testing.assert_array_equal(got.argmax(-1).numpy(),
+                                      np.asarray(want).argmax(-1))
+    for layer, spec in enumerate(T.layer_specs(cfg)):
+        jc = _jax_layer_cache(jcache, cfg, layer)
+        assert set(cache["blocks"][layer]) == set(jc)
+        for key, leaf in cache["blocks"][layer].items():
+            if key == "pos":
+                np.testing.assert_array_equal(leaf.numpy(),
+                                              np.asarray(jc[key]))
+            else:
+                assert scaled_err(leaf, jc[key]) <= TOL, (layer, key)
+        if spec.window is not None:
+            assert sorted(cache["blocks"][layer]["pos"][0].tolist()) == \
+                list(range(n - spec.window, n))
+    want = j_build_prefill_step(jcfg, None)(jp, {"tokens": jnp.asarray(toks)})
+    got = build_prefill_step(cfg, device="cpu")(p, {"tokens": toks})
+    assert scaled_err(got, want) <= TOL
+    np.testing.assert_array_equal(got.argmax(-1).numpy(),
+                                  np.asarray(want).argmax(-1))

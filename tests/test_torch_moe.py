@@ -145,6 +145,41 @@ def test_moe_capacity_drops_zero_not_garbage():
     assert zero_rows >= 2 * 16 - 2 * cfg.num_experts
 
 
+def combine_case(dtype, seed=0):
+    """Routes, capacity drops and expert outputs for ``moe.combine``: G 3,
+    S 24, E 8, k 3, C 6 (some slots dropped), D 40.  Returns the combine's
+    arguments and the [G·(S+1)] token row of each buffer slot (an empty
+    slot's is its group's pad row S)."""
+    G, S, E, k, C, D = 3, 24, 8, 3, 6, 40
+    gen = torch.Generator().manual_seed(seed)
+    idx = torch.rand(G, S, E, generator=gen).argsort(-1)[..., :k]
+    flat_e = idx.reshape(G, S * k)
+    pos = moe.slot_positions(flat_e, E)
+    keep = pos < C
+    assert 0 < int(keep.sum()) < keep.numel()
+    g = torch.arange(G)[:, None].expand(G, S * k)
+    slot_of = torch.where(keep, (flat_e * G + g) * C + pos, E * G * C)
+    contrib = torch.randn(E * G * C, D, generator=gen).to(dtype)
+    buf_tok = (torch.arange(E * G * C) // C % G) * (S + 1) + S
+    buf_tok[slot_of[keep]] = (g * (S + 1) + torch.arange(S * k) // k)[keep]
+    return contrib, slot_of.view(G, S, k), idx, buf_tok
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_gives_the_index_add_bits(dtype):
+    """``combine`` gives, bit for bit, the CPU's ``index_add_`` of the
+    expert-major buffer onto its tokens (dropped and empty slots on the pad
+    row), in fp32 and in bf16 (which ``index_add_`` sums in fp32)."""
+    contrib, slot_of, idx, buf_tok = combine_case(dtype)
+    G, S, _ = idx.shape
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    want = torch.zeros(G * (S + 1), contrib.shape[1], dtype=dtype)
+    want = want.index_add_(0, buf_tok, contrib).view(G, S + 1, -1)[:, :S]
+    got = moe.combine(contrib, slot_of, idx)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
 def test_moe_permutation_equivariance():
     """Permuting tokens within a group permutes the outputs alike (no
     drops: generous capacity)."""

@@ -3,7 +3,8 @@
 Flash attention: ``route(q, k, v)`` sends bf16 calls whose (q/k head dim,
 v head dim) is (64, 64), (128, 128) or MLA's (192, 128) and that TMA can
 read in place to the tensor-core kernel and every other call to the
-CUDA-core kernel; ``tma_geometry`` gives the tensor map over
+CUDA-core kernel (recurrentgemma's (256, 256) among them);
+``check_operands`` refuses head dims past 256; ``tma_geometry`` gives the tensor map over
 (d, S, heads, batch) of a ``[B, S, H, d]`` tensor seen as ``[B, H, S, d]``.
 Matmul: ``route(M, K, N)`` sends N <= 16 to the narrow kernel while B fits
 its shared memory.  The routes read dtypes, shapes, strides and pointers
@@ -88,6 +89,30 @@ def test_other_head_dim_pairs_take_the_cuda_cores(d, dv):
     """Only (64, 64), (128, 128) and (192, 128) are tensor-core pairs."""
     assert flash.route(*_mla_qkv(B=1, S=64, H=4, d=d, dv=dv)) == \
         "cuda_core"
+
+
+def test_recurrentgemma_prefill_takes_the_cuda_cores():
+    """bf16 (256, 256) at recurrentgemma-9b's prefill shape (16 query heads
+    on one kv head, 4 x 2048), as the model's views: no tensor-core
+    instance takes head dim 256, so the CUDA-core kernel's (256, 256)
+    instance does, and the wrapper accepts the operands."""
+    q, k, v = _prefill_qkv(H=16, K=1, d=256)
+    assert q.shape == (4, 16, 2048, 256) and k.shape == (4, 1, 2048, 256)
+    assert flash.route(q, k, v) == "cuda_core"
+    flash.check_operands(q, k, v)
+    assert flash.route(*_prefill_qkv(H=16, K=1, d=256,
+                                     dtype=torch.float32)) == "cuda_core"
+
+
+@pytest.mark.parametrize("d,dv", [(257, 257), (256, 257), (257, 128),
+                                  (320, 256)])
+def test_head_dims_past_256_are_refused(d, dv):
+    """No instance takes a head dim past 256: the wrapper raises and
+    nothing falls back."""
+    q, k, v = _mla_qkv(B=1, S=8, H=2, d=d, dv=dv)
+    with pytest.raises(ValueError, match="d <= 256 and dv <= 256"):
+        flash.check_operands(q, k, v)
+    flash.check_operands(*_mla_qkv(B=1, S=8, H=2, d=256, dv=256))
 
 
 def test_misaligned_mla_v_takes_the_cuda_cores():

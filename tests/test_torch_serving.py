@@ -1,9 +1,12 @@
 """The port's serving side on the CPU: the ServingEngine's contracts (those
 of ``tests/test_serving.py``), its greedy tokens and logits against the
-JAX engine's (also for chatglm3-6b's and the DeepSeek archs' ``smoke()``),
+JAX engine's (also for chatglm3-6b's, the DeepSeek archs' and the
+recurrent archs' ``smoke()``; like JAX's, the engine carries a recurrent
+state from one request to the next),
 the prefill step against JAX's ``build_prefill_step``, the device rule of
 every entry point, and the serving CLI.
 """
+import dataclasses
 import json
 import os
 import pathlib
@@ -37,6 +40,7 @@ TOL = 1e-5
 
 # tests/test_serving.py's model.
 NEW_ARCHS = ["chatglm3-6b", "deepseek-v2-236b", "deepseek-v3-671b"]
+RECURRENT_ARCHS = ["recurrentgemma-9b", "xlstm-1.3b"]
 JCFG = JModelConfig(name="t", d_model=32, vocab=V,
                     pattern=(JLayerSpec("gqa", "dense"),),
                     num_superblocks=2, num_heads=4, num_kv_heads=2,
@@ -163,7 +167,7 @@ def test_greedy_tokens_and_logits_match_jax(jax_params, params, seed):
     assert np.array_equal(got[sure], want[sure])
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + RECURRENT_ARCHS)
 def test_smoke_arch_greedy_tokens_match_jax(arch):
     """The engine's greedy continuation of an arch's smoke() (MLA + MoE
     for DeepSeek) equals the JAX engine's, with JAX's weights."""
@@ -182,7 +186,7 @@ def test_smoke_arch_greedy_tokens_match_jax(arch):
 
 @pytest.mark.parametrize("name", ["gqa", "gqa_window", "qwen3-4b",
                                   "gemma2-27b", "mistral-nemo-12b",
-                                  *NEW_ARCHS])
+                                  *NEW_ARCHS, *RECURRENT_ARCHS])
 def test_prefill_step_matches_jax(name):
     if name.startswith("gqa"):
         window = 4 if name == "gqa_window" else None
@@ -198,6 +202,30 @@ def test_prefill_step_matches_jax(name):
     got = build_prefill_step(cfg, device="cpu")(p, {"tokens": toks})
     assert got.shape == (3, cfg.vocab) and got.dtype == torch.float32
     assert scaled_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_engine_carries_recurrent_state_across_requests_as_jax(arch):
+    """Neither engine resets its cache between requests.  A recurrent
+    state carries over, so a second prefill of the same prompts on one
+    engine gives other logits than the first; the port's equal JAX's
+    for both calls (ROADMAP reference caveat 6)."""
+    jcfg = jax_configs.get_arch(arch).smoke()
+    cfg = torch_model_config(jcfg)
+    jp = j_init_params(jax.random.PRNGKey(0), jcfg)
+    p = params_from_jax(np_tree(jp), cfg, device="cpu")
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (B, 8),
+                                                dtype=np.int32)
+    jeng = JServingEngine(jp, jcfg, JServeConfig(batch_slots=B, max_len=32))
+    eng = ServingEngine(p, cfg, ServeConfig(batch_slots=B, max_len=32),
+                        device="cpu")
+    firsts = []
+    for _ in range(2):
+        want, _ = jeng.prefill(prompts)
+        got, _ = eng.prefill(prompts)
+        assert scaled_err(got, want) <= TOL
+        firsts.append(got)
+    assert scaled_err(firsts[1], firsts[0].numpy()) > 1e-3
 
 
 def test_build_serve_step_is_serve_step(params):
@@ -239,7 +267,8 @@ def test_engine_refuses_params_on_another_device(params):
 
 # -- the CLI ------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", *NEW_ARCHS])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", *NEW_ARCHS,
+                                  *RECURRENT_ARCHS])
 def test_serve_cli_smoke_on_cpu(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
@@ -262,4 +291,24 @@ def test_decode_step_script_on_cpu():
     row = json.loads(out.stdout.splitlines()[-1])
     assert row["label"] == "t" and row["device"] == "cpu"
     assert len(row["step_wall_ms"]) == 2
+    assert row["step_aten_ops"] > 0
+
+
+def test_decode_step_script_cuts_depth_on_cpu():
+    """``--superblocks`` keeps that many super-blocks (how a MoE arch's
+    decode step is timed on one card)."""
+    from repro_torch.configs import get_arch
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "scripts/torch_decode_step.py", "--arch",
+         "deepseek-v2-236b", "--smoke", "--superblocks", "1", "--device",
+         "cpu", "--rounds", "1", "--prompt-len", "4", "--max-new", "2"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    row = json.loads(out.stdout.splitlines()[-1])
+    cfg = dataclasses.replace(get_arch("deepseek-v2-236b").smoke(),
+                              num_superblocks=1)
+    assert row["layers"] == cfg.num_layers
+    assert cfg.num_layers < get_arch("deepseek-v2-236b").smoke().num_layers
     assert row["step_aten_ops"] > 0

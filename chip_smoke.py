@@ -7,11 +7,12 @@ Phases (any failure exits non-zero before the final line):
 1. The card: name and power limit (``nvidia-smi``), torch and CUDA versions.
 2. Build: compiles ``src/repro_torch/csrc/*.cu`` for ``sm_90a`` (one
    ``nvcc`` per source, in parallel) and prints ``ptxas -v`` on a fresh
-   build (a spill in the tensor-core flash kernel's (192, 128) instance
-   is a failure; the CUDA-core kernel's two (256, 256) instances, fp32
-   and bf16, are printed on a line of their own); counts the ``HGMMA`` instructions that ``cuobjdump
-   -sass`` finds in each of the three tensor-core flash attention
-   instances (none is a failure).
+   build (a spill in the tensor-core flash kernel's (192, 128) or
+   (256, 256) instance is a failure; the CUDA-core kernel's two
+   (256, 256) instances, fp32 and bf16, are printed on a line of their
+   own); counts the ``HGMMA`` instructions that ``cuobjdump -sass`` finds
+   in each of the four tensor-core flash attention instances (none is a
+   failure).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main path gives it (dilate bit for bit,
    NaN where both are NaN, on the main-path image, on an image with NaN,
@@ -95,13 +96,15 @@ Phases (any failure exits non-zero before the final line):
    none in decode, so the two paths would rightly differ.
    (e) The recurrent archs, as the rows of (c), at full width and depth:
    recurrentgemma-9b (38 layers, 17.5 GiB of bf16 weights; its 12
-   local-attention layers launch the CUDA-core kernel's (256, 256)
-   instance once each, none on the tensor cores; its RG-LRU layers none)
-   and xlstm-1.3b (48 mLSTM and sLSTM layers, 3.4 GiB; no launch).  The
+   local-attention layers launch the tensor-core kernel's (256, 256)
+   instance once each, all 12 on ``flash_attention_tc``; its RG-LRU
+   layers none) and xlstm-1.3b (48 mLSTM and sLSTM layers, 3.4 GiB; no
+   launch).  The
    engine keeps its cache from one request to the next, as JAX's does, so
    each engine call that a gate compares gets a fresh engine.  Then their
    fp32 parity as in (d): recurrentgemma at 1 super-block and its 2 extra
-   layers (the GQA layer on the fp32 (256, 256) instance), xlstm at 1
+   layers (the GQA layer on the CUDA-core kernel's fp32 (256, 256)
+   instance), xlstm at 1
    super-block (8 layers; the 32-token prefill is one mLSTM chunk).
 
 6. Observability and snapshots (``[obs]`` lines; nothing compiled again
@@ -170,8 +173,9 @@ Sq < Sk, ragged lengths, window, softcap, both, non-causal, a fully masked
 leading block) at d = 128 and d = 64: elementwise within
 atol = rtol = 2e-2, each row within 1e-2 of its norm, and the tensor cores
 no further than twice the CUDA-core kernel's error from the fp32 plain
-version.  Two planted faults at the main shape (the last query block
-without its first or its diagonal key tile) must fail the row check.  The
+version.  Two planted faults at the main shape (the last query block's
+rows without their first or their diagonal key tile, at the instance's
+key tile: 128 keys, 64 at (256, 256)) must fail the row check.  The
 same cases in fp32 at d = 32, 64 and 128 go to the CUDA cores (within
 2e-5).  It also times the CUDA-core kernel and a non-causal call at the
 main shape.  Its yardstick is ``F.scaled_dot_product_attention``
@@ -191,14 +195,17 @@ events around 10 back-to-back calls.  After the build, ``ptxas``
 registers and spills of each flash_kernel and flash_sm90_kernel instance
 are printed.
 
-The ``flash_attention_hd256`` row holds the CUDA-core kernel's (256, 256)
-instance at recurrentgemma-9b's prefill shape (q [4, 16, 2048, 256], k, v
-[4, 1, 2048, 256], causal, window 2048) in bf16 (elementwise and row by
-row, with the two planted faults) and fp32 (within 2e-5), at B 1, S 4096,
-where the window bites, and at ``cases.HD256_CASES`` in both dtypes.  Its
-bound counts 2·(d + dv) operations a visible pair at the bf16 tensor-core
-rate, its yardstick is ``F.scaled_dot_product_attention(is_causal=True,
-enable_gqa=True)``.
+The ``flash_attention_hd256`` row holds both kernels' (256, 256)
+instances at recurrentgemma-9b's prefill shape (q [4, 16, 2048, 256], k,
+v [4, 1, 2048, 256], causal, window 2048), at B 1, S 4096, where the
+window bites, and at ``cases.HD256_CASES``: bf16 on the tensor cores'
+64-key tiles under the flash row's gates (both kernels against the plain
+version, the tensor cores within twice the CUDA cores' error from fp32),
+with the two planted faults at 64 keys; fp32 on the CUDA cores within
+2e-5.  The tensor cores must take at most a tenth of the CUDA cores' time
+at the main shape.  Its bound counts 2·(d + dv) operations a visible pair
+at the bf16 tensor-core rate, its yardstick is
+``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``.
 
 Prints the ``kernels`` JSON line, then the card line, and last
 ``{"ok": true, "device": {...}}``.  Needs no network and one card.
@@ -286,7 +293,7 @@ LM_ROWS = (
     ("deepseek-v3-671b", 1, "tensor_core", "flash_attention_mla",
      "full width, depth cut from 61 to 1 layer: one H100 holds 80 GB, "
      "the 61 layers are 1312 GiB of bf16 weights"),
-    ("recurrentgemma-9b", None, "cuda_core", "flash_attention_hd256",
+    ("recurrentgemma-9b", None, "tensor_core", "flash_attention_hd256",
      "full depth, 38 layers: 26 RG-LRU and 12 local-attention layers "
      "(head dim 256, one kv head, window 2048)"),
     ("xlstm-1.3b", None, "none", None,
@@ -717,27 +724,25 @@ def flash_fp32_check(label, q, k, v, **kw) -> float:
     return err
 
 
-def flash_bf16_check(label, q, k, v, expect="tensor_core", **kw) -> tuple:
-    """flash_attention on bf16 inputs, routed to ``expect``, held to the
-    plain version elementwise and row by row.  Where that is the tensor
-    cores, the CUDA cores run too under the same gates, and the tensor
-    cores must be at most twice the CUDA cores' error from the fp32 plain
-    version (both round p and the output at the same places).  The output
-    must be [B, H, Sq, dv].  Returns the readings by kernel ("tc", "cc"),
-    the routed kernel's output and the plain one."""
+def flash_bf16_check(label, q, k, v, **kw) -> tuple:
+    """flash_attention on bf16 inputs, routed to the tensor cores, held to
+    the plain version elementwise and row by row.  The CUDA cores run too
+    under the same gates, and the tensor cores must be at most twice the
+    CUDA cores' error from the fp32 plain version (both round p and the
+    output at the same places).  The output must be [B, H, Sq, dv].
+    Returns the readings by kernel ("tc", "cc"), the tensor cores' output
+    and the plain one."""
     from repro_torch.kernels.flash_attention import cases
     from repro_torch.kernels.flash_attention.kernel import (
         _launch_cuda_core, flash_attention, route)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    require(route(q, k, v) == expect,
-            f"flash_attention bf16 {label} not routed to {expect}")
+    require(route(q, k, v) == "tensor_core",
+            f"flash_attention bf16 {label} not routed to the tensor cores")
     want = attention_ref(q, k, v, **kw)
     exact = attention_ref(q.float(), k.float(), v.float(), **kw)
-    kernels = (("tc", flash_attention), ("cc", _launch_cuda_core)) \
-        if expect == "tensor_core" else (("cc", flash_attention),)
     out, reading = None, {}
-    for name, launch in kernels:
+    for name, launch in (("tc", flash_attention), ("cc", _launch_cuda_core)):
         got = launch(q, k, v, **kw)
         require(got.shape == want.shape and got.dtype == q.dtype,
                 f"flash_attention bf16 {label} ({name}): "
@@ -757,24 +762,25 @@ def flash_bf16_check(label, q, k, v, expect="tensor_core", **kw) -> tuple:
                 f"version > {cases.ROW_REL_LIMIT}")
         reading[name] = r
         out = got if out is None else out
-    if "tc" in reading:
-        require(reading["tc"]["vs_fp32"] <= 2 * reading["cc"]["vs_fp32"],
-                f"flash_attention bf16 {label}: tensor cores "
-                f"{reading['tc']['vs_fp32']:.3e} from fp32, CUDA cores "
-                f"{reading['cc']['vs_fp32']:.3e}")
+    require(reading["tc"]["vs_fp32"] <= 2 * reading["cc"]["vs_fp32"],
+            f"flash_attention bf16 {label}: tensor cores "
+            f"{reading['tc']['vs_fp32']:.3e} from fp32, CUDA cores "
+            f"{reading['cc']['vs_fp32']:.3e}")
     return reading, out, want
 
 
 def planted_faults(label, q, k, v, got, want) -> dict:
-    """The tensor cores' output ``got`` with the last query block's rows
-    recomputed without one of their key tiles, as a kernel that skipped
-    that tile would give them (q, k, v causal with Sq = Sk).  The row gate
-    must reject each; the elementwise gate's reading is printed beside
-    it."""
+    """The tensor cores' output ``got`` with its last T rows recomputed
+    without one of their key tiles of T keys, T the key tile of the
+    instance that takes q's head dim (``tc_key_tile``: 128, 64 at 256), as
+    a kernel that skipped that tile would give them (q, k, v causal with
+    Sq = Sk).  The row gate must reject each; the elementwise gate's
+    reading is printed beside it."""
     from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.kernel import tc_key_tile
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    S, T = q.shape[2], 128
+    S, T = q.shape[2], tc_key_tile(q.shape[3])
     planted = {}
     for name, (kk, vv, causal) in {
             "skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
@@ -957,21 +963,25 @@ def flash_mla_row(dev, gen) -> dict:
 
 
 def flash_hd256_row(dev, gen) -> dict:
-    """The CUDA-core kernel's (256, 256) instance at recurrentgemma-9b's
-    prefill shape (q [4, 16, 2048, 256], k, v [4, 1, 2048, 256]; [B, S, H,
-    d] tensors seen as [B, H, S, d], as the model gives them; causal,
-    window 2048) in bf16 and fp32, at a shape where the window bites (B 1,
-    S 4096), and at ``cases.HD256_CASES``: bf16 elementwise and row by row
-    against the plain version, fp32 within FP32_ATOL; every call on the
-    CUDA cores.  The two planted faults at the main shape must fail the
-    row gate.  Times the kernel (CUDA-graph replay), the plain version and
-    SDPA (``is_causal=True, enable_gqa=True``; the window does not bite at
-    S = 2048, so that is the same function)."""
+    """Both kernels' (256, 256) instances at recurrentgemma-9b's prefill
+    shape (q [4, 16, 2048, 256], k, v [4, 1, 2048, 256]; [B, S, H, d]
+    tensors seen as [B, H, S, d], as the model gives them; causal, window
+    2048), at a shape where the window bites (B 1, S 4096), and at
+    ``cases.HD256_CASES``: bf16 on the tensor cores' 64-key tiles under the
+    flash row's gates (both kernels against the plain version elementwise
+    and row by row, the tensor cores within twice the CUDA cores' error
+    from fp32), fp32 on the CUDA cores within FP32_ATOL.  The two planted
+    faults at the main shape, each one 64-key tile skipped, must fail the
+    row gate.  Times the tensor cores, the CUDA cores and a non-causal
+    call (CUDA-graph replay), the plain version and SDPA
+    (``is_causal=True, enable_gqa=True``; the window does not bite at
+    S = 2048, so that is the same function); the tensor cores must take at
+    most a tenth of the CUDA cores' time."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import cases
-    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
-                                                            route)
+    from repro_torch.kernels.flash_attention.kernel import (
+        _launch_cuda_core, flash_attention, route, tc_key_tile)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     def qkv(B, H, K, Sq, Sk, dtype, bshd=False):
@@ -989,8 +999,7 @@ def flash_hd256_row(dev, gen) -> dict:
         fp32_cases[name] = flash_fp32_check(
             label, *qkv(*shape, torch.float32), **kw)
         bf16_cases[name] = flash_bf16_check(
-            label, *qkv(*shape, torch.bfloat16), expect="cuda_core",
-            **kw)[0]
+            label, *qkv(*shape, torch.bfloat16), **kw)[0]
     H, K, W = HD256_HEADS, HD256_KV_HEADS, HD256_WINDOW
     bites_shape = (1, H, K, 2 * PREFILL_LEN, 2 * PREFILL_LEN)
     bites = dict(fp32=flash_fp32_check(
@@ -999,7 +1008,7 @@ def flash_hd256_row(dev, gen) -> dict:
     torch.cuda.empty_cache()
     bites["bf16"] = flash_bf16_check(
         "hd256 window bites", *qkv(*bites_shape, torch.bfloat16, bshd=True),
-        expect="cuda_core", window=W)[0]
+        window=W)[0]
     torch.cuda.empty_cache()
     B, S = PREFILL_BATCH, PREFILL_LEN
     q, k, v = qkv(B, H, K, S, S, torch.float32, bshd=True)
@@ -1008,7 +1017,7 @@ def flash_hd256_row(dev, gen) -> dict:
     torch.cuda.empty_cache()
     q, k, v = qkv(B, H, K, S, S, torch.bfloat16, bshd=True)
     main, got, want = flash_bf16_check("hd256 main shape", q, k, v,
-                                       expect="cuda_core", window=W)
+                                       window=W)
     require(got.transpose(1, 2).is_contiguous(),
             "flash_attention_hd256: the output is not laid out like q")
     planted = planted_faults("flash_attention_hd256", q, k, v, got, want)
@@ -1017,27 +1026,38 @@ def flash_hd256_row(dev, gen) -> dict:
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())   # q, o; k, v
     ops = 2 * 2 * HD256_D * B * H * visible_pairs(S, S)
     b, by = bound(nbytes, ops, PEAK_BF16_PER_S)
-    ms = graph_ms(lambda i: flash_attention(q, k, v, window=W), 4,
-                  replays=2)
+    ms = graph_ms(lambda i: flash_attention(q, k, v, window=W), 10,
+                  replays=3)
+    cuda_core_ms = graph_ms(lambda i: _launch_cuda_core(q, k, v, window=W),
+                            2, replays=2)
+    require(ms <= cuda_core_ms / 10,
+            f"flash_attention_hd256: the tensor cores take {ms:.4f} ms, "
+            f"more than a tenth of the CUDA cores' {cuda_core_ms:.4f} ms")
+    noncausal_ms = graph_ms(
+        lambda i: flash_attention(q, k, v, causal=False), 10, replays=3)
     plain = cuda_ms(lambda: attention_ref(q, k, v, window=W), 2, warmup=1)
     torch.cuda.empty_cache()
     lib = graph_ms(lambda i: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 10, replays=3)
     return dict(shape=[B, H, K, S, S, HD256_D, HD256_D], dtype="bf16",
                 causal=True, window=W, kernel=route(q, k, v),
-                max_abs_err=main["cc"]["max_abs_err"], main=main,
+                key_tile=tc_key_tile(HD256_D),
+                max_abs_err=main["tc"]["max_abs_err"], main=main,
                 fp32_max_abs_err=fp32_main, window_bites=dict(
                     shape=[1, H, K, 2 * S, 2 * S, HD256_D], **bites),
                 atol=cases.ATOL, rtol=cases.RTOL,
                 row_rel_limit=cases.ROW_REL_LIMIT, planted_faults=planted,
                 bf16_cases=bf16_cases, fp32_cases=fp32_cases, ms=ms,
-                tflops=ops / ms / 1e9, plain_ms=plain, bound_ms=b,
-                bound_by=by, library_ms=lib,
+                tflops=ops / ms / 1e9, cuda_core_ms=cuda_core_ms,
+                noncausal_ms=noncausal_ms,
+                noncausal_tflops=4 * HD256_D * B * H * S * S
+                / noncausal_ms / 1e9,
+                plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
                 library="F.scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True), bf16",
                 bytes=nbytes, ops=ops,
                 device_kernels=device_kernels(
-                    lambda: flash_attention(q, k, v, window=W), 3))
+                    lambda: flash_attention(q, k, v, window=W), 5))
 
 
 def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -2176,19 +2196,21 @@ def main() -> int:
         sm90 = ptxas_report(info.log, "flash_sm90_kernel")
         print(f"ptxas: flash_sm90_kernel instances {json.dumps(sm90)}",
               flush=True)
-        mla = [n for n in sm90 if "Li192ELi128E" in n]
-        require(len(mla) == 1 and sm90[mla[0]].get("spill_store_bytes") == 0
-                and sm90[mla[0]].get("spill_load_bytes") == 0,
-                f"ptxas: the (192, 128) flash_sm90_kernel instance spills "
-                f"or is missing: {sm90}")
+        for pair in ("Li192ELi128E", "Li256ELi256E"):
+            inst = [n for n in sm90 if pair in n]
+            require(len(inst) == 1
+                    and sm90[inst[0]].get("spill_store_bytes") == 0
+                    and sm90[inst[0]].get("spill_load_bytes") == 0,
+                    f"ptxas: the {pair} flash_sm90_kernel instance spills "
+                    f"or is missing: {sm90}")
     build.library()
     hgmma = hgmma_counts(info.path)
     print(f"sass: HGMMA instructions per kernel {json.dumps(hgmma)}",
           flush=True)
     tc_kernels = [n for n in hgmma if "flash_sm90_kernel" in n]
-    require(len(tc_kernels) == 3 and all(hgmma[n] > 0 for n in tc_kernels),
+    require(len(tc_kernels) == 4 and all(hgmma[n] > 0 for n in tc_kernels),
             f"cuobjdump finds HGMMA in {len(tc_kernels)} tensor-core flash "
-            f"kernels, not 3")
+            f"kernels, not 4")
 
     rows = kernel_phase(dev)
     release_kernel_phase()
@@ -2239,7 +2261,7 @@ def main() -> int:
                    "src/repro_torch/csrc/flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99"),
                "flash_attention_hd256": (
-                   "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro_torch/csrc/flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": repl, "launches": launches[name],

@@ -6,8 +6,9 @@ prefill shapes, for comparing two trees of the port on one card.
 Shapes (bf16, ``[B, S, H, d]`` tensors seen as ``[B, H, S, d]``, as the
 models give them, drawn from ``--seed``): qwen3-4b's prefill (q [4, 32,
 2048, 128], k and v [4, 8, 2048, 128]), chatglm3-6b's (32 query heads on 2
-kv heads) and MLA's (q, k [4, 128, 2048, 192], v [4, 128, 2048, 128]),
-each causal and not.  Each time is the device time of one call:
+kv heads), MLA's (q, k [4, 128, 2048, 192], v [4, 128, 2048, 128]) and
+recurrentgemma-9b's (q [4, 16, 2048, 256], k and v [4, 1, 2048, 256]; its
+window of 2048 does not bite at this length), each causal and not.  Each time is the device time of one call:
 ``--reps`` calls captured in one CUDA graph and replayed three times
 between CUDA events.  Prints the card's name and power limit and one JSON
 line with each shape's ms and the route ``route()`` names for it.  It
@@ -29,7 +30,8 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention, route
 #: (name, batch, length, query heads, kv heads, q/k head dim, v head dim).
 SHAPES = (("qwen3-4b", 4, 2048, 32, 8, 128, 128),
           ("chatglm3-6b", 4, 2048, 32, 2, 128, 128),
-          ("mla", 4, 2048, 128, 128, 192, 128))
+          ("mla", 4, 2048, 128, 128, 192, 128),
+          ("recurrentgemma-9b", 4, 2048, 16, 1, 256, 256))
 
 
 def _card() -> str:

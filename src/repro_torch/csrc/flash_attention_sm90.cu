@@ -2,8 +2,9 @@
 // one producer warpgroup and two consumer warpgroups per thread block.
 // GQA, causal masking aligned at the end (delta = Sk - Sq), a sliding
 // window and a tanh logit softcap, on q, k [B, H, S, DQK] and v [B, H, S, DV]
-// views with (DQK, DV) in {(64, 64), (128, 128), (192, 128)}: the last is
-// DeepSeek's MLA prefill (128 nope + 64 rope dims for q and k, 128 for v).
+// views with (DQK, DV) in {(64, 64), (128, 128), (192, 128), (256, 256)}:
+// (192, 128) is DeepSeek's MLA prefill (128 nope + 64 rope dims for q and
+// k, 128 for v), (256, 256) recurrentgemma's local attention.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, `flash_attention`
 // (`_flash_kernel`), the TPU kernel whose innermost, sequential grid axis
@@ -18,14 +19,16 @@
 // (989 TFLOP/s), 0.050 ms for the bytes.  At MLA's (B 4, H = K 128,
 // S 2048, DQK 192, DV 128) it is 2 (DQK + DV) = 640 operations a visible
 // (query, key) pair, about 6.87e11 on 1.34 GB: 0.695 ms, 0.40 ms for the
-// bytes.
+// bytes.  At recurrentgemma's (B 4, H 16, K 1, S 2048, 256, 256) 1.37e11
+// on 142 MB: 0.139 ms, 0.042 ms for the bytes.
 //
 // Design.  A block owns 128 query rows of one (batch, head) and walks the
-// visible keys in tiles of 128 (the loop bounds skip the fully masked
-// tiles, the TPU kernel's `run`).  The grid takes the (batch, head) pairs
-// in groups of eight, each group's heaviest causal blocks (the last rows)
-// first, so the blocks in flight read the K and V of a few heads, which
-// stay in L2 (see the kernel).
+// visible keys in tiles of BN (the loop bounds skip the fully masked
+// tiles, the TPU kernel's `run`): 128 keys, and 64 at (256, 256), where
+// two stages of 128-key K and V tiles (256 KB) would not fit beside Q.
+// The grid takes the (batch, head) pairs in groups of eight, each group's
+// heaviest causal blocks (the last rows) first, so the blocks in flight
+// read the K and V of a few heads, which stay in L2 (see the kernel).
 // - Producer warpgroup (setmaxnreg down to 24 registers): one thread loads
 //   the Q tile once, and K and V tiles into two rings of two stages by TMA,
 //   each stage guarded by a "full" and an "empty" mbarrier (a K stage is
@@ -33,11 +36,11 @@
 //   turn later).  Tensor maps over (d, S, heads, batch) read the model's
 //   [B, S, H, d] tensors through their strides; rows past Sq or Sk arrive
 //   as zeros (TMA's out-of-bounds fill), so nothing is padded in device
-//   memory.  Each 128-row tile lies in shared memory as width / 64 chunks
-//   of [128 rows][64 bf16] in the 128-byte swizzle that the wgmma
-//   descriptors name: Q and K DQK / 64 chunks, V DV / 64.
+//   memory.  Each tile lies in shared memory as width / 64 chunks of
+//   [rows][64 bf16] in the 128-byte swizzle that the wgmma descriptors
+//   name (Q 128 rows, K and V BN): Q and K DQK / 64 chunks, V DV / 64.
 // - Consumer warpgroups (setmaxnreg up to 240), 64 query rows each:
-//   S = Q K^T is DQK / 16 steps of wgmma m64n128k16 with both operands in
+//   S = Q K^T is DQK / 16 steps of wgmma m64n{BN}k16 with both operands in
 //   shared memory (K stored [keys, DQK] is the K-major B operand), fp32
 //   accumulator.  The online softmax runs on the accumulator fragments: a
 //   row lives in the 4 threads of a quad, so its max takes two xor
@@ -48,8 +51,9 @@
 //   scale).  Masks are computed only on tiles that cross the causal
 //   diagonal, the window edge or the Sk tail.  m, l and the output
 //   accumulator stay fp32; l sums the unrounded p; p is rounded to bf16 as
-//   it becomes the register A operand of O += P V (wgmma m64n{DV}k16,
-//   V [keys, DV] the MN-major B operand, transposed by the instruction).
+//   it becomes the register A operand of O += P V (wgmma m64n{DV}k16, two
+//   m64n128k16 over V's halves at DV 256; V [keys, DV] the MN-major B
+//   operand, transposed by the instruction).
 //   The two warpgroups take turns at the tensor cores (an mbarrier each):
 //   a turn issues the previous tile's P V and the next tile's Q K^T as one
 //   group and hands over before waiting for it, so one warpgroup's softmax
@@ -58,9 +62,12 @@
 //   layout.
 // Shared memory at (128, 128): Q 32 KB, two stages of K and V 128 KB; at
 // (192, 128): Q 48 KB, two stages of K (48 KB) and V (32 KB) 160 KB, 209 KB
-// with the barriers and the alignment slack, under the 227 KB a block may
-// take.  One block per SM either way.  A consumer's registers are the same
-// at both: 64 of S and DV / 2 = 64 of O.
+// with the barriers and the alignment slack; at (256, 256) with 64-key
+// tiles: Q 64 KB, two stages of K and V (32 KB each) 128 KB, 193 KB; each
+// under the 227 KB a block may take (a third stage would not fit at the
+// last two).  One block per SM.  A consumer's registers: S BN / 2 and O
+// DV / 2, so 64 + 64 at the first three and 32 + 128 at (256, 256), beside
+// P's BN / 4.
 //
 // What is left between it and the bound: inside a warpgroup the softmax
 // still waits for both products (running it while the warpgroup's own P V
@@ -68,7 +75,9 @@
 // and with one block per SM a block's first loads (128 KB at (192, 128))
 // and its output stores are not hidden behind another block's work, which
 // weighs most on the short causal blocks; the two stages fill shared
-// memory at (192, 128), so a third has no room.
+// memory at (192, 128) and (256, 256), so a third has no room.  At
+// (256, 256), 80-key tiles (224 KB) and one m64n256k16 for P V measured
+// within 2% of this design on the card.
 // The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint so the library needs no -lcuda)
 // and passed by value as a __grid_constant__ parameter, which a CUDA graph
@@ -82,19 +91,25 @@
 namespace {
 
 constexpr int kBlockM = 128;            // query rows per block
-constexpr int kBlockN = 128;            // keys per tile
 constexpr int kChunk = 64;              // bf16 per 128-byte swizzled row
-constexpr int kChunkBytes = kBlockN * 128;   // one chunk of a 128-row tile
+constexpr int kQChunkBytes = kBlockM * 128;  // one chunk of the Q tile
 constexpr int kStages = 2;
 constexpr int kHeadGroup = 8;           // (batch, head) pairs in a grid group
 constexpr int kConsumers = 256;         // two warpgroups
 constexpr int kThreads = kConsumers + 128;
 constexpr float kNegInf = -1e30f;       // the TPU kernel's NEG_INF
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kBlockM == kBlockN, "Q, K and V tiles share one TMA box");
+
+// Keys per K and V tile of the (DQK, ...) instance: 128, and 64 at head
+// dim 256, where two stages of 128-key tiles would not fit beside Q.  The
+// TMA boxes of K and V are that many rows, Q's kBlockM
+// (kernels/flash_attention/kernel.py::tc_key_tile).
+__host__ __device__ constexpr int key_tile(int dqk) {
+  return dqk == 256 ? 64 : 128;
+}
 
 struct Params {
-  CUtensorMap tq, tk, tv;     // boxes of [128 rows][64 bf16], swizzled
+  CUtensorMap tq, tk, tv;     // boxes of [rows][64 bf16], swizzled
   __nv_bfloat16* o;
   long long o_sb, o_sh, o_ss; // element strides of the output
   int H, G, Sq, Sk;           // G = H / K query heads per kv head
@@ -104,24 +119,29 @@ struct Params {
 };
 
 // Shared memory, from a 1024-byte aligned base: Q, then stage s's K and V,
-// then the barriers.  Every tile is a whole number of 16 KB chunks, so each
-// starts 1024-byte aligned, as the 128-byte swizzle needs.
-template <int DQK, int DV>
+// then the barriers.  Every tile is a whole number of chunks of
+// [rows][64 bf16] (16 KB for Q, BN x 128 bytes for K and V), so each starts
+// 1024-byte aligned, as the 128-byte swizzle needs.
+template <int DQK, int DV, int BN>
 struct Layout {
   static_assert(DQK % kChunk == 0 && DV % kChunk == 0, "64-wide chunks");
+  static_assert(BN % 16 == 0 && BN <= 128, "16-key steps, n <= 128");
   static constexpr int kQKChunks = DQK / kChunk;
   static constexpr int kVChunks = DV / kChunk;
-  static constexpr int kQKTile = kQKChunks * kChunkBytes;  // Q or K
-  static constexpr int kVTile = kVChunks * kChunkBytes;
-  static constexpr int kStageBytes = kQKTile + kVTile;     // one K and V
+  static constexpr int kKVChunkBytes = BN * 128;   // one chunk of K or V
+  static_assert(kKVChunkBytes % 1024 == 0, "chunks 1024-byte aligned");
+  static constexpr int kQTile = kQKChunks * kQChunkBytes;
+  static constexpr int kKTile = kQKChunks * kKVChunkBytes;
+  static constexpr int kVTile = kVChunks * kKVChunkBytes;
+  static constexpr int kStageBytes = kKTile + kVTile;     // one K and V
   static constexpr int kQ = 0;
   __host__ __device__ static constexpr int k(int s) {
-    return kQKTile + s * kStageBytes;
+    return kQTile + s * kStageBytes;
   }
   __host__ __device__ static constexpr int v(int s) {
-    return k(s) + kQKTile;
+    return k(s) + kKTile;
   }
-  static constexpr int kBars = kQKTile + kStages * kStageBytes;
+  static constexpr int kBars = kQTile + kStages * kStageBytes;
   // q_full, full_k, full_v, empty_k, empty_v (kStages each), turn[2].
   static constexpr int kBarriers = 3 + 4 * kStages;
   // 1024 bytes of alignment slack.
@@ -175,7 +195,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
                ::"r"(bar), "r"(bytes) : "memory");
 }
 
-// One TMA box (64 x 128 of (d, rows) at (c0, c1, c2, c3)) into shared
+// One TMA box (64 of d by the map's rows, at (c0, c1, c2, c3)) into shared
 // memory; completion is counted on `bar` in bytes.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
@@ -257,6 +277,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[32] (+)= A (shared, K-major) x B (shared, K-major), m64n64k16.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[64] += A (registers, bf16x2) x B (shared, MN-major), m64n128k16.
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
                                             uint64_t db) {
@@ -311,15 +353,36 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// O += P V for one 16-key slice: m64n{DV}k16, A = P from registers.
+// S (+)= Q K^T for one 16-wide slice of DQK: m64n{BN}k16, both from
+// shared memory.
+template <int BN>
+__device__ __forceinline__ void qk_product(float* sc, uint64_t da,
+                                           uint64_t db, int scale_d) {
+  static_assert(BN == 64 || BN == 128, "Q K^T takes n = 64 or 128");
+  if constexpr (BN == 128) {
+    wgmma_ss_n128(sc, da, db, scale_d);
+  } else {
+    wgmma_ss_n64(sc, da, db, scale_d);
+  }
+}
+
+// O += P V for one 16-key slice: m64n{DV}k16, A = P from registers.  `rows`
+// is the address of the slice's 16 rows in V's first chunk; V's 64-wide
+// chunks lie `chunk` bytes apart (the descriptor's leading byte offset).
+// At DV 256, two m64n128k16 over chunks 0-1 and 2-3: the second's
+// accumulators o[64 ..] are the fragments of columns 128 ..
 template <int DV>
 __device__ __forceinline__ void pv_product(float* o, const uint32_t* a,
-                                           uint64_t db) {
-  static_assert(DV == 64 || DV == 128, "P V takes n = 64 or 128");
-  if constexpr (DV == 128) {
-    wgmma_rs_n128(o, a, db);
+                                           uint32_t rows, uint32_t chunk) {
+  static_assert(DV == 64 || DV == 128 || DV == 256,
+                "P V takes n = 64, 128 or 2 x 128");
+  if constexpr (DV == 256) {
+    wgmma_rs_n128(o, a, desc_sw128(rows, chunk, 1024));
+    wgmma_rs_n128(o + 64, a, desc_sw128(rows + 2 * chunk, chunk, 1024));
+  } else if constexpr (DV == 128) {
+    wgmma_rs_n128(o, a, desc_sw128(rows, chunk, 1024));
   } else {
-    wgmma_rs_n64(o, a, db);
+    wgmma_rs_n64(o, a, desc_sw128(rows, chunk, 1024));
   }
 }
 
@@ -327,12 +390,12 @@ __device__ __forceinline__ void pv_product(float* o, const uint32_t* a,
 // (and softcap), then the masks when kMask; returns the thread's largest
 // score of each of its two rows.  Fragment j of a thread holds row
 // (j & 2 ? row_b : row_a), key k0 + 8 (j / 4) + col + (j & 1).
-template <bool kCap, bool kMask>
+template <int BN, bool kCap, bool kMask>
 __device__ __forceinline__ void scores(float* sc, const Params& p, int k0,
                                        int row_a, int col, int delta,
                                        float& mx_a, float& mx_b) {
 #pragma unroll
-  for (int j = 0; j < kBlockN / 2; ++j) {
+  for (int j = 0; j < BN / 2; ++j) {
     float x = kCap ? p.cap_out * tanhf(sc[j] * p.cap_in) : sc[j] * p.scale_log2;
     if (kMask) {
       const int key = k0 + 8 * (j / 4) + col + (j & 1);
@@ -369,11 +432,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 // and V, 671 MB over its 512 pairs, would otherwise be read from device
 // memory by each of a pair's 16 query blocks), and the long blocks of a
 // group start before its short ones.  Threads 0..255 are the consumer
-// warpgroups, 256..383 the producer.
-template <int DQK, int DV>
+// warpgroups, 256..383 the producer.  BN: keys per K and V tile.
+template <int DQK, int DV, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_sm90_kernel(const __grid_constant__ Params p) {
-  using L = Layout<DQK, DV>;
+  using L = Layout<DQK, DV, BN>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   // Barriers: stage s of each ring at + 8 s; turn[wg] at turn0 + 8 wg.
@@ -396,15 +459,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int q0 = (n_qblocks - 1 - in_group / group_size) * kBlockM;
   const int delta = p.Sk - p.Sq;
 
-  // Visible keys of this block's rows, in whole tiles of 128.
+  // Visible keys of this block's rows, in whole tiles of BN.
   const int q_last = min(q0 + kBlockM, p.Sq) - 1;
   int k_begin = 0;
   int k_end = p.Sk;
   if (p.causal) k_end = min(k_end, q_last + delta + 1);
   if (p.window > 0) k_begin = max(0, q0 + delta - p.window + 1);
-  const int t_begin = k_begin / kBlockN;
-  const int n_tiles =
-      k_end > k_begin ? (k_end + kBlockN - 1) / kBlockN - t_begin : 0;
+  const int t_begin = k_begin / BN;
+  const int n_tiles = k_end > k_begin ? (k_end + BN - 1) / BN - t_begin : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -425,10 +487,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers) {
       // Every box counts its full bytes, the out-of-bounds fill too.
-      mbar_expect_tx(q_full, L::kQKTile);
+      mbar_expect_tx(q_full, L::kQTile);
 #pragma unroll
       for (int c = 0; c < L::kQKChunks; ++c) {
-        tma_load(base + L::kQ + c * kChunkBytes, &p.tq, q_full, c * kChunk,
+        tma_load(base + L::kQ + c * kQChunkBytes, &p.tq, q_full, c * kChunk,
                  q0, h, b);
       }
       // K and V have a ring each: a tile's K is free once its Q K^T has
@@ -436,20 +498,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         const int free = ((i / kStages) & 1) ^ 1;
-        const int k0 = (t_begin + i) * kBlockN;
+        const int k0 = (t_begin + i) * BN;
         mbar_wait(empty_k0 + 8 * s, free);
-        mbar_expect_tx(full_k0 + 8 * s, L::kQKTile);
+        mbar_expect_tx(full_k0 + 8 * s, L::kKTile);
 #pragma unroll
         for (int c = 0; c < L::kQKChunks; ++c) {
-          tma_load(base + L::k(s) + c * kChunkBytes, &p.tk, full_k0 + 8 * s,
-                   c * kChunk, k0, kvh, b);
+          tma_load(base + L::k(s) + c * L::kKVChunkBytes, &p.tk,
+                   full_k0 + 8 * s, c * kChunk, k0, kvh, b);
         }
         mbar_wait(empty_v0 + 8 * s, free);
         mbar_expect_tx(full_v0 + 8 * s, L::kVTile);
 #pragma unroll
         for (int c = 0; c < L::kVChunks; ++c) {
-          tma_load(base + L::v(s) + c * kChunkBytes, &p.tv, full_v0 + 8 * s,
-                   c * kChunk, k0, kvh, b);
+          tma_load(base + L::v(s) + c * L::kKVChunkBytes, &p.tv,
+                   full_v0 + 8 * s, c * kChunk, k0, kvh, b);
         }
       }
     }
@@ -475,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // P of the previous tile, as the A registers of its P V: fragments
     // 8 kk .. 8 kk + 7 of the scores are those of keys 16 kk .. 16 kk + 15.
-    uint32_t pa[kBlockN / 16][4];
+    uint32_t pa[BN / 16][4];
     const uint32_t my_turn = turn0 + 8 * wg;
     const uint32_t other_turn = turn0 + 8 * (wg ^ 1);
 
@@ -492,34 +554,39 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool last = i == n_tiles;
       const int s = i % kStages;                     // tile i's stage
       const int sp = (i + kStages - 1) % kStages;    // tile i - 1's
-      const int k0 = (t_begin + i) * kBlockN;
+      const int k0 = (t_begin + i) * BN;
       if (!last) mbar_wait(full_k0 + 8 * s, (i / kStages) & 1);
       if (i > 0) mbar_wait(full_v0 + 8 * sp, ((i - 1) / kStages) & 1);
       mbar_wait(my_turn, i & 1);
 
-      // O += P V of tile i - 1: 8 steps of 16 keys; V's rows advance
-      // 16 x 128 bytes a step, its 64-wide chunks lie kChunkBytes apart.
-      // S = Q K^T of tile i: DQK / 16 steps of 16 along DQK; a 64-wide
-      // chunk's 128-byte rows advance 32 bytes a step.
-      float sc[kBlockN / 2];
+      // O += P V of tile i - 1: BN / 16 steps of 16 keys; V's rows
+      // advance 16 x 128 bytes a step, its 64-wide chunks lie
+      // kKVChunkBytes apart.  S = Q K^T of tile i: DQK / 16 steps of 16
+      // along DQK; a 64-wide chunk's 128-byte rows advance 32 bytes a step,
+      // Q's chunks lie kQChunkBytes apart and K's kKVChunkBytes.
+      float sc[BN / 2];
 #pragma unroll
       for (int j = 0; j < DV / 2; ++j) fence_reg(o[j]);
       wgmma_fence();
       if (i > 0) {
         const uint32_t v_tile = base + L::v(sp);
 #pragma unroll
-        for (int kk = 0; kk < kBlockN / 16; ++kk) {
-          pv_product<DV>(o, pa[kk],
-                         desc_sw128(v_tile + kk * 16 * 128, kChunkBytes, 1024));
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          pv_product<DV>(o, pa[kk], v_tile + kk * 16 * 128,
+                         L::kKVChunkBytes);
         }
       }
       if (!last) {
         const uint32_t k_tile = base + L::k(s);
 #pragma unroll
         for (int kk = 0; kk < DQK / 16; ++kk) {
-          const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
-          wgmma_ss_n128(sc, desc_sw128(q_tile + off, 16, 1024),
-                        desc_sw128(k_tile + off, 16, 1024), kk > 0);
+          const uint32_t step = (kk % 4) * 32;
+          qk_product<BN>(
+              sc,
+              desc_sw128(q_tile + (kk / 4) * kQChunkBytes + step, 16, 1024),
+              desc_sw128(k_tile + (kk / 4) * L::kKVChunkBytes + step, 16,
+                         1024),
+              kk > 0);
         }
       }
       wgmma_commit();
@@ -528,32 +595,31 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int j = 0; j < DV / 2; ++j) fence_reg(o[j]);
 #pragma unroll
-      for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) fence_reg(pa[kk][e]);
       }
       if (i > 0) mbar_arrive(empty_v0 + 8 * sp);
       if (last) break;
 #pragma unroll
-      for (int j = 0; j < kBlockN / 2; ++j) fence_reg(sc[j]);
+      for (int j = 0; j < BN / 2; ++j) fence_reg(sc[j]);
       mbar_arrive(empty_k0 + 8 * s);
 
       const bool mask =
-          k0 + kBlockN > p.Sk ||
-          (p.causal && k0 + kBlockN - 1 > r0 + delta) ||
+          k0 + BN > p.Sk || (p.causal && k0 + BN - 1 > r0 + delta) ||
           (p.window > 0 && k0 <= r0 + 63 + delta - p.window);
       float mx_a = kNegInf, mx_b = kNegInf;
       if (p.softcap) {
         if (mask) {
-          scores<true, true>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
+          scores<BN, true, true>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
         } else {
-          scores<true, false>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
+          scores<BN, true, false>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
         }
       } else {
         if (mask) {
-          scores<false, true>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
+          scores<BN, false, true>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
         } else {
-          scores<false, false>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
+          scores<BN, false, false>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
         }
       }
       const float mn_a = fmaxf(m_a, quad_max(mx_a));
@@ -567,7 +633,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // rounded to bf16.
       float ps_a = 0.f, ps_b = 0.f;
 #pragma unroll
-      for (int j = 0; j < kBlockN / 2; j += 2) {
+      for (int j = 0; j < BN / 2; j += 2) {
         const float m = (j & 2) ? mn_b : mn_a;
         const float e0 = ex2(sc[j] - m);
         const float e1 = ex2(sc[j + 1] - m);
@@ -610,17 +676,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int DQK, int DV>
 cudaError_t launch(const Params& p, int BH, int Sq, cudaStream_t stream) {
-  constexpr int smem = Layout<DQK, DV>::kBytes;
+  constexpr int BN = key_tile(DQK);
+  constexpr int smem = Layout<DQK, DV, BN>::kBytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_sm90_kernel<DQK, DV>,
+        flash_sm90_kernel<DQK, DV, BN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   const dim3 grid(BH * ((Sq + kBlockM - 1) / kBlockM));
-  flash_sm90_kernel<DQK, DV><<<grid, kThreads, smem, stream>>>(p);
+  flash_sm90_kernel<DQK, DV, BN><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -640,8 +707,9 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
 
 // g: the map's dims (d, rows, heads, batch), the byte strides of the last
 // three, and the box, as kernels/flash_attention/kernel.py::tma_geometry
-// gives them.  Returns 0, or -r when cuTensorMapEncodeTiled returned r.
-int encode(CUtensorMap* map, const void* ptr, const long long* g) {
+// gives them; the box must be 64 of d by `rows`.  Returns 0, or -r when
+// cuTensorMapEncodeTiled returned r.
+int encode(CUtensorMap* map, const void* ptr, const long long* g, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(g[0]),
                               static_cast<cuuint64_t>(g[1]),
                               static_cast<cuuint64_t>(g[2]),
@@ -654,7 +722,8 @@ int encode(CUtensorMap* map, const void* ptr, const long long* g) {
                              static_cast<cuuint32_t>(g[9]),
                              static_cast<cuuint32_t>(g[10])};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  if (box[0] != kChunk || box[1] != kBlockN || box[2] != 1 || box[3] != 1) {
+  if (box[0] != kChunk || box[1] != static_cast<cuuint32_t>(rows) ||
+      box[2] != 1 || box[3] != 1) {
     return cudaErrorInvalidValue;
   }
   const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
@@ -671,8 +740,9 @@ int encode(CUtensorMap* map, const void* ptr, const long long* g) {
 }  // namespace
 
 // bf16 q [B,H,Sq,d], k [B,K,Sk,d] and v [B,K,Sk,dv], (d, dv) one of (64, 64),
-// (128, 128) and (192, 128), read through the tensor maps that geom
-// describes (11 values each for q, k, v in turn, see encode); o
+// (128, 128), (192, 128) and (256, 256), read through the tensor maps that
+// geom describes (11 values each for q, k, v in turn, see encode; q's box
+// 128 rows, k's and v's key_tile(d)); o
 // [B,H,Sq,dv] written through its element strides (batch, head, seq).
 // Returns the cudaError_t of the launch (0 = cudaSuccess), or -r when
 // encoding a tensor map failed with CUresult r.
@@ -685,15 +755,15 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
                                           int causal, int window,
                                           void* stream) {
   const bool pair = (d == 64 && dv == 64) || (d == 128 && dv == 128) ||
-                    (d == 192 && dv == 128);
+                    (d == 192 && dv == 128) || (d == 256 && dv == 256);
   if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Sk <= 0 ||
       !pair) {
     return cudaErrorInvalidValue;
   }
   Params p;
-  int err = encode(&p.tq, q, geom);
-  if (err == 0) err = encode(&p.tk, k, geom + 11);
-  if (err == 0) err = encode(&p.tv, v, geom + 22);
+  int err = encode(&p.tq, q, geom, kBlockM);
+  if (err == 0) err = encode(&p.tk, k, geom + 11, key_tile(d));
+  if (err == 0) err = encode(&p.tv, v, geom + 22, key_tile(d));
   if (err != 0) return err;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.o_sb = o_strides[0];
@@ -712,5 +782,6 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) return launch<64, 64>(p, B * H, Sq, s);
   if (d == 128) return launch<128, 128>(p, B * H, Sq, s);
-  return launch<192, 128>(p, B * H, Sq, s);
+  if (d == 192) return launch<192, 128>(p, B * H, Sq, s);
+  return launch<256, 256>(p, B * H, Sq, s);
 }

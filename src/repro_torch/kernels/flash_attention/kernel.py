@@ -5,14 +5,14 @@ flash_attention``.  :func:`route` picks one per call by a fixed rule:
 
 - ``"tensor_core"`` (``csrc/flash_attention_sm90.cu``): bf16 wgmma fed by
   TMA, for bf16 operands whose q/k head dim d and v head dim dv are one
-  of the pairs in ``TC_HEAD_DIMS`` ((64, 64), (128, 128), and MLA's
-  (192, 128)) and that TMA can read in place (every base pointer 16-byte
-  aligned, every stride but the head dim's a multiple of 16 bytes);
+  of the pairs in ``TC_HEAD_DIMS`` ((64, 64), (128, 128), MLA's
+  (192, 128) and recurrentgemma-9b's (256, 256)) and that TMA can read in
+  place (every base pointer 16-byte aligned, every stride but the head
+  dim's a multiple of 16 bytes);
 - ``"cuda_core"`` (``csrc/flash_attention.cu``): fp32 arithmetic on the
-  CUDA cores, for every other call the wrapper accepts (fp32, MLA's fp32
-  parity runs among them, other (d, dv) pairs up to (256, 256) --
-  recurrentgemma-9b's local attention in either dtype -- and misaligned
-  views).
+  CUDA cores, for every other call the wrapper accepts (fp32, the fp32
+  parity runs of MLA and recurrentgemma among them, other (d, dv) pairs
+  up to (256, 256), and misaligned views).
 
 Both read q, k and v through their strides (the head dim must be unit
 stride), so a ``[B,S,H,d]`` tensor seen as ``[B,H,S,d]`` needs no copy, and
@@ -36,9 +36,10 @@ TC_LAUNCHES = build.LaunchCounter("flash_attention_tc")
 MAX_HEAD_DIM = 256
 MAX_V_HEAD_DIM = 256
 #: The (q/k head dim, v head dim) pairs of the tensor-core kernel.
-TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
 #: One TMA load of the tensor-core kernel: 64 of d (128 bytes, the swizzle
-#: span) by 128 rows of one head of one batch.
+#: span) by 128 rows of one head of one batch.  Q's boxes are this; K's and
+#: V's are :func:`tc_key_tile` rows.
 TC_BOX = (64, 128, 1, 1)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -69,15 +70,25 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "tensor_core"
 
 
-def tma_geometry(t: torch.Tensor) -> Tuple[tuple, tuple, tuple]:
+def tc_key_tile(d: int) -> int:
+    """Keys per K and V tile of the tensor-core instance at q/k head dim
+    ``d``: 128, and 64 at 256, where two stages of 128-key tiles would not
+    fit in shared memory beside Q (``key_tile`` in the CUDA source)."""
+    return 64 if d == 256 else TC_BOX[1]
+
+
+def tma_geometry(t: torch.Tensor, rows: int = TC_BOX[1]
+                 ) -> Tuple[tuple, tuple, tuple]:
     """(dims, byte strides, box) of the tensor-core kernel's 4-D tensor map
     over a ``[batch, heads, S, d]`` view: dims innermost first,
-    ``(d, S, heads, batch)``, and the byte strides of the last three."""
+    ``(d, S, heads, batch)``, the byte strides of the last three, and a box
+    of 64 of d by ``rows`` (128 for q; :func:`tc_key_tile` for k and
+    v)."""
     B, heads, S, d = t.shape
     size = t.element_size()
     return ((d, S, heads, B),
             (t.stride(2) * size, t.stride(1) * size, t.stride(0) * size),
-            TC_BOX)
+            (TC_BOX[0], rows, 1, 1))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -148,8 +159,10 @@ def _launch_tensor_core(q, k, v, *, causal=True, window=None, softcap=None,
     B, H, Sq, d = q.shape
     K, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     out = empty_like_q(q, dv)           # q's layout, unit stride in dv
+    tile = tc_key_tile(d)
     geom = (ctypes.c_longlong * 33)(
-        *(x for t in (q, k, v) for part in tma_geometry(t) for x in part))
+        *(x for t, rows in ((q, TC_BOX[1]), (k, tile), (v, tile))
+          for part in tma_geometry(t, rows) for x in part))
     o_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
     err = build.library().repro_flash_attention_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -2,9 +2,10 @@
 JAX package's ``flash_attention_op`` in interpret mode, on the same numpy
 inputs: every case of ``tests/test_kernels.py``'s flash attention tests,
 fp32 within 2e-5 and bf16 within 2e-2; the cases of the (256, 256)
-instance at head dim 256; the card's feature cases in bf16
+instances at head dim 256; the card's feature cases in bf16
 under the gates that hold the CUDA kernels on the card; the row gate's
-power against a key tile skipped at the prefill step's length; and, with a
+power against a key tile skipped at the prefill step's length (128 keys
+at d = 128, 64 at d = 256); and, with a
 v head dim other than q's (MLA), the plain version against the JAX
 model's ``attention_core``.
 """
@@ -138,6 +139,27 @@ def test_row_gate_rejects_a_skipped_key_tile(fault):
     bad = want.clone()
     bad[:, :, S - T:] = attention_ref(q[:, :, S - T:], kk, vv, causal=causal)
     assert cases.row_rel_err(want, want) == 0.0
+    assert cases.row_rel_err(bad, want) > 10 * cases.ROW_REL_LIMIT
+
+
+@pytest.mark.parametrize("fault", ["skips_first_tile", "skips_diagonal_tile"])
+def test_row_gate_rejects_a_skipped_64_key_tile(fault):
+    """At recurrentgemma's head dim (256, the tensor cores' 64-key tiles),
+    2048 keys, causal, bf16: one 64-key tile dropped from the last 64 rows
+    fails the row gate by a wide margin too."""
+    from repro_torch.kernels.flash_attention.kernel import tc_key_tile
+
+    S, T = 2048, tc_key_tile(256)
+    assert T == 64
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(1, 2, 1, S, S, 256))
+    want = attention_ref(q, k, v)
+    kk, vv, causal = {
+        "skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
+        "skips_diagonal_tile": (k[:, :, :S - T], v[:, :, :S - T], False),
+    }[fault]
+    bad = want.clone()
+    bad[:, :, S - T:] = attention_ref(q[:, :, S - T:], kk, vv, causal=causal)
     assert cases.row_rel_err(bad, want) > 10 * cases.ROW_REL_LIMIT
 
 

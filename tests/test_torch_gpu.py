@@ -479,12 +479,15 @@ def test_flash_attention_kernel_features(cuda, shape, kwargs, d, dtype):
                          [case[1:] for case in flash_cases.HD256_CASES],
                          ids=[case[0] for case in flash_cases.HD256_CASES])
 def test_flash_attention_head_dim_256(cuda, shape, kwargs, dtype):
-    """The CUDA-core kernel's (256, 256) instance (recurrentgemma-9b's
-    local attention) on its cases, a window that bites among them, in
-    both dtypes: no tensor-core launch, the plain version's output within
-    the flash limits (bf16 also row by row)."""
+    """The (256, 256) instances (recurrentgemma-9b's local attention) on
+    their cases, a window that bites and the 64-key tile's edges among
+    them: bf16 on the tensor cores (``_flash_err`` holds the CUDA-core
+    kernel beside it and their errors from fp32), fp32 on the CUDA cores;
+    the plain version's output within the flash limits (bf16 also row by
+    row)."""
     q, k, v = _qkv(cuda, *shape, 256, dtype)
-    assert flash_kernel.route(q, k, v) == "cuda_core"
+    assert flash_kernel.route(q, k, v) == \
+        ("tensor_core" if dtype == torch.bfloat16 else "cuda_core")
     assert _flash_err(q, k, v, **kwargs) <= FLASH_TOL[dtype]
     if dtype == torch.bfloat16:
         got = flash_attention_op(q, k, v, **kwargs)

@@ -1,11 +1,14 @@
 """The rules by which the port's wrappers pick a kernel, on the CPU.
 
 Flash attention: ``route(q, k, v)`` sends bf16 calls whose (q/k head dim,
-v head dim) is (64, 64), (128, 128) or MLA's (192, 128) and that TMA can
-read in place to the tensor-core kernel and every other call to the
-CUDA-core kernel (recurrentgemma's (256, 256) among them);
-``check_operands`` refuses head dims past 256; ``tma_geometry`` gives the tensor map over
-(d, S, heads, batch) of a ``[B, S, H, d]`` tensor seen as ``[B, H, S, d]``.
+v head dim) is (64, 64), (128, 128), MLA's (192, 128) or recurrentgemma's
+(256, 256) and that TMA can read in place to the tensor-core kernel and
+every other call to the CUDA-core kernel (fp32, recurrentgemma's fp32
+parity runs among them, and misaligned views); ``check_operands`` refuses
+head dims past 256; ``tma_geometry`` gives the tensor map over (d, S,
+heads, batch) of a ``[B, S, H, d]`` tensor seen as ``[B, H, S, d]``, with
+a box of 128 rows for q and ``tc_key_tile(d)`` rows (64 at d = 256) for
+k and v.
 Matmul: ``route(M, K, N)`` sends N <= 16 to the narrow kernel while B fits
 its shared memory.  The routes read dtypes, shapes, strides and pointers
 only, so CPU tensors answer as the card's would.
@@ -92,16 +95,45 @@ def test_other_head_dim_pairs_take_the_cuda_cores(d, dv):
 
 
 def test_recurrentgemma_prefill_takes_the_cuda_cores():
-    """bf16 (256, 256) at recurrentgemma-9b's prefill shape (16 query heads
-    on one kv head, 4 x 2048), as the model's views: no tensor-core
-    instance takes head dim 256, so the CUDA-core kernel's (256, 256)
-    instance does, and the wrapper accepts the operands."""
-    q, k, v = _prefill_qkv(H=16, K=1, d=256)
+    """What stays on the CUDA-core kernel's (256, 256) instance at
+    recurrentgemma-9b's prefill shape (16 query heads on one kv head,
+    4 x 2048): the fp32 operands (its fp32 parity runs), and bf16 with a
+    kv view 2 bytes off a 16-byte boundary, which TMA cannot read; the
+    wrapper accepts both."""
+    q, k, v = _prefill_qkv(H=16, K=1, d=256, dtype=torch.float32)
     assert q.shape == (4, 16, 2048, 256) and k.shape == (4, 1, 2048, 256)
     assert flash.route(q, k, v) == "cuda_core"
     flash.check_operands(q, k, v)
-    assert flash.route(*_prefill_qkv(H=16, K=1, d=256,
-                                     dtype=torch.float32)) == "cuda_core"
+    q, k, v = _prefill_qkv(B=1, S=64, H=16, K=1, d=256)
+    base = torch.zeros(v.numel() + 8, dtype=v.dtype)
+    v_off = base[1:1 + v.numel()].view(1, 64, 1, 256).transpose(1, 2)
+    assert v_off.data_ptr() % 16 == 2
+    assert flash.route(q, k, v_off) == "cuda_core"
+    assert flash.route(q, v_off, v_off) == "cuda_core"
+    flash.check_operands(q, k, v_off)
+
+
+def test_recurrentgemma_prefill_takes_the_tensor_cores():
+    """bf16 (256, 256) at recurrentgemma-9b's prefill shape, as the model's
+    views ([4, 2048, 16, 256] and [4, 2048, 1, 256] seen as [B, H, S, d]),
+    and contiguous: the tensor-core kernel's (256, 256) instance."""
+    q, k, v = _prefill_qkv(H=16, K=1, d=256)
+    assert q.shape == (4, 16, 2048, 256) and k.shape == (4, 1, 2048, 256)
+    assert flash.route(q, k, v) == "tensor_core"
+    flash.check_operands(q, k, v)
+    assert (256, 256) in flash.TC_HEAD_DIMS
+    q, k = (torch.zeros(1, n, 100, 256, dtype=torch.bfloat16)
+            for n in (16, 1))
+    assert flash.route(q, k, k) == "tensor_core"
+
+
+@pytest.mark.parametrize("d,want", [(64, 128), (128, 128), (192, 128),
+                                    (256, 64)])
+def test_key_tile_of_each_tensor_core_instance(d, want):
+    """128-key tiles, and 64 at head dim 256, where two stages of 128-key
+    K and V tiles (256 KB) would not fit in the 227 KB a block may
+    take."""
+    assert flash.tc_key_tile(d) == want
 
 
 @pytest.mark.parametrize("d,dv", [(257, 257), (256, 257), (257, 128),
@@ -184,6 +216,24 @@ def test_tma_geometry_of_mla_views():
     assert all(s % 16 == 0 for s in strides)
 
 
+def test_tma_geometry_of_recurrentgemma_views():
+    """d = 256: q keeps its box of 64 x 128 rows; k and v take the 64-key
+    tile's box of 64 x 64 rows.  Four 64-wide boxes a row."""
+    B, S = 4, 2048
+    q, k, v = _prefill_qkv(B=B, S=S, H=16, K=1, d=256)
+    tile = flash.tc_key_tile(256)
+    dims, strides, box = flash.tma_geometry(q)
+    assert dims == (256, S, 16, B)
+    assert strides == (16 * 256 * 2, 256 * 2, S * 16 * 256 * 2)
+    assert box == (64, 128, 1, 1) and dims[0] // box[0] == 4
+    for t in (k, v):
+        dims, strides, box = flash.tma_geometry(t, tile)
+        assert dims == (256, S, 1, B)
+        assert strides == (256 * 2, 256 * 2, S * 256 * 2)
+        assert box == (64, 64, 1, 1)
+        assert all(s % 16 == 0 for s in strides)
+
+
 def test_tma_geometry_of_a_contiguous_tensor():
     t = torch.zeros(2, 8, 70, 64, dtype=torch.bfloat16)
     dims, strides, _ = flash.tma_geometry(t)
@@ -245,6 +295,36 @@ def test_the_mla_prefill_hands_the_kernel_tensor_core_operands(monkeypatch):
         assert r == "tensor_core"
         assert qs == ks == (2, 4, 24, 192)
         assert vs == (2, 4, 24, 128)
+
+
+def test_the_recurrentgemma_prefill_hands_the_kernel_tensor_core_operands(
+        monkeypatch):
+    """The operands recurrentgemma's local attention gives the kernel in a
+    bf16 prefill step of its smoke() with the full head dim (256; 4 query
+    heads on one kv head, narrow elsewhere): each call takes the
+    tensor-core route, and the fp32 step's the CUDA cores."""
+    base = dataclasses.replace(get_arch("recurrentgemma-9b").smoke(),
+                               head_dim=256)
+    tokens = np.random.default_rng(0).integers(0, base.vocab, (2, 24))
+    op = attention.flash_attention_op
+    for dtype, want in ((torch.bfloat16, "tensor_core"),
+                        (torch.float32, "cuda_core")):
+        cfg = dataclasses.replace(base, dtype=dtype, param_dtype=dtype)
+        seen = []
+
+        def spy(q, k, v, **kw):
+            seen.append((flash.route(q, k, v), q.shape, k.shape, v.shape))
+            return op(q, k, v, **kw)
+
+        monkeypatch.setattr(attention, "flash_attention_op", spy)
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        logits = build_prefill_step(cfg, "cpu")(params, {"tokens": tokens})
+        assert bool(torch.isfinite(logits.float()).all())
+        assert len(seen) == cfg.num_superblocks       # one gqa a block
+        for r, qs, ks, vs in seen:
+            assert r == want
+            assert qs == (2, 4, 24, 256)
+            assert ks == vs == (2, 1, 24, 256)
 
 
 @pytest.mark.parametrize("N,want", [(1, "narrow"), (4, "narrow"),

@@ -106,6 +106,28 @@ Phases (any failure exits non-zero before the final line):
    layers (the GQA layer on the CUDA-core kernel's fp32 (256, 256)
    instance), xlstm at 1
    super-block (8 layers; the 32-token prefill is one mLSTM chunk).
+   (f) mistral-nemo-12b (40 layers, 22.8 GiB) and gemma2-27b (46 layers,
+   50.7 GiB: softcaps 50 and 30, window 4096, post-norms, GeGLU) at full
+   size, as the rows of (c), every launch on the tensor cores; then
+   seamless-m4t-large-v2 (24 encoder and 24 decoder layers, 3.30 GiB) and
+   llava-next-34b (60 layers, 64.05 GiB, last, with every earlier row's
+   weights freed) at full size.  seamless's prefill step takes 512 frame
+   embeddings ``src`` [4, 512, 1024] beside its 4 x 2048 tokens and
+   launches 72 flash kernels (24 encoder layers without a mask, 24
+   causal, 24 cross attention: 2048 queries on 512 keys, no mask);
+   llava's takes 576 patch embeddings ``frontend`` [4, 576, 7168] and
+   4 x 1472 tokens, 60 launches at G = 7; all on the tensor cores.  Both
+   inputs are drawn on the card from seed 0.  The engine serves both on
+   text tokens alone, as JAX's does (ROADMAP reference caveat 7); seamless
+   also decodes through ``build_serve_step`` with the prefill's encoder
+   output (32 + 32 tokens; one cross-attention launch a decoder layer and
+   step, all on the tensor cores), printing its tokens/s and a step's
+   wall and device ms.  Their fp32 parity at cut depth, gated at 1e-4:
+   mistral-nemo 2 layers, gemma2 1 super-block (a local and a global
+   layer), seamless one encoder and one decoder layer (decode with the
+   encoder's output over 512 frames), llava 2 layers (the prefill's 576
+   patches are the embeddings of a 576-token prompt prefix, decode runs
+   the 608 tokens).
 
 6. Observability and snapshots (``[obs]`` lines; nothing compiled again
    that phase 4 compiled).  (a) The obs smoke's logic
@@ -195,6 +217,19 @@ events around 10 back-to-back calls.  After the build, ``ptxas``
 registers and spills of each flash_kernel and flash_sm90_kernel instance
 are printed.
 
+The ``flash_attention_g7`` row (llava-next-34b's q [4, 56, 2048, 128]
+on k, v [4, 8, 2048, 128], causal) and the ``flash_attention_seamless``
+row's three uses (head dim 64: the encoder's [4, 16, 512, 64] and the
+decoder's [4, 16, 2048, 64], cross attention's 2048 queries on 512 keys;
+the encoder's and cross attention's without a mask) hold the tensor
+cores under the flash row's gates, each with two planted faults (one key
+tile skipped: the first or the diagonal one when causal, the first or the
+last one without a mask); the cross use also holds the decode step's one
+query on 512 keys.  Each is timed beside the plain version and SDPA
+(``enable_gqa`` at G = 7); their bound counts 2 B an element of q, k, v
+and o and 4·d operations a visible pair.  The seamless row's times and
+bound are its three uses' means (its prefill launches each 24 times).
+
 The ``flash_attention_hd256`` row holds both kernels' (256, 256)
 instances at recurrentgemma-9b's prefill shape (q [4, 16, 2048, 256], k,
 v [4, 1, 2048, 256], causal, window 2048), at B 1, S 4096, where the
@@ -280,6 +315,11 @@ HBM_SHARDS = 8
 LM_ARCH = "qwen3-4b"
 PREFILL_BATCH, PREFILL_LEN = 4, 2048
 SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 32, 32, 128
+# A decode step's device ms and ATen ops are read over a generate of this
+# many steps (half prompt, half new tokens): a step's work does not depend
+# on its position (attention reads the whole SERVE_MAX_LEN cache), and the
+# profiler and the op count cost the host far more than the steps.
+PROFILE_STEPS = 8
 PARITY_SUPERBLOCKS = 4
 # The LM rows after qwen3-4b: (arch, superblocks to keep or None for full
 # depth, the flash route every prefill launch takes, the kernels line's row
@@ -298,15 +338,34 @@ LM_ROWS = (
      "(head dim 256, one kv head, window 2048)"),
     ("xlstm-1.3b", None, "none", None,
      "full depth, 48 layers: 42 mLSTM and 6 sLSTM, no attention"),
+    ("mistral-nemo-12b", None, "tensor_core", "flash_attention",
+     "full depth, 40 layers"),
+    ("gemma2-27b", None, "tensor_core", "flash_attention",
+     "full depth, 46 layers: 23 local (window 4096) and 23 global, "
+     "attention softcap 50, final softcap 30, post-norms, GeGLU"),
+    ("seamless-m4t-large-v2", None, "tensor_core", "flash_attention_seamless",
+     "full depth, 24 encoder and 24 decoder layers; the prefill's encoder "
+     "runs over 512 frames (src [4, 512, 1024]), each decoder layer's "
+     "cross attention over its output"),
+    # Last: its 64.05 GiB of bf16 weights need the rows before it freed.
+    ("llava-next-34b", None, "tensor_core", "flash_attention_g7",
+     "full depth, 60 layers (G = 7); the prefill's 2048 positions are 576 "
+     "patch embeddings (frontend [4, 576, 7168]) and 1472 tokens"),
 )
-# The recurrent archs' fp32 prefill-against-decode parity: (arch,
-# superblocks kept, prompt tokens).  recurrentgemma keeps its 2 extra
-# layers, so its GQA layer runs the fp32 (256, 256) instance; xlstm's one
-# super-block is 8 layers, its 32-token prefill one mLSTM chunk and its
-# 1024-token prefill two 512-token chunks, whose (C, n, m) carry decode
-# must reproduce.
-RECURRENT_PARITY = (("recurrentgemma-9b", 1, SERVE_PROMPT),
-                    ("xlstm-1.3b", 1, SERVE_PROMPT), ("xlstm-1.3b", 1, 1024))
+# fp32 prefill-against-decode parity at cut depth: (arch, superblocks
+# kept, an enc-dec config's encoder super-blocks too, prompt tokens).
+# recurrentgemma keeps its 2 extra layers, so its GQA layer runs the fp32
+# (256, 256) instance; xlstm's one super-block is 8 layers, its 32-token
+# prefill one mLSTM chunk and its 1024-token prefill two 512-token chunks,
+# whose (C, n, m) carry decode must reproduce.  seamless decodes with the
+# encoder's output over 512 frames; llava's prefill takes the embeddings
+# of a 576-token prompt prefix as its patches, decode the prefix as tokens.
+FP32_PARITY = (("recurrentgemma-9b", 1, SERVE_PROMPT),
+               ("xlstm-1.3b", 1, SERVE_PROMPT), ("xlstm-1.3b", 1, 1024),
+               ("mistral-nemo-12b", 2, SERVE_PROMPT),
+               ("gemma2-27b", 1, SERVE_PROMPT),
+               ("seamless-m4t-large-v2", 1, SERVE_PROMPT),
+               ("llava-next-34b", 2, SERVE_PROMPT))
 # recurrentgemma-9b's local attention: q [B, 16, S, 256], k, v
 # [B, 1, S, 256], window 2048; the window bites at S = 4096.
 HD256_HEADS, HD256_KV_HEADS, HD256_D, HD256_WINDOW = 16, 1, 256, 2048
@@ -314,6 +373,13 @@ MLA_PARITY_ARCH, MLA_PARITY_SUPERBLOCKS = "deepseek-v2-236b", 1
 # MLA's prefill operands at full width: q, k [B, 128, S, 192] and v
 # [B, 128, S, 128].
 MLA_HEADS, MLA_D, MLA_DV = 128, 192, 128
+# llava-next-34b's prefill attention: q [4, 56, 2048, 128], k, v
+# [4, 8, 2048, 128] (G = 7), causal.  seamless-m4t-large-v2's, at head
+# dim 64 with 16 heads (G = 1): the encoder's [4, 16, 512, 64], the
+# decoder's [4, 16, 2048, 64], and cross attention's 2048 queries on 512
+# keys (the encoder's frames: seq // 4).
+G7_HEADS, G7_KV_HEADS = 56, 8
+SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES = 16, 64, PREFILL_LEN // 4
 # The flash feature cases run in fp32 at these head dims (the CUDA cores)
 # and in bf16 at the tensor cores' two.
 FLASH_FP32_DIMS = (32, 64, 128)
@@ -683,6 +749,10 @@ def kernel_phase(dev) -> dict:
     t0 = time.perf_counter()
     rows["flash_attention_hd256"] = flash_hd256_row(dev, gen)
     rows["flash_attention_hd256"]["row_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new = flash_new_arch_rows(dev, gen)
+    new["flash_attention_g7"]["rows_s"] = time.perf_counter() - t0
+    rows.update(new)
     for name, row in rows.items():
         print(f"[kernel] {name} {json.dumps(row)}", flush=True)
     return rows
@@ -769,26 +839,33 @@ def flash_bf16_check(label, q, k, v, **kw) -> tuple:
     return reading, out, want
 
 
-def planted_faults(label, q, k, v, got, want) -> dict:
+def planted_faults(label, q, k, v, got, want, causal=True) -> dict:
     """The tensor cores' output ``got`` with its last T rows recomputed
     without one of their key tiles of T keys, T the key tile of the
     instance that takes q's head dim (``tc_key_tile``: 128, 64 at 256), as
-    a kernel that skipped that tile would give them (q, k, v causal with
-    Sq = Sk).  The row gate must reject each; the elementwise gate's
-    reading is printed beside it."""
+    a kernel that skipped that tile would give them: the first tile or
+    the diagonal one (causal, Sq = Sk), the first tile or the last one
+    (no mask, any Sq and Sk).  The row gate must reject each; the
+    elementwise gate's reading is printed beside it."""
     from repro_torch.kernels.flash_attention import cases
     from repro_torch.kernels.flash_attention.kernel import tc_key_tile
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    S, T = q.shape[2], tc_key_tile(q.shape[3])
+    Sq, Sk, T = q.shape[2], k.shape[2], tc_key_tile(q.shape[3])
+    if causal:
+        require(Sq == Sk, f"{label}: causal planted faults need Sq == Sk")
+        faults = {"skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
+                  "skips_diagonal_tile": (k[:, :, :Sk - T], v[:, :, :Sk - T],
+                                          False)}
+    else:
+        faults = {"skips_first_tile": (k[:, :, T:], v[:, :, T:], False),
+                  "skips_last_tile": (k[:, :, :Sk - T], v[:, :, :Sk - T],
+                                      False)}
     planted = {}
-    for name, (kk, vv, causal) in {
-            "skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
-            "skips_diagonal_tile": (k[:, :, :S - T], v[:, :, :S - T],
-                                    False)}.items():
+    for name, (kk, vv, fault_causal) in faults.items():
         bad = got.clone()
-        bad[:, :, S - T:] = attention_ref(q[:, :, S - T:], kk, vv,
-                                          causal=causal)
+        bad[:, :, Sq - T:] = attention_ref(q[:, :, Sq - T:], kk, vv,
+                                           causal=fault_causal)
         planted[name] = dict(row_rel_err=cases.row_rel_err(bad, want),
                              norm_rel_err=norm_rel(bad, want),
                              excess=cases.excess(bad, want))
@@ -1058,6 +1135,101 @@ def flash_hd256_row(dev, gen) -> dict:
                 bytes=nbytes, ops=ops,
                 device_kernels=device_kernels(
                     lambda: flash_attention(q, k, v, window=W), 5))
+
+
+def flash_use_row(label, dev, gen, B, H, K, Sq, Sk, d, causal) -> dict:
+    """flash_attention at one prefill shape of an arch: q [B, H, Sq, d], k,
+    v [B, K, Sk, d] in bf16, ``[B, S, H, d]`` tensors seen as
+    ``[B, H, S, d]`` as the model gives them, ``causal`` or no mask.  Held
+    under the flash row's gates (both kernels against the plain version
+    elementwise and row by row, the tensor cores within twice the CUDA
+    cores' error from fp32), with two planted faults (one key tile
+    skipped) that the row gate must reject.  Times the kernel (CUDA-graph
+    replay), the plain version and SDPA (``enable_gqa`` where G > 1);
+    the bound counts 2 B an element of q, k, v and o against 3.35 TB/s and
+    2·(d + d) operations a visible pair against 989 TFLOP/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention,
+                                                            route)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    def bshd(n, S):
+        return torch.randn(B, S, n, d, device=dev, generator=gen).to(
+            torch.bfloat16).transpose(1, 2)
+
+    q, k, v = bshd(H, Sq), bshd(K, Sk), bshd(K, Sk)
+    main, got, want = flash_bf16_check(label, q, k, v, causal=causal)
+    require(got.transpose(1, 2).is_contiguous(),
+            f"{label}: the output is not laid out like q")
+    planted = planted_faults(label, q, k, v, got, want, causal=causal)
+    del got, want
+    torch.cuda.empty_cache()
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, o; k, v
+    ops = 2 * 2 * d * B * H * visible_pairs(Sq, Sk, causal)
+    b, by = bound(nbytes, ops, PEAK_BF16_PER_S)
+    ms = graph_ms(lambda i: flash_attention(q, k, v, causal=causal), 10,
+                  replays=3)
+    plain = cuda_ms(lambda: attention_ref(q, k, v, causal=causal), 3,
+                    warmup=1)
+    torch.cuda.empty_cache()
+    gqa = H != K
+    lib = graph_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=gqa), 10, replays=3)
+    return dict(shape=[B, H, K, Sq, Sk, d], dtype="bf16", causal=causal,
+                kernel=route(q, k, v), max_abs_err=main["tc"]["max_abs_err"],
+                main=main, atol=cases.ATOL, rtol=cases.RTOL,
+                row_rel_limit=cases.ROW_REL_LIMIT, planted_faults=planted,
+                ms=ms, tflops=ops / ms / 1e9, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=lib,
+                library=f"F.scaled_dot_product_attention(is_causal={causal}"
+                        f"{', enable_gqa=True' if gqa else ''}), bf16",
+                bytes=nbytes, ops=ops,
+                device_kernels=device_kernels(
+                    lambda: flash_attention(q, k, v, causal=causal), 5))
+
+
+def flash_new_arch_rows(dev, gen) -> dict:
+    """The flash kernel at the prefill shapes of llava-next-34b (G = 7:
+    q [4, 56, 2048, 128], k, v [4, 8, 2048, 128], causal) and of
+    seamless-m4t-large-v2 (head dim 64, G = 1): the encoder's
+    [4, 16, 512, 64] with no mask, the decoder's [4, 16, 2048, 64] causal,
+    and cross attention's 2048 queries on 512 keys with no mask (Sq > Sk);
+    each held and timed by ``flash_use_row``.  seamless's decode step runs
+    cross attention with one query on the same 512 keys: held to the plain
+    version beside the cross use.  llava's is a row of the kernels line,
+    seamless's three uses are one row (``uses``)."""
+    from repro_torch.kernels.flash_attention.kernel import route
+
+    B, S = PREFILL_BATCH, PREFILL_LEN
+    rows = {"flash_attention_g7": flash_use_row(
+        "llava-next-34b shape (G = 7)", dev, gen, B, G7_HEADS, G7_KV_HEADS,
+        S, S, 128, True)}
+    H, d, E = SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES
+    uses = {use: flash_use_row(f"seamless {use} shape", dev, gen, B, H, H,
+                               Sq, Sk, d, causal)
+            for use, (Sq, Sk, causal) in {"encoder": (E, E, False),
+                                          "decoder": (S, S, True),
+                                          "cross": (S, E, False)}.items()}
+    q1, k, v = (torch.randn(B, n, H, d, device=dev, generator=gen).to(
+        torch.bfloat16).transpose(1, 2) for n in (1, E, E))
+    require(route(q1, k, v) == "tensor_core",
+            "seamless's decode-step cross attention is not on the tensor "
+            "cores")
+    uses["cross"]["decode_step"] = dict(
+        shape=[B, H, H, 1, E, d], **flash_bf16_check(
+            "seamless cross decode step", q1, k, v, causal=False)[0])
+    # One row of the kernels line: the prefill launches each use once a
+    # layer (24 of each), so a launch's times and bound are the uses'
+    # means; it is bound by what bounds the use with the largest bound.
+    mean = {key: sum(u[key] for u in uses.values()) / len(uses)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    rows["flash_attention_seamless"] = dict(
+        **mean, max_abs_err=max(u["max_abs_err"] for u in uses.values()),
+        bound_by=max(uses.values(), key=lambda u: u["bound_ms"])["bound_by"],
+        uses=uses)
+    return rows
 
 
 def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1469,20 +1641,75 @@ def lm_prompts(vocab: int) -> tuple:
             rng.integers(1, vocab, (PREFILL_BATCH, SERVE_PROMPT)))
 
 
+def prefill_inputs(dev, cfg, tokens: np.ndarray, positions: int,
+                   seed: int = 0) -> dict:
+    """A prefill batch over ``positions`` positions from ``tokens``, in the
+    shapes of ``prefill_input_shapes``: a vision config's first
+    ``frontend_tokens`` positions are patch embeddings (the tokens fill
+    the rest), an enc-dec config's encoder takes ``positions // 4`` frame
+    embeddings; both drawn on the card from ``seed`` in ``cfg.dtype``."""
+    from repro_torch.configs.base import prefill_input_shapes
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    shapes = prefill_input_shapes(cfg, tokens.shape[0], positions)
+    batch = {"tokens": tokens[:, :shapes.pop("tokens")[1]]}
+    batch.update({k: torch.randn(shape, device=dev, generator=gen).to(
+        cfg.dtype) for k, shape in shapes.items()})
+    return batch
+
+
+def enc_out_decode(params, cfg, prompts: np.ndarray, enc_out, new: int):
+    """Greedy decode through ``build_serve_step`` with ``enc_out`` (the
+    engine, like JAX's, passes none): the prompts teacher-forced, then
+    ``new`` tokens.  Returns the logits after the prompt, the tokens, the
+    seconds of the prompt and of the whole loop."""
+    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.models import init_cache
+
+    step = build_serve_step(cfg)
+    cache = init_cache(cfg, prompts.shape[0], prompts.shape[1] + new)
+    toks = torch.as_tensor(prompts, device=enc_out.device)
+    t0 = time.perf_counter()
+    for t in range(prompts.shape[1]):
+        cache, logits = step(params, cache, toks[:, t:t + 1], t, enc_out)
+    prompt_logits = logits
+    torch.cuda.synchronize()
+    prompt_s = time.perf_counter() - t0
+    out = []
+    for i in range(new):
+        tok = logits.argmax(-1)
+        out.append(tok)
+        cache, logits = step(params, cache, tok[:, None],
+                             prompts.shape[1] + i, enc_out)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    tokens = torch.stack(out, 1).cpu().numpy() if out else None
+    return prompt_logits, tokens, prompt_s, loop_s
+
+
 def serve_row(dev, cfg, route: str) -> dict:
     """One LM at ``cfg`` (bf16, weights drawn on the card from seed 0): the
-    prefill step over PREFILL_BATCH prompts of PREFILL_LEN tokens, once to
-    warm up and once timed, each launching flash_attention once an
-    attention layer on ``route`` (a recurrent layer launches none); then a
+    prefill step over PREFILL_BATCH sequences of PREFILL_LEN positions
+    (``prefill_inputs``: llava's first 576 are patches, seamless's encoder
+    takes 512 frames), once to warm up and once timed, each launching
+    flash_attention ``prefill_flash_launches`` times on ``route`` (a
+    recurrent layer launches none; an enc-dec config launches one more a
+    decoder layer, for cross attention, and one an encoder layer); then a
     ServingEngine answering PREFILL_BATCH requests of SERVE_PROMPT +
     SERVE_NEW tokens, and the bf16 prefill step against the engine's
-    sequential prefill (printed, not gated).  Each engine call that a gate
-    compares gets a fresh engine: like JAX's, the engine keeps its cache
-    from one request to the next, and a recurrent state carries over."""
+    sequential prefill (printed, not gated; llava's prefill takes the
+    first half of each prompt as patch embeddings of its tokens).  Each
+    engine call that a gate compares gets a fresh engine: like JAX's, the
+    engine keeps its cache from one request to the next, and a recurrent
+    state carries over.  Like JAX's, it passes no encoder output, so an
+    enc-dec row also decodes through ``build_serve_step`` with the
+    prefill's encoder output (``enc_out_decode``), whose cross attention
+    launches the kernel once a decoder layer and step; its bf16 prefill
+    comparison is against that loop."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.steps import build_prefill_step
-    from repro_torch.models import init_params, param_count
-    from repro_torch.models.transformer import attention_layers
+    from repro_torch.launch.steps import build_prefill_step, encode
+    from repro_torch.models import (init_params, layers, param_count,
+                                    prefill_flash_launches)
     from repro_torch.serving import ServeConfig, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
@@ -1495,17 +1722,19 @@ def serve_row(dev, cfg, route: str) -> dict:
     param_bytes = sum(p.numel() * p.element_size()
                       for p in params.parameters())
     long_prompts, prompts = lm_prompts(cfg.vocab)
+    batch = prefill_inputs(dev, cfg, long_prompts, PREFILL_LEN)
+    input_shapes = {k: list(v.shape) for k, v in batch.items()}
 
     prefill = build_prefill_step(cfg)                 # on cuda
     runs = []
     for _ in range(2):                                # warm-up, timed
         reset_launch_counts()
         t0 = time.perf_counter()
-        logits = prefill(params, {"tokens": long_prompts})
+        logits = prefill(params, batch)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, launch_counts()))
     prefill_s, launches = runs[1]
-    n_attn = attention_layers(cfg)
+    n_attn = prefill_flash_launches(cfg)
     require((n_attn == 0) == (route == "none"),
             f"{cfg.name}: {n_attn} attention layers on route {route}")
     want_tc = n_attn if route == "tensor_core" else 0
@@ -1520,8 +1749,7 @@ def serve_row(dev, cfg, route: str) -> dict:
     require(logits.shape == (PREFILL_BATCH, cfg.vocab)
             and bool(torch.isfinite(logits).all()),
             f"{cfg.name} prefill logits: shape or not finite")
-    prefill_profile = device_breakdown(
-        lambda: prefill(params, {"tokens": long_prompts}))
+    prefill_profile = device_breakdown(lambda: prefill(params, batch))
 
     def engine():
         return ServingEngine(params, cfg, ServeConfig(
@@ -1539,13 +1767,13 @@ def serve_row(dev, cfg, route: str) -> dict:
     generate_s = time.perf_counter() - t0
     engine_launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    # Device time of the engine's steps: a generate of 4 new tokens runs
-    # SERVE_PROMPT + 4 serve_steps.
+    # Device time and ATen ops of the engine's steps, over PROFILE_STEPS.
+    short = prompts[:, :PROFILE_STEPS // 2]
     step_profile = device_breakdown(
-        lambda: serving.generate(prompts, max_new=4), top=3)
-    step_device_ms = step_profile["device_ms"] / (SERVE_PROMPT + 4)
-    step_ops = aten_ops(lambda: serving.generate(prompts, max_new=4)) / (
-        SERVE_PROMPT + 4)
+        lambda: serving.generate(short, max_new=PROFILE_STEPS // 2), top=3)
+    step_device_ms = step_profile["device_ms"] / PROFILE_STEPS
+    step_ops = aten_ops(lambda: serving.generate(
+        short, max_new=PROFILE_STEPS // 2)) / PROFILE_STEPS
     step_wall_ms = generate_s * 1e3 / (SERVE_PROMPT + SERVE_NEW)
     require(out.shape == (PREFILL_BATCH, SERVE_NEW) and out.dtype == np.int32
             and bool(((out >= 0) & (out < cfg.vocab)).all()),
@@ -1556,12 +1784,53 @@ def serve_row(dev, cfg, route: str) -> dict:
                             seq_logits.argmax(-1).cpu().numpy()),
             f"{cfg.name}: first greedy token is not the argmax of the "
             f"prefill logits")
-    kern_logits = prefill(params, {"tokens": prompts})
-    bf16_rel = float((kern_logits - seq_logits).abs().max()
-                     / seq_logits.abs().max())
+    encdec = {}
+    if cfg.arch == "encdec":
+        enc_out = encode(params, cfg, batch["src"])
+        reset_launch_counts()
+        ref_logits, enc_toks, prompt_s, loop_s = enc_out_decode(
+            params, cfg, prompts, enc_out, SERVE_NEW)
+        loop_launches = launch_counts()
+        steps = SERVE_PROMPT + SERVE_NEW
+        n_cross = cfg.num_layers * steps
+        require(loop_launches["flash_attention"] == n_cross
+                and loop_launches["flash_attention_tc"] == n_cross,
+                f"{cfg.name} decode with enc_out launched flash_attention "
+                f"{loop_launches}, not {n_cross} on the tensor cores (one "
+                f"cross attention a decoder layer and step)")
+        require(bool(torch.isfinite(ref_logits).all()) and bool(
+            ((enc_toks >= 0) & (enc_toks < cfg.vocab)).all()),
+            f"{cfg.name} decode with enc_out: logits or tokens")
+        profile = device_breakdown(lambda: enc_out_decode(
+            params, cfg, prompts[:, :4], enc_out, 0), top=3)
+        encdec = {"enc_out_shape": list(enc_out.shape),
+                  "enc_out_decode_s": loop_s,
+                  "enc_out_decode_tok_per_s":
+                      PREFILL_BATCH * SERVE_NEW / (loop_s - prompt_s),
+                  "enc_out_step_wall_ms": loop_s * 1e3 / steps,
+                  "enc_out_step_device_ms": profile["device_ms"] / 4,
+                  "enc_out_step_top_kernels": profile["top"],
+                  "enc_out_decode_launches": loop_launches,
+                  "enc_out_tokens_head": enc_toks[:, :8].tolist()}
+        kern_logits = prefill(params, {"tokens": prompts,
+                                       "src": batch["src"]})
+        del enc_out
+    else:
+        ref_logits = seq_logits
+        kern_batch = {"tokens": prompts}
+        if cfg.frontend == "vision":
+            half = SERVE_PROMPT // 2
+            kern_batch = {"tokens": prompts[:, half:],
+                          "frontend": layers.embed_lookup(
+                              params["embed_vd"],
+                              torch.as_tensor(prompts[:, :half], device=dev),
+                              cfg.scale_embed)}
+        kern_logits = prefill(params, kern_batch)
+    bf16_rel = float((kern_logits - ref_logits).abs().max()
+                     / ref_logits.abs().max())
     bf16_argmax = int((kern_logits.argmax(-1)
-                       == seq_logits.argmax(-1)).sum())
-    del params, serving, logits, kern_logits, seq_logits
+                       == ref_logits.argmax(-1)).sum())
+    del params, serving, logits, kern_logits, seq_logits, ref_logits, batch
     torch.cuda.empty_cache()
 
     new_tokens = PREFILL_BATCH * SERVE_NEW
@@ -1569,12 +1838,13 @@ def serve_row(dev, cfg, route: str) -> dict:
     return {"app": cfg.name, "params": n_params, "param_bytes": param_bytes,
             "layers": cfg.num_layers, "init_s": init_s,
             "prefill_shape": [PREFILL_BATCH, PREFILL_LEN],
+            "prefill_inputs": input_shapes,
             "prefill_s": prefill_s, "prefill_warmup_s": runs[0][0],
             "prefill_tok_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
             "prefill_device_ms": prefill_profile["device_ms"],
             "prefill_top_kernels": prefill_profile["top"],
             "launches": launches,
-            "attention_layers": n_attn,
+            "prefill_flash_launches": n_attn,
             "flash_launches_by_route": {
                 "tensor_core": tc,
                 "cuda_core": launches["flash_attention"] - tc},
@@ -1590,40 +1860,63 @@ def serve_row(dev, cfg, route: str) -> dict:
             "peak_device_bytes": peak,
             "tokens_head": out[:, :8].tolist(),
             "bf16_full_depth_rel_err": bf16_rel,
-            "bf16_full_depth_argmax_equal": bf16_argmax}
+            "bf16_full_depth_argmax_equal": bf16_argmax, **encdec}
 
 
 def fp32_parity(dev, cfg, prompt_len: int = SERVE_PROMPT) -> dict:
-    """The prefill step (the flash kernel) against the engine's sequential
-    prefill (decode) in fp32 on the SERVE_PROMPT-token prompts, or on the
-    first ``prompt_len`` tokens of the prefill step's: within 1e-4 of the
-    logits' largest magnitude, one CUDA-core launch an attention layer."""
+    """The prefill step (the flash kernel) against sequential decode in
+    fp32 on the SERVE_PROMPT-token prompts, or on the first ``prompt_len``
+    tokens of the prefill step's: within 1e-4 of the logits' largest
+    magnitude, one CUDA-core launch an attention layer (and an encoder
+    layer, and a cross block).  Decode is the engine's prefill, but for
+    two configs: a vision config decodes ``frontend_tokens`` more prompt
+    tokens first, whose embeddings are the prefill's patches (so the
+    concatenation and its positions are held exactly); an enc-dec config's
+    prefill takes 512 frames from the card's generator and decode runs
+    ``build_serve_step`` with the encoder's output over them (the engine,
+    like JAX's, passes none)."""
+    from repro_torch.configs.base import _frontend_len
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.steps import build_prefill_step
-    from repro_torch.models import init_params
+    from repro_torch.launch.steps import build_prefill_step, encode
+    from repro_torch.models import init_params, layers
     from repro_torch.serving import ServeConfig, ServingEngine
 
     long_prompts, prompts = lm_prompts(cfg.vocab)
-    if prompt_len != SERVE_PROMPT:
-        prompts = long_prompts[:, :prompt_len]
+    P = _frontend_len(cfg)
+    if prompt_len != SERVE_PROMPT or P:
+        prompts = long_prompts[:, :P + prompt_len]
     params32 = init_params(torch.Generator(dev).manual_seed(1), cfg)
+    batch = {"tokens": prompts}
+    if P:
+        batch = {"tokens": prompts[:, P:], "frontend": layers.embed_lookup(
+            params32["embed_vd"], torch.as_tensor(prompts[:, :P], device=dev),
+            cfg.scale_embed)}
+    if cfg.arch == "encdec":
+        batch["src"] = prefill_inputs(dev, cfg, long_prompts, PREFILL_LEN,
+                                      seed=2)["src"]
     reset_launch_counts()
-    kern = build_prefill_step(cfg)(params32, {"tokens": prompts})
+    kern = build_prefill_step(cfg)(params32, batch)
     counts = launch_counts()
-    dec, _ = ServingEngine(params32, cfg, ServeConfig(
-        batch_slots=PREFILL_BATCH, max_len=max(SERVE_MAX_LEN, prompt_len))
-    ).prefill(prompts)
+    if cfg.arch == "encdec":
+        dec = enc_out_decode(params32, cfg, prompts, encode(
+            params32, cfg, batch["src"]), 0)[0]
+    else:
+        dec, _ = ServingEngine(params32, cfg, ServeConfig(
+            batch_slots=PREFILL_BATCH,
+            max_len=max(SERVE_MAX_LEN, prompts.shape[1]))).prefill(prompts)
     rel = float((kern - dec).abs().max() / dec.abs().max())
-    del params32
+    del params32, batch
     torch.cuda.empty_cache()
     return {"superblocks": cfg.num_superblocks, "layers": cfg.num_layers,
-            "prompt_len": prompts.shape[1], "rel_err": rel,
-            "flash_launches": counts["flash_attention"],
+            "enc_layers": cfg.enc_superblocks * len(cfg.enc_pattern),
+            "prompt_len": prompts.shape[1], "prefill_tokens": prompt_len,
+            "rel_err": rel, "flash_launches": counts["flash_attention"],
             "tc_launches": counts["flash_attention_tc"]}
 
 
 def check_fp32_parity(name: str, parity: dict, layers: int) -> None:
-    """``layers``: the attention layers, each one CUDA-core launch."""
+    """``layers``: the prefill's flash launches (``prefill_flash_launches``),
+    each on the CUDA cores."""
     require(parity["flash_launches"] == layers,
             f"{name} fp32 parity prefill launched flash_attention "
             f"{parity['flash_launches']} times")
@@ -1639,7 +1932,7 @@ def lm_path_phase(dev) -> dict:
     """qwen3-4b at full width and depth: the prefill step (flash kernel)
     and the ServingEngine; then prefill-against-decode parity."""
     from repro_torch.configs import get_arch
-    from repro_torch.models.transformer import attention_layers
+    from repro_torch.models import prefill_flash_launches
 
     cfg = get_arch(LM_ARCH).full()
     row = serve_row(dev, cfg, "tensor_core")
@@ -1652,17 +1945,17 @@ def lm_path_phase(dev) -> dict:
                 "fp32_parity_flash_launches": parity["flash_launches"],
                 "fp32_parity_tc_launches": parity["tc_launches"]})
     print(f"[path] {json.dumps(row)}", flush=True)
-    check_fp32_parity(LM_ARCH, parity, attention_layers(cfg32))
+    check_fp32_parity(LM_ARCH, parity, prefill_flash_launches(cfg32))
     return row
 
 
 def lm_rows_phase(dev) -> dict:
-    """chatglm3-6b, the DeepSeek archs and the recurrent archs
-    (``LM_ROWS``), then MLA + MoE parity on deepseek-v2 and the recurrent
-    archs' parity (``RECURRENT_PARITY``) in fp32.  Returns each row by
-    arch."""
+    """chatglm3-6b, the DeepSeek archs, the recurrent archs, mistral-nemo,
+    gemma2, seamless and llava (``LM_ROWS``), then MLA + MoE parity on
+    deepseek-v2 and the other archs' parity at cut depth (``FP32_PARITY``)
+    in fp32.  Returns each row by arch."""
     from repro_torch.configs import get_arch
-    from repro_torch.models.transformer import attention_layers
+    from repro_torch.models import prefill_flash_launches
 
     rows = {}
     for arch, superblocks, route, kernel_row, note in LM_ROWS:
@@ -1689,18 +1982,20 @@ def lm_rows_phase(dev) -> dict:
            "capacity_factor": cfg.moe.capacity_factor, **parity}
     print(f"[path] {json.dumps(row)}", flush=True)
     check_fp32_parity(f"{MLA_PARITY_ARCH} (MLA + MoE)", parity,
-                      attention_layers(cfg))
-    for arch, superblocks, prompt_len in RECURRENT_PARITY:
+                      prefill_flash_launches(cfg))
+    for arch, superblocks, prompt_len in FP32_PARITY:
         t0 = time.perf_counter()
+        cfg = get_arch(arch).full()
         cfg = dataclasses.replace(
-            get_arch(arch).full(), num_superblocks=superblocks,
-            dtype=torch.float32, param_dtype=torch.float32)
+            cfg, num_superblocks=superblocks, dtype=torch.float32,
+            param_dtype=torch.float32,
+            enc_superblocks=min(cfg.enc_superblocks, superblocks))
         parity = fp32_parity(dev, cfg, prompt_len)
-        row = {"app": "recurrent_fp32_parity", "arch": arch, **parity,
+        row = {"app": "fp32_parity", "arch": arch, **parity,
                "row_s": time.perf_counter() - t0}
         print(f"[path] {json.dumps(row)}", flush=True)
-        check_fp32_parity(f"{arch} (recurrent, {prompt_len} tokens)",
-                          parity, attention_layers(cfg))
+        check_fp32_parity(f"{arch} ({prompt_len} tokens)", parity,
+                          prefill_flash_launches(cfg))
     return rows
 
 
@@ -2234,7 +2529,9 @@ def main() -> int:
     # Each row's prefill launches are all on its route (serve_row gates
     # it); the kernels line counts them under the row of their head dims.
     launches["flash_attention"] = lm["launches"]["flash_attention"]
-    launches["flash_attention_mla"] = launches["flash_attention_hd256"] = 0
+    for name in ("flash_attention_mla", "flash_attention_hd256",
+                 "flash_attention_g7", "flash_attention_seamless"):
+        launches[name] = 0
     for r in lm_rows.values():
         if r["kernel_row"] is not None:
             launches[r["kernel_row"]] += r["launches"]["flash_attention"]
@@ -2261,6 +2558,12 @@ def main() -> int:
                    "src/repro_torch/csrc/flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99"),
                "flash_attention_hd256": (
+                   "src/repro_torch/csrc/flash_attention_sm90.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:99"),
+               "flash_attention_g7": (
+                   "src/repro_torch/csrc/flash_attention_sm90.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:99"),
+               "flash_attention_seamless": (
                    "src/repro_torch/csrc/flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention/kernel.py:99")}
     kernels = [{"name": name, "route": "cuda", "source": src,

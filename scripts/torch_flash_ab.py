@@ -6,9 +6,14 @@ prefill shapes, for comparing two trees of the port on one card.
 Shapes (bf16, ``[B, S, H, d]`` tensors seen as ``[B, H, S, d]``, as the
 models give them, drawn from ``--seed``): qwen3-4b's prefill (q [4, 32,
 2048, 128], k and v [4, 8, 2048, 128]), chatglm3-6b's (32 query heads on 2
-kv heads), MLA's (q, k [4, 128, 2048, 192], v [4, 128, 2048, 128]) and
+kv heads), MLA's (q, k [4, 128, 2048, 192], v [4, 128, 2048, 128]),
 recurrentgemma-9b's (q [4, 16, 2048, 256], k and v [4, 1, 2048, 256]; its
-window of 2048 does not bite at this length), each causal and not.  Each time is the device time of one call:
+window of 2048 does not bite at this length) and llava-next-34b's (q
+[4, 56, 2048, 128], k and v [4, 8, 2048, 128], G = 7), each causal and
+not; and seamless-m4t-large-v2's three at head dim 64: the decoder's
+[4, 16, 2048, 64] causal and not, the encoder's [4, 16, 512, 64] and
+cross attention's 2048 queries on 512 keys, both with no mask (their
+``ms`` is the non-causal call).  Each time is the device time of one call:
 ``--reps`` calls captured in one CUDA graph and replayed three times
 between CUDA events.  Prints the card's name and power limit and one JSON
 line with each shape's ms and the route ``route()`` names for it.  It
@@ -27,11 +32,17 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import flash_attention, route
 
-#: (name, batch, length, query heads, kv heads, q/k head dim, v head dim).
-SHAPES = (("qwen3-4b", 4, 2048, 32, 8, 128, 128),
-          ("chatglm3-6b", 4, 2048, 32, 2, 128, 128),
-          ("mla", 4, 2048, 128, 128, 192, 128),
-          ("recurrentgemma-9b", 4, 2048, 16, 1, 256, 256))
+#: (name, batch, query length, key length, query heads, kv heads, q/k
+#: head dim, v head dim, causal: timed causal and not, or only without a
+#: mask).
+SHAPES = (("qwen3-4b", 4, 2048, 2048, 32, 8, 128, 128, True),
+          ("chatglm3-6b", 4, 2048, 2048, 32, 2, 128, 128, True),
+          ("mla", 4, 2048, 2048, 128, 128, 192, 128, True),
+          ("recurrentgemma-9b", 4, 2048, 2048, 16, 1, 256, 256, True),
+          ("llava-next-34b", 4, 2048, 2048, 56, 8, 128, 128, True),
+          ("seamless-decoder", 4, 2048, 2048, 16, 16, 64, 64, True),
+          ("seamless-encoder", 4, 512, 512, 16, 16, 64, 64, False),
+          ("seamless-cross", 4, 2048, 512, 16, 16, 64, 64, False))
 
 
 def _card() -> str:
@@ -77,15 +88,18 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     build.library()
     out = {"label": args.label, "device": torch.cuda.get_device_name(0)}
-    for name, B, S, H, K, d, dv in SHAPES:
+    for name, B, Sq, Sk, H, K, d, dv, causal in SHAPES:
         q, k, v = (torch.randn(B, S, n, w, device=dev, generator=gen)
                    .to(torch.bfloat16).transpose(1, 2)
-                   for n, w in ((H, d), (K, d), (K, dv)))
-        out[name] = {
-            "route": route(q, k, v),
-            "ms": graph_ms(lambda: flash_attention(q, k, v), args.reps),
-            "noncausal_ms": graph_ms(
-                lambda: flash_attention(q, k, v, causal=False), args.reps)}
+                   for S, n, w in ((Sq, H, d), (Sk, K, d), (Sk, K, dv)))
+        noncausal_ms = graph_ms(
+            lambda: flash_attention(q, k, v, causal=False), args.reps)
+        out[name] = {"route": route(q, k, v), "ms": noncausal_ms}
+        if causal:
+            out[name] = {"route": route(q, k, v),
+                         "ms": graph_ms(lambda: flash_attention(q, k, v),
+                                        args.reps),
+                         "noncausal_ms": noncausal_ms}
         del q, k, v
         torch.cuda.empty_cache()
     print(f"card: {_card()}", flush=True)

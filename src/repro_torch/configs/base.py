@@ -5,13 +5,18 @@ Every architecture file exposes:
     smoke() -> ModelConfig          (reduced same-family config for CPU tests)
 plus metadata: FAMILY, SUPPORTED_SHAPES.
 
-The dry-run's ``input_specs`` (shape stand-ins for lowering) is not ported
+``_frontend_len`` and ``_enc_len`` give the lengths of the stub frontends'
+inputs (vision patches prepended to the tokens; audio frames for the
+encoder), ``prefill_input_shapes`` a prefill batch's shapes.  The
+dry-run's ``input_specs`` (shape stand-ins for lowering) is not ported
 yet: the port has no dry-run.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
+
+from ..models import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +33,35 @@ SHAPES: Dict[str, ShapeCell] = {
     "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
 }
+
+def _frontend_len(cfg: ModelConfig) -> int:
+    return cfg.frontend_tokens if cfg.frontend == "vision" else 0
+
+
+def _enc_len(cfg: ModelConfig, seq: int) -> int:
+    # Audio enc-dec: encoder consumes seq//4 frame embeddings (frontend stub
+    # downsampling factor).
+    return seq // 4 if cfg.arch == "encdec" else 0
+
+
+def prefill_input_shapes(cfg: ModelConfig, batch: int,
+                         positions: int) -> Dict[str, Tuple[int, ...]]:
+    """The shapes of a prefill batch over ``positions`` positions, as JAX's
+    ``input_specs`` gives them: ``tokens`` [B, positions - P]; for the
+    vision frontend ``frontend`` [B, P, D], the P patch embeddings before
+    the tokens; for an enc-dec config ``src`` [B, positions // 4, D], the
+    frames the encoder runs over."""
+    P, E = _frontend_len(cfg), _enc_len(cfg, positions)
+    if positions <= P:
+        raise ValueError(f"{positions} positions: {cfg.name} prepends {P} "
+                         f"patch embeddings")
+    shapes = {"tokens": (batch, positions - P)}
+    if P:
+        shapes["frontend"] = (batch, P, cfg.d_model)
+    if E:
+        shapes["src"] = (batch, E, cfg.d_model)
+    return shapes
+
 
 # Registry filled by __init__.
 ARCHS: Dict[str, object] = {}

@@ -28,6 +28,13 @@ FEATURE_CASES = (
     # Window 40 with Sk - Sq = 192: the first key tiles of the last query
     # rows are fully masked (the -1e30 rule, wiped by alpha = 0).
     ("masked_lead_block", (1, 4, 2, 64, 256), {"window": 40}),
+    # llava-next-34b's grouping: 7 query heads a kv head (an odd G), then
+    # ragged, with Sq < Sk.
+    ("gqa_g7", (1, 14, 2, 128, 128), {}),
+    ("gqa_g7_ragged", (2, 14, 2, 100, 157), {}),
+    # seamless's cross attention: no mask with Sq > Sk (delta < 0), the
+    # keys ending 96 into a key tile.
+    ("noncausal_sq_gt_sk", (1, 4, 4, 256, 96), {"causal": False}),
 )
 #: The cases of the (256, 256) instances (bf16 on the tensor cores' 64-key
 #: tiles, fp32 on the CUDA cores), run at d = dv = 256: recurrentgemma-9b's

@@ -6,13 +6,21 @@ over the ServingEngine.
 
 ``--arch`` is any of ``repro_torch.configs.ALL_ARCHS`` (the GQA decoders,
 chatglm3-6b, the MLA + MoE archs deepseek-v2-236b and deepseek-v3-671b,
-and the recurrent archs recurrentgemma-9b and xlstm-1.3b, whose prompt
-lengths past one mLSTM chunk must be multiples of it).
+the recurrent archs recurrentgemma-9b and xlstm-1.3b, whose prompt
+lengths past one mLSTM chunk must be multiples of it, the enc-dec
+seamless-m4t-large-v2 and the vision llava-next-34b).
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Weights are drawn
 from ``--seed``; the prompts too (numpy).  The prefill step runs once over
-``--requests`` prompts of ``--prefill-len`` tokens (default:
+``--requests`` sequences of ``--prefill-len`` positions (default:
 ``--prompt-len``), which puts the flash attention kernel on this path.
+Its stub frontends' inputs are drawn from ``--seed`` with numpy as well:
+an enc-dec config's encoder takes ``src`` [requests, prefill-len // 4,
+d_model] frame embeddings; a vision config's sequence is
+``frontend_tokens`` patch embeddings ``frontend`` [requests,
+frontend_tokens, d_model] followed by ``prefill-len - frontend_tokens``
+tokens.  Like the JAX engine, the ServingEngine then decodes text tokens
+with no encoder output and no patches (ROADMAP reference caveat 7).
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from ..configs import get_arch
+from ..configs.base import prefill_input_shapes
 from ..exec.programs import resolve_device
 from ..kernels import launch_counts, reset_launch_counts
 from ..models import init_params
@@ -57,19 +66,28 @@ def main(argv=None) -> int:
     params = init_params(torch.Generator(dev).manual_seed(args.seed), cfg)
     rng = np.random.default_rng(args.seed)
     prefill_len = args.prefill_len or args.prompt_len
-    long_prompts = rng.integers(1, cfg.vocab, (args.requests, prefill_len))
+    try:
+        shapes = prefill_input_shapes(cfg, args.requests, prefill_len)
+    except ValueError as e:
+        ap.error(f"--prefill-len: {e}, so give more positions")
+    batch = {"tokens": rng.integers(1, cfg.vocab, shapes.pop("tokens"))}
     prompts = rng.integers(1, cfg.vocab, (args.requests, args.prompt_len))
+    batch.update({k: rng.standard_normal(shape, dtype=np.float32)
+                  for k, shape in shapes.items()})
+    print("prefill inputs: " + ", ".join(
+        f"{k} {tuple(v.shape)}" for k, v in batch.items()))
 
     prefill = build_prefill_step(cfg, dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    logits = prefill(params, {"tokens": long_prompts})
+    logits = prefill(params, batch)
     _sync(dev)
     dt = time.perf_counter() - t0
     counts = launch_counts()
     assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
-    print(f"prefill {tuple(long_prompts.shape)} on {dev} in {dt:.3f}s "
-          f"({long_prompts.size / dt:.1f} tok/s), flash_attention "
+    positions = args.requests * prefill_len
+    print(f"prefill {(args.requests, prefill_len)} on {dev} in {dt:.3f}s "
+          f"({positions / dt:.1f} positions/s), flash_attention "
           f"launches {counts['flash_attention']} (tensor cores "
           f"{counts['flash_attention_tc']})")
 

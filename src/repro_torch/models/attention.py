@@ -1,6 +1,7 @@
-"""Attention family: GQA/MQA (+ qk-norm, logit softcap, sliding window)
-and DeepSeek MLA (latent-compressed KV), each with a full-sequence path
-(prefill) and a cached decode path.
+"""Attention family: GQA/MQA (+ qk-norm, logit softcap, sliding window),
+the enc-dec decoder's cross attention, and DeepSeek MLA
+(latent-compressed KV), each with a full-sequence path (prefill) and a
+cached decode path (cross attention has one path for both).
 
 The full-sequence paths run :func:`attention_core` on the flash attention
 kernel (``kernels/flash_attention``, the TPU's flash path for the same
@@ -12,7 +13,11 @@ kernel takes in bf16 and the CUDA-core kernel in fp32.  Decode uses a
 ring-buffer cache for windowed layers and MLA's absorbed latent-space
 decode; both stay plain torch, as in JAX, and update their cache in place.
 
-Cross attention (enc-dec) is not ported yet (ROADMAP).
+Cross attention (:func:`cross_forward`) projects q from the decoder stream
+and k, v from the encoder's output and attends with no mask, no RoPE and
+scale 1/sqrt(head_dim), as JAX's; it runs the flash op non-causal at
+every length, a decode step's single query included (JAX's decode runs
+the same function on every step).
 """
 from __future__ import annotations
 
@@ -173,6 +178,27 @@ def gqa_decode(params, cfg: AttnConfig, cache: dict, x: torch.Tensor,
                      cv.to(q.dtype).float())
     o = o.reshape(B, 1, cfg.num_heads, hd).to(x.dtype)
     return cache, _out_proj(params, o)
+
+
+# -- cross attention (enc-dec) ------------------------------------------------
+
+def cross_forward(params, cfg: AttnConfig, x: torch.Tensor,
+                  enc: torch.Tensor) -> torch.Tensor:
+    """Decoder cross attention over encoder outputs: x [B,Sq,D] (the
+    decoder stream), enc [B,Sk,D].  No mask, no RoPE, no qk-norm, no
+    softcap, no window; the scale is 1/sqrt(head_dim) whatever
+    ``cfg.query_scale`` says, as in JAX.  Every query sees every key, so
+    the flash op runs with ``causal=False`` (its causal default would hide
+    keys past ``Sk - Sq + i`` from query i)."""
+    B, Sq, _ = x.shape
+    Sk = enc.shape[1]
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ params["wq_dhk"].flatten(1)).view(B, Sq, H, hd)
+    k = (enc @ params["wk_dkh"].flatten(1)).view(B, Sk, K, hd)
+    v = (enc @ params["wv_dkh"].flatten(1)).view(B, Sk, K, hd)
+    o = attention_core(q, k, v, window=None, softcap=None,
+                       scale=1.0 / math.sqrt(hd), causal=False)
+    return _out_proj(params, o)
 
 
 # =============================================================================

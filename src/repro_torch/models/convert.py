@@ -4,7 +4,11 @@ The JAX package stacks the decoder's super-blocks along a leading axis
 (``blocks["p{i}"]`` leaves are ``[num_superblocks, ...]``); the port holds
 one tree per layer in order.  Layer ``sb * len(pattern) + i`` is
 ``blocks[f"p{i}"][sb]``; the unstacked ``extra["e{i}"]`` layers follow
-as layer ``num_superblocks * len(pattern) + i``.  Leaves arrive as numpy
+as layer ``num_superblocks * len(pattern) + i``.  An enc-dec tree's
+encoder (``enc_blocks["p{i}"]``, stacked over ``enc_superblocks``) is
+unstacked the same way into the port's ``enc_blocks`` list; the decoder
+layers' ``ln_cross`` and ``cross`` leaves and ``enc_final_norm`` carry
+over as they are.  Leaves arrive as numpy
 arrays (nested dicts, as ``jax.tree.map(np.asarray, params)`` gives
 them); numpy has no bfloat16, so a bf16 leaf is handed over as float32 and cast back to
 ``cfg.param_dtype``, which loses nothing.  The leaves JAX keeps in fp32
@@ -56,11 +60,17 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     """The port's parameter tree with the weights of the JAX tree ``tree``
     (``repro.models.init_params``' structure) for the same ``cfg``."""
     check_supported(cfg)
-    n = len(cfg.pattern)
-    blocks = tree["blocks"]
-    out = {k: v for k, v in tree.items() if k not in ("blocks", "extra")}
-    out["blocks"] = [_index(blocks[f"p{i}"], sb)
-                     for sb in range(cfg.num_superblocks) for i in range(n)]
+
+    def unstack(blocks, pattern, superblocks):
+        return [_index(blocks[f"p{i}"], sb)
+                for sb in range(superblocks) for i in range(len(pattern))]
+
+    out = {k: v for k, v in tree.items()
+           if k not in ("blocks", "extra", "enc_blocks")}
+    out["blocks"] = unstack(tree["blocks"], cfg.pattern, cfg.num_superblocks)
     out["blocks"] += [tree["extra"][f"e{i}"]
                       for i in range(len(cfg.extra_layers))]
+    if cfg.arch == "encdec":
+        out["enc_blocks"] = unstack(tree["enc_blocks"], cfg.enc_pattern,
+                                    cfg.enc_superblocks)
     return tree_from_numpy(out, cfg.param_dtype, device)

@@ -41,6 +41,9 @@ class ParamTree(nn.Module):
     def __getitem__(self, name: str):
         return getattr(self, name)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32) -> torch.Tensor:

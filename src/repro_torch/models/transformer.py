@@ -1,7 +1,7 @@
-"""Model assembly: decoder-only stacks over a repeating layer pattern
-("super-block").
+"""Model assembly: decoder-only and encoder-decoder stacks over a repeating
+layer pattern ("super-block").
 
-Every ported architecture is an instance of ModelConfig:
+Every assigned architecture is an instance of ModelConfig:
   * pattern: the repeating tuple of LayerSpecs (e.g. gemma2 = (local,
     global)).
   * The stack runs `num_superblocks` copies of the pattern.
@@ -12,16 +12,21 @@ layers in order in an ``nn.ModuleList`` (``params["blocks"][l]`` is layer
 in Python.  Decode carries one cache per layer in the same order.
 
 ``extra_layers`` follow the super-blocks in the same list (layer
-``num_superblocks * len(pattern) + i`` is ``extra_layers[i]``).
+``num_superblocks * len(pattern) + i`` is ``extra_layers[i]``).  An
+enc-dec config's encoder runs ``enc_superblocks`` copies of
+``enc_pattern``, held the same way in ``params["enc_blocks"]``; each
+decoder layer (the extra ones too) then carries a cross-attention block
+(``ln_cross``, ``cross``) that attends to the encoder's output.
 
 Ported: layers of the ``gqa``, ``mla``, ``rglru``, ``mlstm``, ``slstm``
 and ``none`` mixers and the ``dense``, ``moe`` and ``none`` FFNs,
-``extra_layers``, the DeepSeek-V3 ``mtp`` head's parameters, and the
-serving side (prefill stack, ``serve_step``, the recurrent states in the
-cache).  The enc-dec architecture and the frontends raise
-``NotImplementedError`` naming their ROADMAP item.  Training
-(``train_loss``, ``chunked_xent``) waits for the training slice, and with
-it the MTP head's forward, which only ``train_loss`` runs.
+``extra_layers``, the encoder and cross attention (``arch="encdec"``,
+with the audio frontend stub: precomputed frames ``batch["src"]``), the
+vision frontend stub (patch embeddings ``batch["frontend"]`` prepended to
+the tokens), the DeepSeek-V3 ``mtp`` head's parameters, and the serving
+side (prefill stack, ``serve_step``, the recurrent states in the cache).
+Training (``train_loss``, ``chunked_xent``) waits for the training slice,
+and with it the MTP head's forward, which only ``train_loss`` runs.
 """
 from __future__ import annotations
 
@@ -99,24 +104,19 @@ class ModelConfig:
         return (len(self.pattern) * self.num_superblocks
                 + len(self.extra_layers))
 
-    def attn_cfg(self, spec: LayerSpec) -> attn.AttnConfig:
+    def attn_cfg(self, spec: LayerSpec,
+                 causal: bool = True) -> attn.AttnConfig:
         return attn.AttnConfig(
             d_model=self.d_model, num_heads=self.num_heads,
             num_kv_heads=self.num_kv_heads, head_dim=self.head_dim,
             rope_theta=self.rope_theta, rope_fraction=self.rope_fraction,
             qk_norm=self.qk_norm, attn_softcap=self.attn_softcap,
-            window=spec.window, query_scale=self.query_scale)
+            window=spec.window, query_scale=self.query_scale, causal=causal)
 
     def ffn_cfg(self) -> ffnmod.FFNConfig:
         return ffnmod.FFNConfig(self.d_model, self.d_ff, self.activation)
 
 
-# What waits, by the ROADMAP item (Queue 1) that ports it.
-_NOT_PORTED = {
-    "encdec": "item 6d (cross_forward / encdec)",
-    "audio": "item 6d (cross_forward / encdec)",
-    "vision": "item 6e (vision frontend)",
-}
 MIXERS = ("gqa", "mla", "rglru", "mlstm", "slstm", "none")
 FFNS = ("dense", "moe", "none")
 #: The mixers that run attention (a flash kernel launch a prefill layer).
@@ -125,27 +125,20 @@ ATTENTION_MIXERS = ("gqa", "mla")
 MTP_SPEC = LayerSpec("gqa", "dense")
 
 
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    item = _NOT_PORTED.get(key, "item 6 (the LM side)")
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"{item})")
-
-
 def _check_spec(spec: LayerSpec) -> None:
     if spec.mixer not in MIXERS:
-        raise _not_ported(f"mixer {spec.mixer!r}", spec.mixer)
+        raise NotImplementedError(f"mixer {spec.mixer!r} is not a layer "
+                                  f"kind of the model ({MIXERS})")
     if spec.ffn not in FFNS:
-        raise _not_ported(f"ffn {spec.ffn!r}", spec.ffn)
+        raise NotImplementedError(f"ffn {spec.ffn!r} is not a layer kind "
+                                  f"of the model ({FFNS})")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for any part of ``cfg`` the port lacks."""
-    for spec in cfg.pattern + cfg.extra_layers:
+    """Raise NotImplementedError for a layer kind the model does not know
+    (an unknown mixer or FFN)."""
+    for spec in cfg.pattern + cfg.extra_layers + cfg.enc_pattern:
         _check_spec(spec)
-    if cfg.arch != "decoder":
-        raise _not_ported(f"arch {cfg.arch!r}", cfg.arch)
-    if cfg.frontend is not None:
-        raise _not_ported(f"frontend {cfg.frontend!r}", cfg.frontend)
 
 
 def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
@@ -155,10 +148,26 @@ def layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
             + list(cfg.extra_layers))
 
 
-def attention_layers(cfg: ModelConfig) -> int:
-    """Layers of the stack whose prefill runs attention (the flash kernel
-    once each)."""
-    return sum(s.mixer in ATTENTION_MIXERS for s in layer_specs(cfg))
+def enc_layer_specs(cfg: ModelConfig) -> List[LayerSpec]:
+    """The encoder's specs in layer order (``params["enc_blocks"]``); none
+    for a decoder-only config."""
+    if cfg.arch != "encdec":
+        return []
+    return [spec for _ in range(cfg.enc_superblocks)
+            for spec in cfg.enc_pattern]
+
+
+def prefill_flash_launches(cfg: ModelConfig) -> int:
+    """Flash kernel launches of one prefill: one per attention layer of the
+    decoder stack; for an enc-dec config also one per encoder layer that
+    runs attention, and one per decoder layer (each has a cross-attention
+    block)."""
+    dec = layer_specs(cfg)
+    n = sum(s.mixer in ATTENTION_MIXERS for s in dec)
+    if cfg.arch == "encdec":
+        n += sum(s.mixer in ATTENTION_MIXERS for s in enc_layer_specs(cfg))
+        n += len(dec)
+    return n
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:
@@ -186,7 +195,7 @@ def check_on(params: torch.nn.Module, device: torch.device) -> None:
 # =============================================================================
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig,
-                spec: LayerSpec) -> dict:
+                spec: LayerSpec, cross: bool = False) -> dict:
     dt, dev = cfg.param_dtype, gen.device
     p: Dict[str, Any] = {"ln_mixer": layers.rmsnorm_init(cfg.d_model, dt,
                                                          dev)}
@@ -200,6 +209,9 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig,
         p["attn"] = rec.init_mlstm(gen, cfg.mlstm, dt)
     elif spec.mixer == "slstm":
         p["attn"] = rec.init_slstm(gen, cfg.slstm, dt)
+    if cross:
+        p["ln_cross"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
+        p["cross"] = attn.init_gqa(gen, cfg.attn_cfg(spec), dt)
     if spec.ffn != "none":
         p["ln_ffn"] = layers.rmsnorm_init(cfg.d_model, dt, dev)
         p["ffn"] = (moemod.init_moe(gen, cfg.moe, dt) if spec.ffn == "moe"
@@ -215,14 +227,20 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> layers.ParamTree:
     """Random weights drawn from ``gen``, on ``gen``'s device."""
     check_supported(cfg)
     dt = cfg.param_dtype
+    cross = cfg.arch == "encdec"
     tree: Dict[str, Any] = {
         "embed_vd": layers.embed_init(gen, cfg.vocab, cfg.d_model, dt),
-        "blocks": [_init_layer(gen, cfg, s) for s in layer_specs(cfg)],
+        "blocks": [_init_layer(gen, cfg, s, cross) for s in layer_specs(cfg)],
         "final_norm": layers.rmsnorm_init(cfg.d_model, dt, gen.device),
     }
     if not cfg.tie_embeddings:
         tree["unembed_dv"] = layers.dense_init(gen, cfg.d_model, cfg.vocab,
                                                dt)
+    if cross:
+        tree["enc_blocks"] = [_init_layer(gen, cfg, s)
+                              for s in enc_layer_specs(cfg)]
+        tree["enc_final_norm"] = layers.rmsnorm_init(cfg.d_model, dt,
+                                                     gen.device)
     if cfg.mtp:
         # The MTP head (DeepSeek-V3 §2.2): one GQA block over
         # [h; embed(next token)].  Its forward belongs to train_loss.
@@ -232,12 +250,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> layers.ParamTree:
     return layers.ParamTree(tree)
 
 
-def _layer_count(cfg: ModelConfig, spec: LayerSpec) -> int:
+def _gqa_count(cfg: ModelConfig) -> int:
     D, hd = cfg.d_model, cfg.head_dim
+    return (2 * D * hd * (cfg.num_heads + cfg.num_kv_heads)
+            + (2 * hd if cfg.qk_norm else 0))
+
+
+def _layer_count(cfg: ModelConfig, spec: LayerSpec,
+                 cross: bool = False) -> int:
+    D = cfg.d_model
     mixer = 0
     if spec.mixer == "gqa":
-        mixer = (2 * D * hd * (cfg.num_heads + cfg.num_kv_heads)
-                 + (2 * hd if cfg.qk_norm else 0))
+        mixer = _gqa_count(cfg)
     elif spec.mixer == "mla":
         mixer = attn.mla_param_count(cfg.mla)
     elif spec.mixer == "rglru":
@@ -252,6 +276,8 @@ def _layer_count(cfg: ModelConfig, spec: LayerSpec) -> int:
     elif spec.ffn == "dense":
         ffn = 3 * D * cfg.d_ff
     norms = (2 if cfg.use_post_norm else 1) * (1 + (spec.ffn != "none"))
+    if cross:
+        mixer += _gqa_count(cfg) + D          # cross and ln_cross
     return mixer + ffn + norms * D
 
 
@@ -261,8 +287,11 @@ def param_count(cfg: ModelConfig) -> int:
     D = cfg.d_model
     embed = cfg.vocab * D * (1 if cfg.tie_embeddings else 2)
     mtp = _layer_count(cfg, MTP_SPEC) + 2 * D * D if cfg.mtp else 0
-    return (embed + D + mtp
-            + sum(_layer_count(cfg, s) for s in layer_specs(cfg)))
+    cross = cfg.arch == "encdec"
+    enc = (sum(_layer_count(cfg, s) for s in enc_layer_specs(cfg)) + D
+           if cross else 0)
+    return (embed + D + mtp + enc
+            + sum(_layer_count(cfg, s, cross) for s in layer_specs(cfg)))
 
 
 # =============================================================================
@@ -275,22 +304,27 @@ def _norm(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                 positions: torch.Tensor, cache: Optional[dict] = None,
-                pos: Optional[int] = None
+                pos: Optional[int] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                causal: bool = True
                 ) -> Tuple[torch.Tensor, Optional[dict],
                            Union[torch.Tensor, float]]:
     """One residual block: the full sequence, or with ``cache`` one decode
-    step at ``pos``.  Returns (x, new_cache, moe_aux); moe_aux is an fp32
-    scalar tensor for a MoE FFN and the float 0.0 for a dense one, so a
-    dense step allocates nothing for it."""
+    step at ``pos``.  With ``enc_out`` [B,Senc,D], a layer that has a cross
+    block attends to it between the mixer and the FFN (no post-norm);
+    ``causal=False`` makes GQA bidirectional (the encoder).  Returns (x,
+    new_cache, moe_aux); moe_aux is an fp32 scalar tensor for a MoE FFN
+    and the float 0.0 for a dense one, so a dense step allocates nothing
+    for it."""
     _check_spec(spec)
     new_cache: Optional[dict] = None
     h = _norm(cfg, p["ln_mixer"], x)
     if spec.mixer == "gqa":
+        acfg = cfg.attn_cfg(spec, causal=causal)
         if cache is not None:
-            new_cache, h = attn.gqa_decode(p["attn"], cfg.attn_cfg(spec),
-                                           cache, h, pos)
+            new_cache, h = attn.gqa_decode(p["attn"], acfg, cache, h, pos)
         else:
-            h = attn.gqa_forward(p["attn"], cfg.attn_cfg(spec), h, positions)
+            h = attn.gqa_forward(p["attn"], acfg, h, positions)
     elif spec.mixer == "mla":
         if cache is not None:
             new_cache, h = attn.mla_decode(p["attn"], cfg.mla, cache, h, pos)
@@ -307,6 +341,9 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
     if cfg.use_post_norm:
         h = _norm(cfg, p["post_mixer"], h)
     x = x + h
+    if enc_out is not None and "cross" in p:
+        h = _norm(cfg, p["ln_cross"], x)
+        x = x + attn.cross_forward(p["cross"], cfg.attn_cfg(spec), h, enc_out)
     aux = 0.0
     if spec.ffn == "none":
         return x, new_cache, aux
@@ -325,23 +362,42 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
 # =============================================================================
 
 def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    if cfg.frontend is not None:
-        raise _not_ported(f"frontend {cfg.frontend!r}", cfg.frontend)
-    return layers.embed_lookup(params["embed_vd"], batch["tokens"],
-                               scale_by_dim=cfg.scale_embed).to(cfg.dtype)
+    """The token embeddings [B,St,D]; for the vision frontend the patch
+    embeddings ``batch["frontend"]`` [B,P,D] go first ([B,P+St,D]).  The
+    audio frontend's frames feed the encoder, not this sequence."""
+    x = layers.embed_lookup(params["embed_vd"], batch["tokens"],
+                            scale_by_dim=cfg.scale_embed).to(cfg.dtype)
+    if cfg.frontend == "vision":
+        # anyres patch embeddings prepended (stub frontend).
+        x = torch.cat([batch["frontend"].to(cfg.dtype), x], dim=1)
+    return x
 
 
 def _run_stack(params, cfg: ModelConfig, x: torch.Tensor,
-               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the decoder stack over a whole sequence: x [B,S,D].  Returns
-    (x, the summed MoE aux loss)."""
+               positions: torch.Tensor,
+               enc_out: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the decoder stack over a whole sequence: x [B,S,D], attending to
+    ``enc_out`` in each cross block.  Returns (x, the summed MoE aux
+    loss)."""
     check_supported(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, p in zip(layer_specs(cfg), params["blocks"]):
-        x, _, a = apply_layer(cfg, spec, p, x, positions)
+        x, _, a = apply_layer(cfg, spec, p, x, positions, enc_out=enc_out)
         if spec.ffn == "moe":
             aux = aux + a
     return x, aux
+
+
+def _run_encoder(params, cfg: ModelConfig, src: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """The encoder over frame embeddings src [B,Senc,D] at ``positions``
+    [B,Senc]: the ``enc_pattern`` layers, bidirectional, then
+    ``enc_final_norm`` (a plain RMSNorm, as JAX's)."""
+    x = src
+    for spec, p in zip(enc_layer_specs(cfg), params["enc_blocks"]):
+        x, _, _ = apply_layer(cfg, spec, p, x, positions, causal=False)
+    return layers.rmsnorm(params["enc_final_norm"], x)
 
 
 def _unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
@@ -380,11 +436,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def serve_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
-               pos: int) -> Tuple[dict, torch.Tensor]:
+               pos: int, enc_out: Optional[torch.Tensor] = None
+               ) -> Tuple[dict, torch.Tensor]:
     """One decode step.  tokens: [B,1]; pos: the current absolute position,
-    the same for the whole batch.  Updates ``cache`` in place (attention
-    writes its K/V slots; a recurrent layer's new state replaces its entry
-    of ``cache["blocks"]``) and returns (cache, logits [B,V] fp32)."""
+    the same for the whole batch; ``enc_out`` [B,Senc,D]: the encoder's
+    output, which every layer's cross block attends to (without it, an
+    enc-dec config's cross blocks are skipped, as in JAX).  Updates
+    ``cache`` in place (attention writes its K/V slots; a recurrent
+    layer's new state replaces its entry of ``cache["blocks"]``) and
+    returns (cache, logits [B,V] fp32)."""
     pos = int(pos)
     x = layers.embed_lookup(params["embed_vd"], tokens,
                             scale_by_dim=cfg.scale_embed).to(cfg.dtype)
@@ -393,7 +453,7 @@ def serve_step(params, cfg: ModelConfig, cache: dict, tokens: torch.Tensor,
     blocks = cache["blocks"]
     for i, (spec, p) in enumerate(zip(layer_specs(cfg), params["blocks"])):
         x, nc, _ = apply_layer(cfg, spec, p, x, positions, cache=blocks[i],
-                               pos=pos)
+                               pos=pos, enc_out=enc_out)
         if nc is not None:
             blocks[i] = nc
     x = layers.rmsnorm(params["final_norm"], x,

@@ -5,6 +5,14 @@ Continuous-batching-lite: requests are admitted into fixed slots of a
 ``serve_step`` one token at a time, and decode steps advance all slots
 together.  The full-sequence prefill on the flash kernel is
 ``launch.steps.build_prefill_step``.
+
+Like the JAX engine, whose jitted step is ``serve_step(p, cfg, c, t, pos)``
+with no encoder output, this engine passes ``serve_step`` no ``enc_out``
+and sees no frontend: it serves an enc-dec config (seamless-m4t-large-v2)
+with every cross-attention block skipped, and a vision config
+(llava-next-34b) on text tokens alone (ROADMAP reference caveat 7).  The
+encoder and the patches reach the model through ``build_prefill_step``
+and through ``build_serve_step``'s ``enc_out``.
 """
 from __future__ import annotations
 

@@ -109,7 +109,7 @@ def torch_model_config(jcfg):
                                     SLSTMConfig)
 
     kw = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg)}
-    for key in ("pattern", "extra_layers"):
+    for key in ("pattern", "extra_layers", "enc_pattern"):
         kw[key] = tuple(LayerSpec(**dataclasses.asdict(s)) for s in kw[key])
     for key, cls in (("mla", MLAConfig), ("moe", MoEConfig),
                      ("rglru", RGLRUConfig), ("mlstm", MLSTMConfig),

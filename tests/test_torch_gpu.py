@@ -411,6 +411,8 @@ FLASH_SHAPES = [
     (1, 4, 4, 33, 90, 8),        # small head dim
     (1, 16, 1, 128, 128, 256),   # recurrentgemma's MQA, d = dv = 256
     (2, 16, 1, 70, 130, 256),    # the same, ragged, Sq < Sk
+    (1, 14, 2, 128, 128, 128),   # llava-next-34b's G = 7
+    (2, 14, 2, 100, 157, 64),    # G = 7, ragged, Sq < Sk
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -458,6 +460,19 @@ def _flash_err(q, k, v, **kw):
 def test_flash_attention_kernel_shapes(cuda, B, H, K, Sq, Sk, d, dtype):
     assert _flash_err(*_qkv(cuda, B, H, K, Sq, Sk, d, dtype)) <= \
         FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,K,Sq,Sk,d", [
+    (1, 4, 4, 256, 96, 64),      # Sk ends inside a key tile
+    (2, 16, 16, 512, 128, 64),   # seamless's cross attention, cut
+    (1, 14, 2, 200, 77, 128),    # G = 7
+])
+def test_flash_attention_noncausal_sq_gt_sk(cuda, B, H, K, Sq, Sk, d, dtype):
+    """No mask with more queries than keys (delta = Sk - Sq < 0), as
+    seamless's cross attention runs it: every query sees every key."""
+    assert _flash_err(*_qkv(cuda, B, H, K, Sq, Sk, d, dtype),
+                      causal=False) <= FLASH_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

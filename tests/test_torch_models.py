@@ -1,12 +1,15 @@
 """The port's LM layers, attention and decoder stack against the JAX
 package on the CPU, in fp32, on the same numpy inputs and the same weights
 (JAX's ``init_params`` carried over by ``params_from_jax``): within 1e-5
-of the output's scale (at least 1).  GQA and MLA (prefill and absorbed
-decode), the dense and MoE FFNs, and the stack of every ported arch's
-``smoke()`` (the recurrent archs' with their extra layers, the
-recurrentgemma ring buffer wrapped, xlstm over two chunks).  Also the port's own prefill-path against decode parity
-(``tests/test_models_parity.py``'s contract, its ``mla`` config included)
-and its config registry against the JAX configs.
+of the output's scale (at least 1).  GQA (G = 7 among its groupings), MLA
+(prefill and absorbed decode) and cross attention, the dense and MoE
+FFNs, the encoder, and the stack of every arch's ``smoke()`` (the
+recurrent archs' with their extra layers, the recurrentgemma ring buffer
+wrapped, xlstm over two chunks, seamless's decoder with and without the
+encoder's output).  Also the port's own prefill-path against decode
+parity (``tests/test_models_parity.py``'s contract, its ``mla`` config
+included; llava's patches as the embeddings of a prompt prefix, seamless
+with its encoder) and its config registry against the JAX configs.
 """
 import dataclasses
 
@@ -48,7 +51,7 @@ TOL = 1e-5
 B, S, V = 2, 8, 64
 ARCHS = ["qwen3-4b", "gemma2-27b", "mistral-nemo-12b", "chatglm3-6b",
          "deepseek-v2-236b", "deepseek-v3-671b", "recurrentgemma-9b",
-         "xlstm-1.3b"]
+         "xlstm-1.3b", "seamless-m4t-large-v2", "llava-next-34b"]
 
 
 def _rand(*shape, seed=0):
@@ -72,6 +75,8 @@ MLA_KW = dict(d_model=32, num_heads=4, q_lora_rank=16, kv_lora_rank=8,
 # The configs of tests/test_models_parity.py and the ported archs' smoke().
 MODEL_CONFIGS = {
     "gqa": _jcfg(),
+    # llava-next-34b's grouping: 7 query heads a kv head.
+    "gqa_g7": _jcfg(num_heads=14, num_kv_heads=2),
     "gqa_window": _jcfg(pattern=(JLayerSpec("gqa", "dense", window=4),),
                         num_kv_heads=1),
     **{a: jax_configs.get_arch(a).smoke() for a in ARCHS},
@@ -88,7 +93,7 @@ def _fields(cfg):
         v = getattr(cfg, f.name)
         if f.name in ("dtype", "param_dtype"):
             v = str(v).replace("torch.", "").split(".")[-1].strip("'>")
-        elif f.name in ("pattern", "extra_layers"):
+        elif f.name in ("pattern", "extra_layers", "enc_pattern"):
             v = tuple(dataclasses.astuple(s) for s in v)
         elif (f.name in ("mla", "moe", "rglru", "mlstm", "slstm")
               and v is not None):
@@ -113,7 +118,20 @@ def test_registry_and_shapes():
     assert configs.SHAPES == {k: configs.ShapeCell(**dataclasses.asdict(v))
                               for k, v in jax_configs.SHAPES.items()}
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_arch("seamless-m4t-large-v2")
+        configs.get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("seamless-m4t-large-v2", 24 + 24 + 24), ("llava-next-34b", 60),
+    ("recurrentgemma-9b", 12), ("xlstm-1.3b", 0),
+])
+def test_prefill_flash_launches_of_the_full_configs(arch, want):
+    """A full-size prefill's flash launches, as the card's gates count
+    them: seamless's 72 (24 each for its encoder, self and cross
+    attention), llava's 60, one a local-attention layer for
+    recurrentgemma, none for xlstm."""
+    cfg = configs.get_arch(arch).full()
+    assert tmodels.prefill_flash_launches(cfg) == want
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -126,21 +144,73 @@ def test_param_count_matches_jax(arch):
     assert param_count(smoke) == sum(p.numel() for p in params.parameters())
 
 
+# The encoder of the enc-dec cases below: two bidirectional GQA layers.
+ENC_KW = {"enc_pattern": (LayerSpec("gqa", "dense"),), "enc_superblocks": 2}
+
+
 @pytest.mark.parametrize("kw", [
-    {"pattern": (LayerSpec("slstm", "dense"),), "frontend": "vision"},
-    {"pattern": (LayerSpec("gqa", "none"),), "arch": "encdec"},
+    {"pattern": (LayerSpec("slstm", "dense"),), "frontend": "vision",
+     "frontend_tokens": 4},
+    {"pattern": (LayerSpec("gqa", "none"),), "arch": "encdec", **ENC_KW},
     {"pattern": (LayerSpec("rglru", "dense"),), "frontend": "audio"},
-    {"pattern": (LayerSpec("mlstm", "none"),), "arch": "encdec"},
-    {"extra_layers": (LayerSpec("gqa", "dense"),), "frontend": "vision"},
-    {"arch": "encdec"}, {"frontend": "vision"}, {"frontend": "audio"},
+    {"pattern": (LayerSpec("mlstm", "none"),), "arch": "encdec", **ENC_KW},
+    {"extra_layers": (LayerSpec("gqa", "dense"),), "frontend": "vision",
+     "frontend_tokens": 4},
+    {"arch": "encdec", **ENC_KW}, {"frontend": "vision",
+                                   "frontend_tokens": 4},
+    {"frontend": "audio"},
 ])
 def test_unported_parts_raise(kw):
-    """The enc-dec stack and the frontends, alone or beside a ported
-    layer kind (the recurrent mixers, ffn ``none``, ``extra_layers``):
-    the refusal names the ROADMAP item that ports them."""
-    cfg = dataclasses.replace(configs.get_arch("qwen3-4b").smoke(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(torch.Generator().manual_seed(0), cfg)
+    """The name is kept from when the enc-dec stack and the frontends were
+    refused, so that each case keeps its node ID (``kw0`` .. ``kw7``); the
+    cases now build.  Each (the enc-dec stack or a frontend, alone or
+    beside a recurrent mixer, ffn ``none`` or ``extra_layers``, on
+    qwen3-4b's ``smoke()``; the recurrent mixers' nested configs from
+    ``_formerly_unported``) builds in the port with JAX's parameter count,
+    and its prefill step, given ``src`` frames or ``frontend`` patches
+    where the config takes them, matches JAX's with JAX's weights."""
+    def both(m):
+        out = {}
+        for key, value in kw.items():
+            if key in ("pattern", "extra_layers", "enc_pattern"):
+                value = tuple(m.LayerSpec(**dataclasses.asdict(s))
+                              for s in value)
+            out[key] = value
+        for spec in out.get("pattern", ()):
+            if spec.mixer in ("rglru", "mlstm", "slstm"):
+                nested = _formerly_unported(spec.mixer, m)
+                out[spec.mixer] = nested[spec.mixer]
+        return out
+
+    cfg = dataclasses.replace(configs.get_arch("qwen3-4b").smoke(),
+                              **both(tmodels))
+    jcfg = dataclasses.replace(jax_configs.get_arch("qwen3-4b").smoke(),
+                               **both(jmodels))
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    n = sum(p.numel() for p in params.parameters())
+    assert n == param_count(cfg) == j_param_count(jcfg)
+    jp = j_init_params(jax.random.PRNGKey(5), jcfg)
+    p = params_from_jax(_np_tree(jp), cfg, device="cpu")
+    batch = _prefill_batch(cfg, np.random.default_rng(6), 16)
+    want = j_build_prefill_step(jcfg, None)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = build_prefill_step(cfg, device="cpu")(p, batch)
+    assert got.shape == (B, cfg.vocab)
+    assert scaled_err(got, want) <= TOL
+
+
+def _prefill_batch(cfg, rng, positions, batch=B):
+    """A prefill step's inputs over ``positions`` positions, drawn from
+    ``rng`` in the shapes of ``prefill_input_shapes``: tokens, plus patch
+    embeddings before them (vision) or frame embeddings for the encoder
+    (enc-dec)."""
+    from repro_torch.configs.base import prefill_input_shapes
+
+    shapes = prefill_input_shapes(cfg, batch, positions)
+    out = {"tokens": rng.integers(0, cfg.vocab, shapes.pop("tokens"))}
+    out.update({k: rng.standard_normal(shape, dtype=np.float32)
+                for k, shape in shapes.items()})
+    return out
 
 
 # The parts that test_unported_parts_raise refused before they were
@@ -284,6 +354,8 @@ def test_attention_core_v_head_dim_matches_jax(kw):
 
 ATTN_CONFIGS = {
     "qk_norm": dict(qk_norm=True, rope_theta=1e6),
+    # llava-next-34b's grouping (G = 7).
+    "g7": dict(num_heads=14, num_kv_heads=2, rope_theta=5e6),
     "window_softcap": dict(window=5, attn_softcap=50.0, query_scale=0.25),
     "half_rope_mqa": dict(rope_fraction=0.5, num_kv_heads=1),
 }
@@ -376,6 +448,29 @@ def test_mla_decode_matches_jax(name):
             assert scaled_err(cache[key], jcache[key]) <= TOL
 
 
+@pytest.mark.parametrize("H,K,Sq,Sk,query_scale", [
+    (4, 4, 12, 5, None),          # G = 1, Sq > Sk (seamless's prefill)
+    (4, 4, 1, 7, None),           # G = 1, one decode query
+    (14, 2, 6, 10, 0.25),         # G = 7, Sq < Sk; query_scale unused
+    (4, 2, 9, 3, None),           # G = 2, Sq > Sk
+])
+def test_cross_forward_matches_jax(H, K, Sq, Sk, query_scale):
+    """Cross attention: q from the decoder stream, k and v from the
+    encoder's output, no mask (every query sees every key, Sq > Sk
+    included), scale 1/sqrt(head_dim) even with ``query_scale`` set."""
+    kw = dict(d_model=32, num_heads=H, num_kv_heads=K, head_dim=8,
+              query_scale=query_scale)
+    jcfg, cfg = jattn.AttnConfig(**kw), attn.AttnConfig(**kw)
+    jp = jattn.init_gqa(jax.random.PRNGKey(4), jcfg)
+    p = tree_from_numpy(_np_tree(jp), device="cpu")
+    x, enc = _rand(2, Sq, 32), _rand(2, Sk, 32, seed=1)
+    want = jattn.cross_forward(jp, jcfg, jnp.asarray(x), jnp.asarray(enc))
+    got = attn.cross_forward(p, cfg, torch.from_numpy(x),
+                             torch.from_numpy(enc))
+    assert got.shape == (2, Sq, 32)
+    assert scaled_err(got, want) <= TOL
+
+
 # -- the stack ----------------------------------------------------------------
 
 def _params(name, seed=0):
@@ -424,6 +519,94 @@ def test_params_from_jax_appends_the_extra_layers():
     assert param_count(cfg) == j_param_count(jcfg)
 
 
+def _jax_encoder(jp, jcfg, src):
+    pos = jnp.broadcast_to(jnp.arange(src.shape[1]), src.shape[:2])
+    return jmodels.transformer._run_encoder(jp, jcfg, jnp.asarray(src), pos)
+
+
+def _encoder(p, cfg, src):
+    pos = torch.arange(src.shape[1]).expand(src.shape[:2])
+    return T._run_encoder(p, cfg, torch.from_numpy(src), pos)
+
+
+def test_params_from_jax_unstacks_the_encoder():
+    """seamless's encoder super-blocks go into ``enc_blocks`` in layer
+    order; every decoder layer carries its ``ln_cross`` and ``cross``
+    leaves; ``enc_final_norm`` carries over."""
+    jcfg, jp, cfg, p = _params("seamless-m4t-large-v2")
+    assert len(p["enc_blocks"]) == cfg.enc_superblocks * len(cfg.enc_pattern)
+    for sb in range(cfg.enc_superblocks):
+        for key in ("wq_dhk", "wo_hkd"):
+            np.testing.assert_array_equal(
+                p["enc_blocks"][sb]["attn"][key].numpy(),
+                np.asarray(jp["enc_blocks"]["p0"]["attn"][key][sb]))
+        assert "cross" not in p["enc_blocks"][sb]
+    for sb in range(cfg.num_superblocks):
+        for key in ("wq_dhk", "wk_dkh", "wv_dkh", "wo_hkd"):
+            np.testing.assert_array_equal(
+                p["blocks"][sb]["cross"][key].numpy(),
+                np.asarray(jp["blocks"]["p0"]["cross"][key][sb]))
+        np.testing.assert_array_equal(
+            p["blocks"][sb]["ln_cross"]["scale"].numpy(),
+            np.asarray(jp["blocks"]["p0"]["ln_cross"]["scale"][sb]))
+    np.testing.assert_array_equal(p["enc_final_norm"]["scale"].numpy(),
+                                  np.asarray(jp["enc_final_norm"]["scale"]))
+    assert sum(t.numel() for t in p.parameters()) == j_param_count(jcfg)
+
+
+def test_run_encoder_matches_jax():
+    """seamless's encoder: bidirectional GQA layers over the frames, then
+    ``enc_final_norm``."""
+    jcfg, jp, cfg, p = _params("seamless-m4t-large-v2", seed=3)
+    src = _rand(B, 8, cfg.d_model, seed=4)
+    got = _encoder(p, cfg, src)
+    assert got.shape == (B, 8, cfg.d_model)
+    assert scaled_err(got, _jax_encoder(jp, jcfg, src)) <= TOL
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_apply_layer_with_enc_out_matches_jax(layer):
+    """A decoder block of seamless with the encoder's output: the cross
+    block sits between the mixer's residual and the FFN."""
+    jcfg, jp, cfg, p = _params("seamless-m4t-large-v2", seed=3)
+    x = _rand(B, S, cfg.d_model, seed=5)
+    enc = _rand(B, 5, cfg.d_model, seed=6)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    jblock = jax.tree.map(lambda a: a[layer], jp["blocks"]["p0"])
+    want, _, _ = j_apply_layer(jcfg, jcfg.pattern[0], jblock, jnp.asarray(x),
+                               jnp.asarray(pos), enc_out=jnp.asarray(enc))
+    got, _, _ = T.apply_layer(cfg, cfg.pattern[0], p["blocks"][layer],
+                              torch.from_numpy(x),
+                              torch.from_numpy(pos.copy()),
+                              enc_out=torch.from_numpy(enc))
+    assert scaled_err(got, want) <= TOL
+    plain, _, _ = T.apply_layer(cfg, cfg.pattern[0], p["blocks"][layer],
+                                torch.from_numpy(x),
+                                torch.from_numpy(pos.copy()))
+    assert scaled_err(plain, want) > 1e-3           # the cross block acts
+
+
+def test_serve_step_with_enc_out_matches_jax():
+    """seamless's decode with the encoder's output: logits at every step
+    equal JAX's, and differ from a decode without it."""
+    jcfg, jp, cfg, p = _params("seamless-m4t-large-v2", seed=3)
+    src = _rand(B, 6, cfg.d_model, seed=7)
+    jenc, enc = _jax_encoder(jp, jcfg, src), _encoder(p, cfg, src)
+    toks = _tokens(cfg, seed=8)
+    jcache = j_init_cache(jcfg, B, S)
+    cache = init_cache(cfg, B, S, device="cpu")
+    bare = init_cache(cfg, B, S, device="cpu")
+    for t in range(S):
+        tok = toks[:, t:t + 1]
+        jcache, want = j_serve_step(jp, jcfg, jcache, jnp.asarray(tok),
+                                    jnp.int32(t), enc_out=jenc)
+        cache, got = serve_step(p, cfg, cache, torch.from_numpy(tok), t,
+                                enc_out=enc)
+        assert scaled_err(got, want) <= TOL, t
+        bare, without = serve_step(p, cfg, bare, torch.from_numpy(tok), t)
+        assert scaled_err(without, want) > 1e-3, t
+
+
 @pytest.mark.parametrize("name", sorted(MODEL_CONFIGS))
 def test_serve_step_matches_jax(name):
     jcfg, jp, cfg, p = _params(name)
@@ -463,11 +646,20 @@ def test_apply_layer_aux_matches_jax(name):
         assert float(jaux) == 0.0
 
 
-def _full_logits(params, cfg, toks):
+def _full_logits(params, cfg, toks, enc_out=None):
+    """Logits at every position of the full-sequence path.  A vision
+    config's patches are the embeddings of the first ``frontend_tokens``
+    tokens, the rest go as tokens: the same sequence as decoding them
+    all."""
     toks = torch.from_numpy(toks)
-    x = T._embed_inputs(params, cfg, {"tokens": toks})
+    batch = {"tokens": toks}
+    if cfg.frontend == "vision":
+        P = cfg.frontend_tokens
+        batch = {"tokens": toks[:, P:], "frontend": layers.embed_lookup(
+            params["embed_vd"], toks[:, :P], cfg.scale_embed)}
+    x = T._embed_inputs(params, cfg, batch)
     pos = torch.arange(toks.shape[1]).expand(toks.shape)
-    x, _ = T._run_stack(params, cfg, x, pos)
+    x, _ = T._run_stack(params, cfg, x, pos, enc_out)
     x = layers.rmsnorm(params["final_norm"], x,
                        zero_centered=cfg.zero_centered_norm)
     return layers.softcap(layers.unembed(T._unembed_table(params, cfg), x),
@@ -479,19 +671,27 @@ def test_prefill_path_decode_parity(name):
     """tests/test_models_parity.py's contract, in the port alone: the
     full-sequence path (flash attention op) equals cached decode.  An MoE
     config gets capacity_factor = num_experts / top_k here, so the prefill
-    drops no token (decode, one token a group, drops none either)."""
+    drops no token (decode, one token a group, drops none either).
+    llava's prefill takes the first tokens' embeddings as its patches;
+    seamless's both paths attend to one encoder output."""
     cfg = _torch_cfg(MODEL_CONFIGS[name])
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
     params = init_params(torch.Generator().manual_seed(0), cfg)
     toks = _tokens(cfg, seed=1)
-    full = _full_logits(params, cfg, toks)
+    enc_out = None
+    if cfg.arch == "encdec":
+        src = torch.from_numpy(_rand(B, 5, cfg.d_model, seed=2))
+        enc_out = T._run_encoder(params, cfg, src, torch.arange(5).expand(
+            B, 5))
+    full = _full_logits(params, cfg, toks, enc_out)
     cache = init_cache(cfg, B, S, device="cpu")
     dec = []
     for t in range(S):
         cache, lg = serve_step(params, cfg, cache,
-                               torch.from_numpy(toks[:, t:t + 1]), t)
+                               torch.from_numpy(toks[:, t:t + 1]), t,
+                               enc_out=enc_out)
         dec.append(lg)
     dec = torch.stack(dec, dim=1)
     scale = float(full.abs().max()) + 1e-9

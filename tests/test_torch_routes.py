@@ -327,6 +327,85 @@ def test_the_recurrentgemma_prefill_hands_the_kernel_tensor_core_operands(
             assert ks == vs == (2, 1, 24, 256)
 
 
+def test_llava_and_seamless_views_take_the_tensor_cores():
+    """At full width, as the projections give them ([B, S, H, d] views of
+    the [B, S, H * d] products, seen as [B, H, S, d]; ``torch.empty``, so
+    nothing is touched): llava's q [4, 56, 2048, 128] on k, v
+    [4, 8, 2048, 128] (G = 7), and seamless's cross attention, q
+    [4, 16, 2048, 64] on the encoder's k, v [4, 16, 512, 64]."""
+    def proj(B, S, H, d):
+        return torch.empty(B, S, H * d, dtype=torch.bfloat16).view(
+            B, S, H, d).transpose(1, 2)
+
+    llava = get_arch("llava-next-34b").full()
+    H, K, d = llava.num_heads, llava.num_kv_heads, llava.head_dim
+    assert (H, K, H // K, d) == (56, 8, 7, 128)
+    assert flash.route(proj(4, 2048, H, d), proj(4, 2048, K, d),
+                       proj(4, 2048, K, d)) == "tensor_core"
+    seamless = get_arch("seamless-m4t-large-v2").full()
+    H, d = seamless.num_heads, seamless.head_dim
+    assert (H, seamless.num_kv_heads, d) == (16, 16, 64)
+    assert flash.route(proj(4, 2048, H, d), proj(4, 512, H, d),
+                       proj(4, 512, H, d)) == "tensor_core"
+
+
+def _spy_prefill(monkeypatch, cfg, batch):
+    """(route, causal, q shape, k shape) of every flash call a bf16 prefill
+    step of ``cfg`` makes on the CPU."""
+    seen = []
+    op = attention.flash_attention_op
+
+    def spy(q, k, v, **kw):
+        seen.append((flash.route(q, k, v), kw["causal"], tuple(q.shape),
+                     tuple(k.shape)))
+        return op(q, k, v, **kw)
+
+    monkeypatch.setattr(attention, "flash_attention_op", spy)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    logits = build_prefill_step(cfg, "cpu")(params, batch)
+    assert bool(torch.isfinite(logits.float()).all())
+    return seen
+
+
+def test_the_llava_prefill_hands_the_kernel_tensor_core_operands(
+        monkeypatch):
+    """llava's smoke() at its full head dim (128) and grouping (14 query
+    heads on 2 kv heads, G = 7), bf16, 4 patches before 20 tokens: each
+    layer's call takes the tensor cores, causal, over all 24 positions."""
+    cfg = dataclasses.replace(get_arch("llava-next-34b").smoke(),
+                              head_dim=128, num_heads=14, num_kv_heads=2,
+                              dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 20)),
+             "frontend": rng.standard_normal((2, 4, cfg.d_model))}
+    seen = _spy_prefill(monkeypatch, cfg, batch)
+    assert seen == [("tensor_core", True, (2, 14, 24, 128),
+                     (2, 2, 24, 128))] * cfg.num_layers
+
+
+def test_the_seamless_prefill_hands_the_kernel_tensor_core_operands(
+        monkeypatch):
+    """seamless's smoke() at its full head dim (64), bf16, 24 tokens and 6
+    frames: the encoder's layers (non-causal, 6 on 6), then each decoder
+    layer's self attention (causal, 24 on 24) and cross attention
+    (non-causal, 24 queries on the encoder's 6 keys), all on the tensor
+    cores."""
+    cfg = dataclasses.replace(get_arch("seamless-m4t-large-v2").smoke(),
+                              head_dim=64, dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 24)),
+             "src": rng.standard_normal((2, 6, cfg.d_model))}
+    seen = _spy_prefill(monkeypatch, cfg, batch)
+    H = cfg.num_heads
+    enc = ("tensor_core", False, (2, H, 6, 64), (2, H, 6, 64))
+    self_attn = ("tensor_core", True, (2, H, 24, 64), (2, H, 24, 64))
+    cross = ("tensor_core", False, (2, H, 24, 64), (2, H, 6, 64))
+    assert seen == ([enc] * cfg.enc_superblocks
+                    + [self_attn, cross] * cfg.num_superblocks)
+
+
 @pytest.mark.parametrize("N,want", [(1, "narrow"), (4, "narrow"),
                                     (16, "narrow"), (17, "tiled"),
                                     (80, "tiled")])

@@ -1,10 +1,12 @@
 """The port's serving side on the CPU: the ServingEngine's contracts (those
 of ``tests/test_serving.py``), its greedy tokens and logits against the
-JAX engine's (also for chatglm3-6b's, the DeepSeek archs' and the
-recurrent archs' ``smoke()``; like JAX's, the engine carries a recurrent
-state from one request to the next),
-the prefill step against JAX's ``build_prefill_step``, the device rule of
-every entry point, and the serving CLI.
+JAX engine's (also for chatglm3-6b's, the DeepSeek archs', the
+recurrent archs', seamless's and llava's ``smoke()``; like JAX's, the
+engine carries a recurrent state from one request to the next, and passes
+no encoder output and no patches), the prefill step against JAX's
+``build_prefill_step`` (with seamless's frames and llava's patches), the
+decode step with an encoder output, the device rule of every entry point,
+and the serving CLI.
 """
 import dataclasses
 import json
@@ -41,6 +43,9 @@ TOL = 1e-5
 # tests/test_serving.py's model.
 NEW_ARCHS = ["chatglm3-6b", "deepseek-v2-236b", "deepseek-v3-671b"]
 RECURRENT_ARCHS = ["recurrentgemma-9b", "xlstm-1.3b"]
+# The enc-dec arch (audio frames for the encoder) and the vision arch
+# (patches before the tokens).
+FRONTEND_ARCHS = ["seamless-m4t-large-v2", "llava-next-34b"]
 JCFG = JModelConfig(name="t", d_model=32, vocab=V,
                     pattern=(JLayerSpec("gqa", "dense"),),
                     num_superblocks=2, num_heads=4, num_kv_heads=2,
@@ -167,10 +172,12 @@ def test_greedy_tokens_and_logits_match_jax(jax_params, params, seed):
     assert np.array_equal(got[sure], want[sure])
 
 
-@pytest.mark.parametrize("arch", NEW_ARCHS + RECURRENT_ARCHS)
+@pytest.mark.parametrize("arch", NEW_ARCHS + RECURRENT_ARCHS + FRONTEND_ARCHS)
 def test_smoke_arch_greedy_tokens_match_jax(arch):
     """The engine's greedy continuation of an arch's smoke() (MLA + MoE
-    for DeepSeek) equals the JAX engine's, with JAX's weights."""
+    for DeepSeek) equals the JAX engine's, with JAX's weights.  Neither
+    engine gives seamless an encoder output or llava patches (ROADMAP
+    reference caveat 7)."""
     jcfg = jax_configs.get_arch(arch).smoke()
     cfg = torch_model_config(jcfg)
     jp = j_init_params(jax.random.PRNGKey(0), jcfg)
@@ -186,8 +193,11 @@ def test_smoke_arch_greedy_tokens_match_jax(arch):
 
 @pytest.mark.parametrize("name", ["gqa", "gqa_window", "qwen3-4b",
                                   "gemma2-27b", "mistral-nemo-12b",
-                                  *NEW_ARCHS, *RECURRENT_ARCHS])
+                                  *NEW_ARCHS, *RECURRENT_ARCHS,
+                                  *FRONTEND_ARCHS])
 def test_prefill_step_matches_jax(name):
+    """Over 3 sequences of 16 positions: seamless's encoder over 4 frames
+    (``src``), llava's 4 patches (``frontend``) before 12 tokens."""
     if name.startswith("gqa"):
         window = 4 if name == "gqa_window" else None
         jcfg = JModelConfig(**{**JCFG.__dict__, "pattern": (
@@ -197,9 +207,18 @@ def test_prefill_step_matches_jax(name):
     cfg = torch_model_config(jcfg)
     jp = j_init_params(jax.random.PRNGKey(1), jcfg)
     p = params_from_jax(np_tree(jp), cfg, device="cpu")
-    toks = np.random.default_rng(2).integers(0, cfg.vocab, (3, 16))
-    want = j_build_prefill_step(jcfg, None)(jp, {"tokens": jnp.asarray(toks)})
-    got = build_prefill_step(cfg, device="cpu")(p, {"tokens": toks})
+    rng = np.random.default_rng(2)
+    P = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    batch = {"tokens": rng.integers(0, cfg.vocab, (3, 16 - P))}
+    if P:
+        batch["frontend"] = rng.standard_normal((3, P, cfg.d_model),
+                                                dtype=np.float32)
+    if cfg.arch == "encdec":
+        batch["src"] = rng.standard_normal((3, 4, cfg.d_model),
+                                           dtype=np.float32)
+    want = j_build_prefill_step(jcfg, None)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = build_prefill_step(cfg, device="cpu")(p, batch)
     assert got.shape == (3, cfg.vocab) and got.dtype == torch.float32
     assert scaled_err(got, want) <= TOL
 
@@ -240,6 +259,34 @@ def test_build_serve_step_is_serve_step(params):
         assert torch.equal(la, lb)
 
 
+def test_build_serve_step_passes_enc_out():
+    """seamless's decode step attends to the encoder output it is given,
+    as JAX's ``build_serve_step`` does."""
+    from repro.launch.steps import build_serve_step as j_build_serve_step
+    from repro.models import init_cache as j_init_cache
+    from repro.models import transformer as jT
+    from repro_torch.models import transformer as T
+
+    jcfg = jax_configs.get_arch("seamless-m4t-large-v2").smoke()
+    cfg = torch_model_config(jcfg)
+    jp = j_init_params(jax.random.PRNGKey(2), jcfg)
+    p = params_from_jax(np_tree(jp), cfg, device="cpu")
+    src = np.random.default_rng(3).standard_normal((B, 4, cfg.d_model),
+                                                   dtype=np.float32)
+    jenc = jT._run_encoder(jp, jcfg, jnp.asarray(src),
+                           jnp.broadcast_to(jnp.arange(4), (B, 4)))
+    enc = T._run_encoder(p, cfg, torch.from_numpy(src),
+                         torch.arange(4).expand(B, 4))
+    jstep, step = j_build_serve_step(jcfg), build_serve_step(cfg, "cpu")
+    jcache, cache = j_init_cache(jcfg, B, 8), init_cache(cfg, B, 8, "cpu")
+    toks = _prompts(4)
+    for t in range(4):
+        jcache, want = jstep(jp, jcache, jnp.asarray(toks[:, t:t + 1]),
+                             jnp.int32(t), jenc)
+        cache, got = step(p, cache, toks[:, t:t + 1], t, enc_out=enc)
+        assert scaled_err(got, want) <= TOL, t
+
+
 # -- the device rule ----------------------------------------------------------
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(params,
@@ -268,7 +315,7 @@ def test_engine_refuses_params_on_another_device(params):
 # -- the CLI ------------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b", *NEW_ARCHS,
-                                  *RECURRENT_ARCHS])
+                                  *RECURRENT_ARCHS, *FRONTEND_ARCHS])
 def test_serve_cli_smoke_on_cpu(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
@@ -278,6 +325,10 @@ def test_serve_cli_smoke_on_cpu(arch):
     assert out.returncode == 0, out.stderr
     assert "prefill (4, 8) on cpu" in out.stdout
     assert "generated (4, 4)" in out.stdout
+    inputs = {"seamless-m4t-large-v2": "tokens (4, 8), src (4, 2, 64)",
+              "llava-next-34b": "tokens (4, 4), frontend (4, 4, 64)"}
+    assert f"prefill inputs: {inputs.get(arch, 'tokens (4, 8)')}" in \
+        out.stdout
 
 
 def test_decode_step_script_on_cpu():

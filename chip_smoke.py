@@ -128,6 +128,31 @@ Phases (any failure exits non-zero before the final line):
    encoder's output over 512 frames), llava 2 layers (the prefill's 576
    patches are the embeddings of a 576-token prompt prefix, decode runs
    the 608 tokens).
+5b. Training (``[train]`` lines, after the LM rows; its flash launches
+   stay off the ``kernels`` line, whose counts are the serve path's).
+   (a) qwen3-4b ``full()`` in bf16 (4.02 B parameters) taking AdamW steps
+   (JAX's defaults) through ``build_train_step`` at 4 x 2048 tokens from
+   the port's pipeline (seed 0): one warm-up step and four timed, each on
+   a fresh batch, printing each step's loss, wall seconds, tokens/s and
+   MFU (6·N·T plus the attention's products, forward and backward, over
+   the wall time, against 989 TFLOP/s), then one step under the profiler
+   (device ms, by kernel class and the top kernels), one AdamW update
+   alone, and the peak device bytes.  Gates: every loss finite, each
+   step's 72 flash launches (``train_flash_launches``: each layer's
+   forward and its recompute) all on the tensor cores, the peak within
+   76 GB.  (b) fp32 at full width and cut depth (qwen3-4b 2 layers,
+   gemma2-27b one super-block: softcaps, window, post-norms) on 1 x 2048
+   tokens: ``train_loss`` and every leaf's gradient with the flash kernel
+   forward and the backward of ``kernels/flash_attention/backward.py``
+   against autograd of ``attention_ref``: the loss within 1e-5 relative,
+   each leaf within 1e-4 of its norm.  (c) The flash op alone at each
+   tensor-core shape of rows 7 to 7e, batch 1: dq, dk, dv in bf16 within
+   twice the error of autograd of ``attention_ref`` on the same bf16
+   operands, both from fp32; the backward's time at (a)'s shape beside
+   the forward's.  (d) The Trainer on qwen3-4b ``smoke()`` in fp32
+   (AdamW, lr 1e-3): 6 steps saving every 2, killed after step 3 and
+   resumed under ``run_with_restarts``, the same params bit for bit as an
+   uninterrupted run; and 30 steps on one batch (lr 3e-3) halve the loss.
 
 6. Observability and snapshots (``[obs]`` lines; nothing compiled again
    that phase 4 compiled).  (a) The obs smoke's logic
@@ -252,6 +277,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -384,6 +410,33 @@ SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES = 16, 64, PREFILL_LEN // 4
 # and in bf16 at the tensor cores' two.
 FLASH_FP32_DIMS = (32, 64, 128)
 FLASH_BF16_DIMS = (128, 64)
+# The [train] phase: qwen3-4b full() in bf16 takes AdamW steps (JAX's
+# defaults) at the prefill's 4 × 2048 tokens, from the port's pipeline:
+# one warm-up step and four timed, each on a fresh batch.  Its memory from
+# the code: bf16 params 8.04 GB, bf16 grads 8.04 GB and fp32 moments 32.2
+# GB (48.3 GB), the 36 saved layer inputs 1.51 GB, one layer's recompute,
+# one 512-row cross-entropy chunk (fp32 logits [4, 512, 151936], 1.24 GB)
+# and the fp32 table copy of `unembed` (1.56 GB): about 60 GB of the 80.
+TRAIN_ARCH = LM_ARCH
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS = PREFILL_BATCH, PREFILL_LEN, 36
+TRAIN_WARMUP, TRAIN_STEPS = 1, 4
+TRAIN_PEAK_LIMIT = 76e9
+# Gradient parity at cut depth and full width, fp32, 1 × 2048 tokens:
+# qwen3-4b's first 2 layers; gemma2-27b's first super-block (a local and a
+# global layer: softcap 50, window 4096, final softcap 30).
+GRAD_PARITY = (("qwen3-4b", 2), ("gemma2-27b", 1))
+GRAD_SEQ = PREFILL_LEN
+# The flash op's gradient at each tensor-core shape of the serve rows,
+# batch 1: (row, (B, H, K, Sq, Sk, d, dv), keywords).
+FLASH_GRAD_CASES = (
+    ("7", (1, 32, 8, 2048, 2048, 128, 128), {}),
+    ("7b", (1, 128, 128, 2048, 2048, 192, 128), {}),
+    ("7c", (1, 16, 1, 2048, 2048, 256, 256), {"window": HD256_WINDOW}),
+    ("7d", (1, G7_HEADS, G7_KV_HEADS, 2048, 2048, 128, 128), {}),
+    ("7e encoder", (1, 16, 16, 512, 512, 64, 64), {"causal": False}),
+    ("7e decoder", (1, 16, 16, 2048, 2048, 64, 64), {}),
+    ("7e cross", (1, 16, 16, 2048, 512, 64, 64), {"causal": False}),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -1999,6 +2052,392 @@ def lm_rows_phase(dev) -> dict:
     return rows
 
 
+# -- phase 5b: training -----------------------------------------------------
+
+def train_step_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step (no recompute): 6·N·T, plus the
+    attention's score and value products, forward and backward (three
+    times the forward's 2·(d + dv) a visible pair and head)."""
+    from repro_torch.models import param_count
+    from repro_torch.models.transformer import layer_specs
+
+    n_attn = sum(s.mixer == "gqa" for s in layer_specs(cfg))
+    attn = (3 * 2 * batch * cfg.num_heads * 2 * cfg.head_dim
+            * visible_pairs(seq, seq) * n_attn)
+    return 6.0 * param_count(cfg) * batch * seq + attn
+
+
+#: Kernel classes of a training step's profile, by name: the first class
+#: whose every word a kernel's name holds.  fp32 products run as SIMT
+#: SGEMM (``sgemm``) or FFMA xmma (``f32f32_f32f32``) kernels; cuBLAS's
+#: bf16 products on Hopper as ``nvjet`` kernels.
+KERNEL_CLASSES = (("flash_forward", ("flash_sm90",)),
+                  ("fp32_gemm", ("sgemm",)),
+                  ("fp32_gemm", ("f32f32_f32f32",)),
+                  ("bf16_gemm", ("nvjet",)),
+                  ("bf16_gemm", ("gemm", "bf16")))
+
+
+def train_step_profile(fn) -> dict:
+    """``device_breakdown`` of one call of ``fn`` with its kernels summed
+    by ``KERNEL_CLASSES`` (the rest as ``other``)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(([e.key, e.count, e.device_time_total / 1e3]
+                   for e in prof.key_averages()
+                   if e.count and e.device_time_total > 0),
+                  key=lambda r: -r[2])
+    ms, launches = {}, {}
+    for name, count, t in rows:
+        cls = next((c for c, words in KERNEL_CLASSES
+                    if all(w in name for w in words)), "other")
+        ms[cls] = ms.get(cls, 0.0) + t
+        launches[cls] = launches.get(cls, 0) + count
+    return {"device_ms": sum(r[2] for r in rows), "by_class": ms,
+            "launches_by_class": launches,
+            "top": [[r[0][:90], r[1], r[2]] for r in rows[:12]]}
+
+
+def train_full_width(dev) -> dict:
+    """(a) qwen3-4b ``full()`` in bf16 taking AdamW steps (JAX's defaults)
+    at TRAIN_BATCH × TRAIN_SEQ tokens from the port's pipeline (seed 0):
+    TRAIN_WARMUP + TRAIN_STEPS steps, each on a fresh batch, then one more
+    under the profiler.  Gates: every loss finite, each step's flash
+    launches ``train_flash_launches(cfg)``, all on the tensor cores, and
+    the peak device bytes within TRAIN_PEAK_LIMIT."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import param_count, train_flash_launches
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_update
+
+    cfg = get_arch(TRAIN_ARCH).full()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, "adamw", device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = build_train_step(cfg, "adamw", device=dev)
+    flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    want = train_flash_launches(cfg)
+    pipe = make_pipeline(data_config(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    steps = []
+    try:
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            batch = next(pipe)
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            steps.append({"step": i + 1, "warmup": i < TRAIN_WARMUP,
+                          "loss": loss, "wall_s": wall,
+                          "tokens_per_s": tokens / wall,
+                          "mfu": flops / wall / PEAK_BF16_PER_S,
+                          "flash_tensor_core": counts["flash_attention_tc"],
+                          "flash_cuda_core": counts["flash_attention"]
+                          - counts["flash_attention_tc"]})
+            require(math.isfinite(loss), f"[train] step {i + 1}: loss {loss}")
+            require(counts["flash_attention"] == want
+                    and counts["flash_attention_tc"] == want,
+                    f"[train] step {i + 1}: flash launches {counts}, not "
+                    f"{want} on the tensor cores")
+        batch = next(pipe)
+        profile = train_step_profile(lambda: step(state, batch))
+    finally:
+        pipe.close()
+    # One AdamW update alone, over the whole state, with zero gradients
+    # (the step's update is interleaved with nothing, so this is its time).
+    grads = tree_map(torch.zeros_like, state["params"])
+    adamw_ms = cuda_ms(lambda: adamw_update(state["params"], grads,
+                                            state["opt"], AdamWConfig()),
+                       reps=2, warmup=1)
+    del grads
+    peak = torch.cuda.max_memory_allocated()
+    timed = [s for s in steps if not s["warmup"]]
+    wall = sum(s["wall_s"] for s in timed) / len(timed)
+    row = {"check": "full_width", "arch": cfg.name,
+           "params": param_count(cfg), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "optimizer": "adamw", "dtype": "bfloat16",
+           "init_s": init_s, "steps": steps, "mean_wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "model_flops": flops, "mfu": flops / wall / PEAK_BF16_PER_S,
+           "profiled_step_device_ms": profile["device_ms"],
+           "device_ms_by_class": profile["by_class"],
+           "launches_by_class": profile["launches_by_class"],
+           "top_kernels": profile["top"], "adamw_update_ms": adamw_ms,
+           "peak_bytes": peak, "held_before_bytes": held,
+           "flash_launches_per_step": want,
+           "card": card_line()}
+    print(f"[train] {json.dumps(row)}", flush=True)
+    require(peak <= TRAIN_PEAK_LIMIT,
+            f"[train] peak {peak} device bytes over {TRAIN_PEAK_LIMIT}")
+    del state, step
+    return row
+
+
+def loss_and_grads(params, cfg, batch) -> tuple:
+    """``train_loss`` and the gradient of every param leaf (zeros where
+    the loss does not reach a leaf)."""
+    from repro_torch.models import train_loss
+    from repro_torch.models.layers import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = train_loss(params, cfg, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(leaves, grads)]
+
+
+def train_grad_parity(dev) -> list:
+    """(b) fp32 at cut depth and full width (GRAD_PARITY): ``train_loss``
+    and every leaf's gradient with the flash kernel forward and the
+    backward of ``backward.py`` against the same loss with the plain
+    ``attention_ref`` under autograd, on one batch of GRAD_SEQ tokens.
+    Gates: the loss within 1e-5 relative, each leaf within 1e-4 of that
+    leaf's gradient norm."""
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.steps import batch_to_device
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import (attention, init_params,
+                                    train_flash_launches)
+    from repro_torch.models.layers import tree_paths
+
+    rows = []
+    for arch, superblocks in GRAD_PARITY:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch).full(),
+                                  num_superblocks=superblocks,
+                                  dtype=torch.float32,
+                                  param_dtype=torch.float32)
+        params = init_params(torch.Generator(dev).manual_seed(0), cfg)
+        pipe = make_pipeline(data_config(cfg, 1, GRAD_SEQ, seed=0))
+        batch = batch_to_device(cfg, next(pipe), dev)
+        pipe.close()
+        reset_launch_counts()
+        loss, got = loss_and_grads(params, cfg, batch)
+        counts = launch_counts()
+        with mock.patch.object(attention, "flash_attention_op",
+                               attention_ref):
+            want_loss, want = loss_and_grads(params, cfg, batch)
+        errs = []
+        for (path, _), g, w in zip(tree_paths(params), got, want):
+            n = float(w.norm())
+            e = float((g - w).norm())
+            errs.append((e / n if n > 0 else e, path))
+        worst = max(errs)
+        row = {"check": "grad_parity", "arch": arch,
+               "superblocks": superblocks, "dtype": "float32",
+               "tokens": GRAD_SEQ, "loss": loss, "ref_loss": want_loss,
+               "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
+               "leaves": len(errs), "worst_leaf": worst[1],
+               "worst_leaf_rel_err": worst[0],
+               "flash_launches": counts["flash_attention"],
+               "row_s": time.perf_counter() - t0}
+        print(f"[train] {json.dumps(row)}", flush=True)
+        require(math.isfinite(loss) and row["loss_rel_err"] <= 1e-5,
+                f"[train] {arch}: loss {loss} against {want_loss}")
+        require(worst[0] <= 1e-4,
+                f"[train] {arch}: gradient leaf {worst[1]} off by "
+                f"{worst[0]:.3e} of its norm")
+        require(counts["flash_attention"] == train_flash_launches(cfg),
+                f"[train] {arch}: {counts['flash_attention']} flash "
+                f"launches, not {train_flash_launches(cfg)}")
+        rows.append(row)
+        del params, got, want
+    return rows
+
+
+def train_flash_grads(dev) -> list:
+    """(c) The flash op alone at each tensor-core shape of the serve
+    rows (FLASH_GRAD_CASES, batch 1): dq, dk, dv from the bf16 kernel
+    forward and ``backward.py`` within ``cases.GRAD_GATE`` times the
+    error of autograd of ``attention_ref`` run on the same bf16 operands,
+    both from fp32 autograd of ``attention_ref``.  Also times the
+    backward at the [train] step's shape (q [4, 32, 2048, 128])."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention.backward import (
+        flash_attention_backward)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    rows = []
+    for label, (B, H, K, Sq, Sk, d, dv), kw in FLASH_GRAD_CASES:
+        q, k, v = randn(B, H, Sq, d), randn(B, K, Sk, d), randn(B, K, Sk, dv)
+        do = randn(B, H, Sq, dv)
+        reset_launch_counts()
+        errs = cases.grad_errors(q, k, v, do, **kw)
+        tc = launch_counts()["flash_attention_tc"]
+        row = {"check": "flash_grad", "row": label,
+               "q": [B, H, Sq, d], "kv": [B, K, Sk, dv], **kw,
+               **{f"{n}_err": e[0] for n, e in errs.items()},
+               **{f"{n}_plain_err": e[1] for n, e in errs.items()},
+               "tensor_core_launches": tc}
+        print(f"[train] {json.dumps(row)}", flush=True)
+        require(tc == 1, f"[train] flash grad {label}: {tc} tensor-core "
+                f"launches")
+        for name, (op, plain) in errs.items():
+            require(op <= cases.GRAD_GATE * plain,
+                    f"[train] flash grad {label} {name}: {op:.3e} over "
+                    f"{cases.GRAD_GATE} x {plain:.3e}")
+        rows.append(row)
+        del q, k, v, do
+    B, H, K, S, d = TRAIN_BATCH, 32, 8, TRAIN_SEQ, 128
+    q, k, v, do = (randn(B, H, S, d), randn(B, K, S, d), randn(B, K, S, d),
+                   randn(B, H, S, d))
+    fwd = cuda_ms(lambda: flash_attention(q, k, v), reps=10)
+    bwd = cuda_ms(lambda: flash_attention_backward(q, k, v, do), reps=3,
+                  warmup=1)
+    # Five products a visible pair and head (S recomputed, dV, dP, dQ, dK),
+    # 2·d operations each, in fp32 on the CUDA cores.
+    ops = 5 * 2 * d * B * H * visible_pairs(S, S)
+    row = {"check": "flash_backward_time", "q": [B, H, S, d],
+           "kv": [B, K, S, d], "forward_ms": fwd, "backward_ms": bwd,
+           "backward_ops": ops,
+           "backward_fp32_bound_ms": ops / PEAK_FP32_PER_S * 1e3,
+           "per_step_ms": TRAIN_LAYERS * (2 * fwd + bwd)}
+    print(f"[train] {json.dumps(row)}", flush=True)
+    rows.append(row)
+    return rows
+
+
+def adamw_step(cfg, ocfg, dev):
+    """A train step with AdamW at ``ocfg`` (``build_train_step`` takes
+    JAX's defaults): ``train_loss``'s gradient, then ``adamw_update``."""
+    from repro_torch.launch.steps import batch_to_device
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import adamw_update
+
+    def step(state, batch):
+        loss, grads = loss_and_grads(state["params"], cfg,
+                                     batch_to_device(cfg, batch, dev))
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), state["params"])
+        params, opt = adamw_update(state["params"], grads, state["opt"],
+                                   ocfg)
+        return ({"params": params,
+                 "opt": {k: opt[k] for k in ("mu", "nu", "count")},
+                 "step": state["step"] + 1},
+                {"loss": torch.tensor(loss)})
+    return step
+
+
+def train_restart(dev) -> list:
+    """(d) The Trainer on the card: qwen3-4b ``smoke()`` in fp32 with
+    AdamW(lr 1e-3), 6 steps saving every 2, killed by ``FailureInjector``
+    after step 3 and resumed under ``run_with_restarts`` (the stream at
+    the restored step's batch), against an uninterrupted run: within 1e-6
+    (``tests/test_system.py::test_checkpoint_restart_bitexact``), and
+    bit-equal.  Then that test's ``test_training_reduces_loss`` setup: 30
+    steps at lr 3e-3 on one fixed batch halve the loss."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.launch.train import data_config, train_with_restarts
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import FailureInjector, TrainerConfig
+
+    cfg = get_arch(TRAIN_ARCH).smoke()
+    step_fn = adamw_step(cfg, AdamWConfig(lr=1e-3), dev)
+    dcfg = data_config(cfg, 2, 32)
+    t0 = time.perf_counter()
+
+    def train(ckpt, fail_at):
+        return train_with_restarts(
+            step_fn, lambda: init_train_state(cfg, device=dev), dcfg,
+            TrainerConfig(total_steps=6, ckpt_dir=ckpt, save_interval=2),
+            FailureInjector(fail_at))
+
+    with tempfile.TemporaryDirectory() as d:
+        straight, straight_state = train(os.path.join(d, "a"), None)
+        resumed, resumed_state = train(os.path.join(d, "b"), [3])
+    a = tree_leaves(straight_state["params"])
+    b = tree_leaves(resumed_state["params"])
+    diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    bits = all(torch.equal(x, y) for x, y in zip(a, b))
+    row = {"check": "restart", "arch": cfg.name, "dtype": "float32",
+           "steps": 6, "save_interval": 2, "killed_after": 3,
+           "attempts": len(resumed),
+           "resumed_from": resumed[-1].metrics_history[0]["step"] - 1,
+           "max_abs_diff": diff, "bit_equal": bits,
+           "final_loss": resumed[-1].metrics_history[-1]["loss"],
+           "uninterrupted_final_loss":
+               straight[-1].metrics_history[-1]["loss"],
+           "row_s": time.perf_counter() - t0}
+    print(f"[train] {json.dumps(row)}", flush=True)
+    require(len(straight) == 1 and len(resumed) == 2
+            and int(resumed_state["step"]) == 6, "[train] restart: attempts")
+    require(diff <= 1e-6, f"[train] restart: params differ by {diff}")
+    require(bits, "[train] restart: the resumed params differ in bits")
+
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, device=dev)
+    step_fn = adamw_step(cfg, AdamWConfig(lr=3e-3), dev)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (4, 32))
+    batch = {"tokens": toks, "targets": np.roll(toks, -1, axis=1),
+             "weights": np.ones(toks.shape, np.float32)}
+    losses = []
+    for _ in range(30):
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+    row2 = {"check": "reduces_loss", "arch": cfg.name, "steps": 30,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "row_s": time.perf_counter() - t0}
+    print(f"[train] {json.dumps(row2)}", flush=True)
+    require(losses[-1] < 0.5 * losses[0],
+            f"[train] 30 steps took the loss from {losses[0]} to "
+            f"{losses[-1]}")
+    return [row, row2]
+
+
+def train_phase(dev) -> dict:
+    """Training on the card: (a) full width, (b) gradient parity at cut
+    depth, (c) the flash op's gradient alone, (d) restart and
+    convergence.  Prints ``[train]`` rows; returns (a)'s."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full = train_full_width(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_grad_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_flash_grads(dev)
+    train_restart(dev)
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s; card: "
+          f"{card_line()}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return full
+
+
 def release_kernel_phase() -> None:
     """Frees what the kernel phase leaves allocated, so that no path's peak
     counts it: cuBLAS keeps a workspace for every stream it ran on.
@@ -2536,6 +2975,7 @@ def main() -> int:
         if r["kernel_row"] is not None:
             launches[r["kernel_row"]] += r["launches"]["flash_attention"]
     torch.cuda.empty_cache()
+    train_phase(dev)
     obs_phase(dev, designs)
     tenants_phase(dev)
     chaos_phase(dev)

@@ -1,5 +1,6 @@
 """The cases and limits by which the flash attention kernels are held to
-their plain version on the card (``chip_smoke.py`` and the ``gpu`` tests).
+their plain version on the card (``chip_smoke.py`` and the ``gpu`` tests),
+and by which the op's gradient is (:func:`grad_errors`).
 
 Each case is ``(label, (B, H, K, Sq, Sk), keyword arguments)`` and runs at
 several head dims.  A bf16 output is held to the plain version of the same
@@ -12,6 +13,9 @@ outputs of ~0.02, under ATOL.
 from __future__ import annotations
 
 import torch
+
+from .ops import flash_attention_op
+from .ref import attention_ref
 
 FEATURE_CASES = (
     ("gqa", (2, 4, 2, 64, 64), {}),
@@ -79,3 +83,29 @@ def excess(got: torch.Tensor, ref: torch.Tensor) -> float:
     ``got`` passes the elementwise check."""
     got, ref = got.float(), ref.float()
     return float(((got - ref).abs() - RTOL * ref.abs()).max())
+
+
+#: The bf16 op's gradient may be at most this many times as far from the
+#: fp32 gradient as the plain version's is (the forward's 2x rule).
+GRAD_GATE = 2.0
+
+
+def _grads(fn, ts, do, **kw):
+    ts = [t.detach().requires_grad_(True) for t in ts]
+    return torch.autograd.grad(fn(*ts, **kw), ts, do)
+
+
+def grad_errors(q, k, v, do, **kw) -> dict:
+    """For each of dq, dk and dv: ``(op, plain)``, the largest absolute
+    error from the fp32 gradient (autograd of :func:`attention_ref` on the
+    operands widened to fp32) of the op's gradient (the kernel forward and
+    ``backward.py``) and of autograd of :func:`attention_ref` run on the
+    operands as they are (fp32 inside, each gradient rounded to the
+    operands' dtype), for the output gradient ``do``."""
+    exact = _grads(attention_ref, [t.float() for t in (q, k, v)],
+                   do.float(), **kw)
+    got = _grads(flash_attention_op, (q, k, v), do, **kw)
+    plain = _grads(attention_ref, (q, k, v), do, **kw)
+    return {name: (float((g.float() - e).abs().max()),
+                   float((p.float() - e).abs().max()))
+            for name, g, p, e in zip(("dq", "dk", "dv"), got, plain, exact)}

@@ -6,12 +6,14 @@ nested dicts of tensors; a whole model's tree is held as a
 :class:`ParamTree`, a module tree with the same names (``p["attn"]``), so
 the JAX leaf names carry over one to one.
 Initialisers draw from an explicit ``torch.Generator`` on the device the
-tensors are made on.
+tensors are made on.  :func:`tree_map`, :func:`tree_leaves` and
+:func:`tree_paths` walk such trees (a ParamTree, nested dicts and lists,
+or a training state holding both) for the optimizers and checkpoints.
 """
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Any, Callable, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,8 +23,9 @@ from torch import nn
 class ParamTree(nn.Module):
     """A nested mapping of tensors as a module tree.
 
-    Tensor leaves become parameters that take no gradient (the port serves;
-    training waits), mappings become child trees and lists become
+    Tensor leaves become parameters that take no gradient unless the
+    train step asks for one (``launch.steps.build_train_step`` turns
+    ``requires_grad`` on), mappings become child trees and lists become
     ``nn.ModuleList``s of trees (the decoder's layers).
     """
 
@@ -43,6 +46,50 @@ class ParamTree(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def keys(self) -> List[str]:
+        """The names of the leaves, then of the child trees, in the order
+        they were given."""
+        return list(self._parameters) + list(self._modules)
+
+
+def _children(tree) -> Optional[List[Tuple[Any, Any]]]:
+    """(key, child) of a tree node in walk order; None for a leaf."""
+    if isinstance(tree, torch.Tensor):
+        return None
+    if isinstance(tree, (ParamTree, Mapping)):
+        return [(k, tree[k]) for k in tree.keys()]
+    if isinstance(tree, (list, tuple, nn.ModuleList)):
+        return list(enumerate(tree))
+    raise TypeError(f"not a tree node: {type(tree).__name__}")
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the tensor leaves of ``tree`` (and the leaves at the same
+    keys of each tree in ``rest``), as nested dicts and lists: a ParamTree
+    maps to a dict, a ModuleList to a list."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(tree, *rest)
+    out = [(k, tree_map(fn, c, *(r[k] for r in rest))) for k, c in kids]
+    if isinstance(tree, (ParamTree, Mapping)):
+        return dict(out)
+    return [v for _, v in out]
+
+
+def tree_paths(tree, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """(key path, leaf) of every tensor leaf in walk order, the path
+    written as JAX's ``keystr`` writes it (``['blocks'][0]['attn']``)."""
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    return [item for k, c in kids
+            for item in tree_paths(c, f"{prefix}[{k!r}]")]
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensor leaves of ``tree`` in walk order."""
+    return [leaf for _, leaf in tree_paths(tree)]
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,

@@ -13,8 +13,10 @@ The buffer is laid out expert-major, so the expert products are one
 batched matmul each (JAX computes them outside any Pallas kernel too).
 The router is fp32 whatever the model's dtype.
 
-``update_router_bias`` (aux-loss-free balancing) runs in training and waits
-for it (ROADMAP Queue 1 item 7).
+``update_router_bias`` (aux-loss-free balancing) nudges the router's bias
+outside the gradient path, once a training step.  The aux loss carries the
+router's gradient through the mean routing probabilities, as JAX's: the
+expert counts come from the top-k ids and carry none.
 """
 from __future__ import annotations
 
@@ -188,3 +190,15 @@ def moe_forward(params, cfg: MoEConfig, x: torch.Tensor
     if cfg.num_shared:
         y = y + ffn_forward(params["shared"], _shared_cfg(cfg), x)
     return y.to(x.dtype), aux
+
+
+@torch.no_grad()
+def update_router_bias(params, cfg: MoEConfig, idx: torch.Tensor,
+                       gamma: float = 0.001) -> torch.Tensor:
+    """DeepSeek-V3 aux-loss-free balancing: nudge per-expert bias opposite to
+    its load violation (run outside the gradient path, once per step).
+    ``idx``: the top-k expert ids [G,S,k]; returns the new bias [E]."""
+    load = torch.bincount(idx.reshape(-1), minlength=cfg.num_experts
+                          ).float() / idx.numel()
+    target = cfg.top_k / cfg.num_experts
+    return params["router_bias_e"] - gamma * torch.sign(load - target)

@@ -24,9 +24,14 @@ and ``none`` mixers and the ``dense``, ``moe`` and ``none`` FFNs,
 with the audio frontend stub: precomputed frames ``batch["src"]``), the
 vision frontend stub (patch embeddings ``batch["frontend"]`` prepended to
 the tokens), the DeepSeek-V3 ``mtp`` head's parameters, and the serving
-side (prefill stack, ``serve_step``, the recurrent states in the cache).
-Training (``train_loss``, ``chunked_xent``) waits for the training slice,
-and with it the MTP head's forward, which only ``train_loss`` runs.
+side (prefill stack, ``serve_step``, the recurrent states in the cache),
+and training: ``train_loss`` (with the MTP head's forward, which only it
+runs) and ``chunked_xent``, which computes the cross-entropy without a
+[B,S,V] logits tensor.  Under autograd each super-block of the stacks is
+recomputed in the backward (``torch.utils.checkpoint``, JAX's
+``jax.checkpoint(body)``), and so is each 512-row chunk of the
+cross-entropy.  Training the recurrent mixers waits (ROADMAP Queue 1 item
+7b): ``train_loss`` refuses a config with one.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..exec.programs import resolve_device
 from . import attention as attn
@@ -123,6 +129,12 @@ FFNS = ("dense", "moe", "none")
 ATTENTION_MIXERS = ("gqa", "mla")
 #: The layer kind of the MTP head's block.
 MTP_SPEC = LayerSpec("gqa", "dense")
+#: The mixers whose training waits for ROADMAP Queue 1 item 7b (RG-LRU's
+#: scan updates its operand in place; sLSTM is a step loop).
+RECURRENT_MIXERS = ("rglru", "mlstm", "slstm")
+#: The MTP loss's weight (DeepSeek-V3 §2.2) and the cross-entropy's chunk.
+MTP_WEIGHT = 0.3
+XENT_CHUNK = 512
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -168,6 +180,25 @@ def prefill_flash_launches(cfg: ModelConfig) -> int:
         n += sum(s.mixer in ATTENTION_MIXERS for s in enc_layer_specs(cfg))
         n += len(dec)
     return n
+
+
+def train_flash_launches(cfg: ModelConfig) -> int:
+    """Flash kernel launches of one ``train_loss`` forward and backward:
+    each attention of a super-block (the mixer, and an enc-dec decoder
+    layer's cross attention) runs twice, in the forward and in the
+    super-block's recompute; the ``extra_layers`` and the MTP head's
+    block are not recomputed and run once."""
+    n_sb = cfg.num_superblocks * len(cfg.pattern)
+    dec = layer_specs(cfg)
+    cross = cfg.arch == "encdec"
+
+    def per_layer(s: LayerSpec) -> int:
+        return (s.mixer in ATTENTION_MIXERS) + cross
+
+    n = (2 * sum(per_layer(s) for s in dec[:n_sb])
+         + sum(per_layer(s) for s in dec[n_sb:]))
+    n += 2 * sum(s.mixer in ATTENTION_MIXERS for s in enc_layer_specs(cfg))
+    return n + (1 if cfg.mtp else 0)
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:
@@ -373,16 +404,48 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     return x
 
 
+def _superblocks(cfg: ModelConfig, specs, blocks, x: torch.Tensor,
+                 n_superblocks: int, **kw) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """Run ``n_superblocks`` copies of a pattern of ``len(specs) //
+    n_superblocks`` layers over x; under autograd each copy is recomputed
+    in the backward (JAX's ``jax.checkpoint(body)``), so only its input
+    is kept.  Returns (x, the summed MoE aux loss)."""
+    n = len(specs) // n_superblocks if n_superblocks else 0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(h, first):
+        a = torch.zeros((), dtype=torch.float32, device=h.device)
+        for spec, p in zip(specs[first:first + n], blocks[first:first + n]):
+            h, _, la = apply_layer(cfg, spec, p, h, **kw)
+            if spec.ffn == "moe":
+                a = a + la
+        return h, a
+
+    for sb in range(n_superblocks):
+        if torch.is_grad_enabled():
+            x, a = checkpoint(body, x, sb * n, use_reentrant=False)
+        else:
+            x, a = body(x, sb * n)
+        aux = aux + a
+    return x, aux
+
+
 def _run_stack(params, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor,
                enc_out: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the decoder stack over a whole sequence: x [B,S,D], attending to
     ``enc_out`` in each cross block.  Returns (x, the summed MoE aux
-    loss)."""
+    loss).  Under autograd each super-block is recomputed in the
+    backward; the ``extra_layers`` are not (as in JAX)."""
     check_supported(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, p in zip(layer_specs(cfg), params["blocks"]):
+    specs, blocks = layer_specs(cfg), params["blocks"]
+    n_sb = cfg.num_superblocks * len(cfg.pattern)
+    x, aux = _superblocks(cfg, specs[:n_sb], blocks[:n_sb], x,
+                          cfg.num_superblocks, positions=positions,
+                          enc_out=enc_out)
+    for spec, p in zip(specs[n_sb:], blocks[n_sb:]):
         x, _, a = apply_layer(cfg, spec, p, x, positions, enc_out=enc_out)
         if spec.ffn == "moe":
             aux = aux + a
@@ -393,10 +456,11 @@ def _run_encoder(params, cfg: ModelConfig, src: torch.Tensor,
                  positions: torch.Tensor) -> torch.Tensor:
     """The encoder over frame embeddings src [B,Senc,D] at ``positions``
     [B,Senc]: the ``enc_pattern`` layers, bidirectional, then
-    ``enc_final_norm`` (a plain RMSNorm, as JAX's)."""
-    x = src
-    for spec, p in zip(enc_layer_specs(cfg), params["enc_blocks"]):
-        x, _, _ = apply_layer(cfg, spec, p, x, positions, causal=False)
+    ``enc_final_norm`` (a plain RMSNorm, as JAX's).  Under autograd each
+    super-block is recomputed in the backward."""
+    x, _ = _superblocks(cfg, enc_layer_specs(cfg), params["enc_blocks"],
+                        src, cfg.enc_superblocks, positions=positions,
+                        causal=False)
     return layers.rmsnorm(params["enc_final_norm"], x)
 
 
@@ -404,6 +468,93 @@ def _unembed_table(params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed_vd"]
     return params["unembed_dv"].T
+
+
+# =============================================================================
+# Training forward + loss
+# =============================================================================
+
+def chunked_xent(params, cfg: ModelConfig, x: torch.Tensor,
+                 targets: torch.Tensor, weights: torch.Tensor,
+                 chunk: int = XENT_CHUNK) -> torch.Tensor:
+    """Softmax cross-entropy without a [B,S,V] intermediate: x [B,S,D],
+    targets [B,S] (int), weights [B,S].  Each chunk of ``chunk`` positions
+    computes its logits [B,C,V] in fp32 (``layers.unembed``), the final
+    softcap, logsumexp and the gold logit, and its weighted sum; under
+    autograd the chunk is recomputed in the backward (JAX's
+    ``@jax.checkpoint``).  Returns Σ(lse − gold)·w / max(Σw, 1)."""
+    B, S, D = x.shape
+    table = _unembed_table(params, cfg)
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"chunked_xent: {S} positions are not a multiple "
+                         f"of the {chunk}-position chunk")
+
+    def one(xc, tc, wc):
+        logits = layers.unembed(table, xc)                 # [B,C,V] fp32
+        logits = layers.softcap(logits, cfg.final_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return torch.sum((lse - gold) * wc)
+
+    total = 0
+    for i in range(0, S, chunk):
+        args = (x[:, i:i + chunk], targets[:, i:i + chunk],
+                weights[:, i:i + chunk])
+        total = total + (checkpoint(one, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else one(*args))
+    return total / torch.clamp(weights.sum(), min=1.0)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config with a recurrent mixer:
+    training RG-LRU, mLSTM and sLSTM waits for ROADMAP Queue 1 item 7b."""
+    check_supported(cfg)
+    mixers = {s.mixer for s in cfg.pattern + cfg.extra_layers
+              + cfg.enc_pattern} & set(RECURRENT_MIXERS)
+    if mixers:
+        raise NotImplementedError(
+            f"{cfg.name}: training the recurrent mixers {sorted(mixers)} "
+            f"waits for ROADMAP Queue 1 item 7b (RG-LRU's scan updates its "
+            f"operand in place, sLSTM is a step loop)")
+
+
+def train_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """batch: tokens [B,St], targets [B,S], weights [B,S]; optional
+    frontend [B,P,D] (vision) or src [B,Senc,D] (audio enc-dec).  All on
+    the params' device.  Returns the fp32 scalar loss: the cross-entropy,
+    plus 0.3 × the MTP head's (predicting t+2) and ``aux_loss_weight`` ×
+    the MoE aux loss where the config has them."""
+    check_trainable(cfg)
+    x = _embed_inputs(params, cfg, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    enc_out = None
+    if cfg.arch == "encdec":
+        src = batch["src"].to(cfg.dtype)
+        E = src.shape[1]
+        enc_out = _run_encoder(params, cfg, src, torch.arange(
+            E, device=x.device).expand(B, E))
+    x, aux = _run_stack(params, cfg, x, positions, enc_out)
+    x = layers.rmsnorm(params["final_norm"], x,
+                       zero_centered=cfg.zero_centered_norm)
+    targets, weights = batch["targets"], batch["weights"]
+    loss = chunked_xent(params, cfg, x, targets, weights)
+    if cfg.mtp:
+        # MTP head: one extra block over [h; embed(next_token)] predicting
+        # t+2 (DeepSeek-V3 §2.2) — sequential variant with depth 1.
+        emb_next = layers.embed_lookup(params["embed_vd"],
+                                       targets).to(cfg.dtype)
+        h2 = torch.cat([x, emb_next], dim=-1) @ params["mtp_proj_dd"]
+        h2, _, _ = apply_layer(cfg, MTP_SPEC, params["mtp_block"], h2,
+                               positions)
+        t2 = torch.cat([targets[:, 1:], targets[:, -1:]], dim=1)
+        w2 = weights * torch.cat([weights[:, 1:],
+                                  torch.zeros_like(weights[:, :1])], dim=1)
+        loss = loss + MTP_WEIGHT * chunked_xent(params, cfg, h2, t2, w2)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss
 
 
 # =============================================================================

@@ -1,0 +1,11 @@
+"""Optimizers and gradient compression: the JAX package's ``optim``
+(``compressed_psum`` waits for the mesh, ROADMAP Queue 1 item 8)."""
+from .adamw import (AdamWConfig, adamw_init, adamw_update, clip_by_global_norm,
+                    cosine_schedule, global_norm)
+from .adafactor import AdafactorConfig, adafactor_init, adafactor_update
+from .compression import ErrorFeedback, compress_int8, decompress_int8
+
+__all__ = ["AdafactorConfig", "adafactor_init", "adafactor_update",
+           "AdamWConfig", "adamw_init", "adamw_update",
+           "clip_by_global_norm", "cosine_schedule", "global_norm",
+           "compress_int8", "decompress_int8", "ErrorFeedback"]

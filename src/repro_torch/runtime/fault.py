@@ -4,9 +4,9 @@ injection for tests, elastic re-mesh hooks.
 At 1000+ nodes the dominant events are (a) preemption / hardware fault →
 process dies → restart from latest checkpoint; (b) stragglers → step-time
 skew; (c) re-scale → device count changes between restarts.  The trainer
-loop (the JAX package's runtime/trainer.py; not ported yet) is written
-as a pure function of (checkpoint state, data stream), so all three
-reduce to: detect, checkpoint (if alive), restart, reshard-on-restore.
+loop (trainer.py) is written as a pure function of (checkpoint state, data
+stream), so all three reduce to: detect, checkpoint (if alive), restart,
+reshard-on-restore.
 """
 from __future__ import annotations
 

@@ -186,13 +186,17 @@ def test_port_sources_import_no_jax_and_no_repro():
     files += [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     assert {"mem", "net", "hbm_blas", "models", "serving", "launch",
-            "flash_attention", "obs", "runtime"} <= {
+            "flash_attention", "obs", "runtime", "optim", "data",
+            "ckpt"} <= {
         part for f in files for part in f.parts}
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"src/repro_torch/obs/{m}.py" for m in
             ("trace", "metrics", "critpath", "attrib", "slo", "diff",
              "smoke")} <= names
     assert {"src/repro_torch/runtime/fault.py",
+            "src/repro_torch/runtime/trainer.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/kernels/flash_attention/backward.py",
             "src/repro_torch/exec/snapshot.py",
             "src/repro_torch/exec/smoke.py"} <= names
     assert {f"src/repro_torch/tenants/{m}.py" for m in
@@ -272,6 +276,15 @@ def test_port_path_loads_no_jax_and_no_repro():
         "assert lg.shape == (2, cfg.vocab)\n"
         "lg = build_prefill_step(cfg, 'cpu')(p, {'tokens': [[1, 2, 3]]})\n"
         "assert lg.shape == (1, cfg.vocab)\n"
+        "import repro_torch.optim, repro_torch.ckpt, repro_torch.data\n"
+        "import repro_torch.launch.train\n"
+        "from repro_torch.launch.steps import (build_train_step,\n"
+        "                                      init_train_state)\n"
+        "s = init_train_state(cfg, device='cpu')\n"
+        "s, m = build_train_step(cfg, device='cpu')(s, {\n"
+        "    'tokens': [[1, 2, 3, 4]], 'targets': [[2, 3, 4, 5]],\n"
+        "    'weights': [[1.0, 1.0, 1.0, 1.0]]})\n"
+        "assert int(s['step']) == 1 and float(m['loss']) > 0\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

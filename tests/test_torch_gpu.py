@@ -3,9 +3,11 @@ version (the BLAS kernels also whole array against shards, bit for bit),
 the launch counters, a small compile → execute on ``cuda`` (the HBM apps
 through the bank model and the ideal path), PageRank at 2^20 edges (its
 fixed-order segment sums: the same bits on every run and through the
-fabric), and the LM serving side's prefill (flash attention kernel, MLA's
+fabric), the LM serving side's prefill (flash attention kernel, MLA's
 head dims on the tensor cores in bf16 and the CUDA cores in fp32) against
-its cached decode.
+its cached decode, and training: the flash op's gradient (kernel forward,
+``backward.py``) at each tensor-core instance and a train step on the
+card against the CPU's.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided in the fixture, never at import).  On a machine with one:
@@ -772,3 +774,97 @@ def test_moe_combine_gives_the_cpu_bits(cuda, dtype):
     want = moe.combine(contrib, slot_of, idx)
     got = moe.combine(contrib.to(cuda), slot_of.to(cuda), idx.to(cuda))
     assert torch.equal(got.cpu().view(bits), want.view(bits))
+
+
+# -- training -----------------------------------------------------------------
+
+# (B, H, K, Sq, Sk, d, dv), keywords: each tensor-core instance, G = 1, 2,
+# 4 and 7, a window and a softcap, Sq > Sk without a mask.
+GRAD_CASES = [
+    ((1, 8, 2, 256, 256, 128, 128), {}),
+    ((1, 14, 2, 200, 200, 128, 128), {}),
+    ((1, 4, 2, 256, 256, 128, 128), {"window": 64, "softcap": 50.0}),
+    ((1, 4, 4, 256, 256, 64, 64), {"causal": False}),
+    ((1, 4, 4, 256, 96, 64, 64), {"causal": False}),
+    ((1, 4, 4, 192, 192, 192, 128), {}),
+    ((1, 16, 1, 256, 256, 256, 256), {"window": 128}),
+]
+
+
+@pytest.mark.parametrize("shape,kw", GRAD_CASES)
+def test_flash_op_gradient_bf16(cuda, shape, kw):
+    """bf16: the tensor-core forward and the backward's dq, dk, dv within
+    twice the plain version's error from the fp32 gradient; the forward
+    launched once (the backward launches no kernel of the port)."""
+    B, H, K, Sq, Sk, d, dv = shape
+    q, k, v = (_randn(cuda, *s, seed=i).to(torch.bfloat16) for i, s in
+               enumerate(((B, H, Sq, d), (B, K, Sk, d), (B, K, Sk, dv))))
+    assert flash_kernel.route(q, k, v) == "tensor_core"
+    do = _randn(cuda, B, H, Sq, dv, seed=7).to(torch.bfloat16)
+    reset_launch_counts()
+    errs = flash_cases.grad_errors(q, k, v, do, **kw)
+    assert launch_counts()["flash_attention_tc"] == 1
+    for name, (op, plain) in errs.items():
+        assert op <= flash_cases.GRAD_GATE * plain, (name, op, plain)
+
+
+@pytest.mark.parametrize("shape,kw", GRAD_CASES)
+def test_flash_op_gradient_fp32(cuda, shape, kw):
+    """fp32: the CUDA-core forward and the backward within 1e-5 of
+    autograd of the plain version, relative to each gradient's scale."""
+    B, H, K, Sq, Sk, d, dv = shape
+    ts = [_randn(cuda, *s, seed=i).requires_grad_(True) for i, s in
+          enumerate(((B, H, Sq, d), (B, K, Sk, d), (B, K, Sk, dv)))]
+    do = _randn(cuda, B, H, Sq, dv, seed=7)
+    got = torch.autograd.grad(flash_attention_op(*ts, **kw), ts, do)
+    want = torch.autograd.grad(attention_ref(*ts, **kw), ts, do)
+    for g, w in zip(got, want):
+        assert _max_abs(g, w) <= 1e-5 * max(1.0, float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma2-27b",
+                                  "deepseek-v3-671b"])
+def test_train_step_on_cuda_matches_cpu(cuda, arch):
+    """Two fp32 AdamW steps of the arch's ``smoke()`` on the card and on
+    the CPU from the same weights and batches: the losses within 1e-5
+    relative, each param leaf within 1e-3 of the norm of its update (the
+    rule of ``tests/test_torch_train.py``), the flash kernel launched
+    ``train_flash_launches`` times a step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import build_train_step, init_train_state
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import train_flash_launches
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    cfg = get_arch(arch).smoke()
+    cpu = init_train_state(cfg, device="cpu")
+    before = [t.clone() for t in tree_leaves(cpu["params"])]
+    params = init_train_state(cfg, device="cpu")["params"].to(cuda)
+    states = {"cpu": cpu,
+              "cuda": {"params": params, "opt": adamw_init(params),
+                       "step": torch.zeros((), dtype=torch.int32,
+                                           device=cuda)}}
+    steps = {dev: build_train_step(cfg, device=dev) for dev in states}
+    pipe = make_pipeline(data_config(cfg, 2, 64))
+    try:
+        for _ in range(2):
+            batch = next(pipe)
+            losses = {}
+            for dev in states:
+                reset_launch_counts()
+                states[dev], m = steps[dev](states[dev], batch)
+                losses[dev] = float(m["loss"])
+            assert launch_counts()["flash_attention"] == \
+                train_flash_launches(cfg)
+            assert abs(losses["cuda"] - losses["cpu"]) <= \
+                1e-5 * abs(losses["cpu"])
+    finally:
+        pipe.close()
+    for p0, a, b in zip(before, tree_leaves(states["cuda"]["params"]),
+                        tree_leaves(states["cpu"]["params"])):
+        assert a.device.type == "cuda"
+        moved = float((b - p0).norm())
+        assert float((a.detach().cpu() - b.detach()).norm()) <= \
+            1e-3 * moved

@@ -130,22 +130,33 @@ Phases (any failure exits non-zero before the final line):
    the 608 tokens).
 5b. Training (``[train]`` lines, after the LM rows; its flash launches
    stay off the ``kernels`` line, whose counts are the serve path's).
-   (a) qwen3-4b ``full()`` in bf16 (4.02 B parameters) taking AdamW steps
-   (JAX's defaults) through ``build_train_step`` at 4 x 2048 tokens from
-   the port's pipeline (seed 0): one warm-up step and four timed, each on
-   a fresh batch, printing each step's loss, wall seconds, tokens/s and
-   MFU (6·N·T plus the attention's products, forward and backward, over
-   the wall time, against 989 TFLOP/s), then one step under the profiler
-   (device ms, by kernel class and the top kernels), one AdamW update
-   alone, and the peak device bytes.  Gates: every loss finite, each
-   step's 72 flash launches (``train_flash_launches``: each layer's
-   forward and its recompute) all on the tensor cores, the peak within
-   76 GB.  (b) fp32 at full width and cut depth (qwen3-4b 2 layers,
-   gemma2-27b one super-block: softcaps, window, post-norms) on 1 x 2048
-   tokens: ``train_loss`` and every leaf's gradient with the flash kernel
-   forward and the backward of ``kernels/flash_attention/backward.py``
-   against autograd of ``attention_ref``: the loss within 1e-5 relative,
-   each leaf within 1e-4 of its norm.  (c) The flash op alone at each
+   (a) Three rows (``TRAIN_ROWS``), each ``full()`` in bf16 taking steps
+   (JAX's optimizer defaults) through ``build_train_step`` at 4 x 2048
+   tokens from the port's pipeline (seed 0), each row's state freed
+   before the next: qwen3-4b (4.02 B parameters) with AdamW, one warm-up
+   step and four timed; recurrentgemma-9b (9.40 B, 38 layers) with
+   Adafactor and xlstm-1.3b (48 layers, the per-layer recompute of its
+   8-layer pattern) with AdamW, one warm-up step and two timed.  Each
+   prints every step's loss, wall seconds, tokens/s and MFU (6·N·T plus
+   the attention's products, forward and backward, over the wall time,
+   against 989 TFLOP/s), then one step under the profiler (device ms, by
+   kernel class and the top kernels, and their share of the mean step's
+   wall time), one optimizer update alone, the step's and the row's peak
+   device bytes, and ``launch.analytic``'s ``train_flops`` and
+   ``train_hbm_bytes`` for the step.  Gates: every loss finite, each
+   step's flash launches ``train_flash_launches`` (qwen3-4b 72,
+   recurrentgemma 24: each attention layer's forward and its recompute;
+   xlstm none), all on the tensor cores, the peak within 76 GB.  (b) fp32
+   at full width and cut depth (qwen3-4b 2 layers, gemma2-27b one
+   super-block: softcaps, window, post-norms; recurrentgemma-9b one
+   super-block and its 2 extra layers; xlstm-1.3b one super-block of 8
+   layers) on 1 x 2048 tokens: ``train_loss`` and every leaf's gradient
+   with the flash kernel forward and the backward of
+   ``kernels/flash_attention/backward.py``, RG-LRU's scan Function,
+   sLSTM's prefill form and the recompute, against autograd of the plain
+   versions (``attention_ref``, ``rglru_scan_ref``, sLSTM's step loop)
+   with nothing recomputed: the loss within 1e-5 relative, each leaf
+   within 1e-4 of its norm.  (c) The flash op alone at each
    tensor-core shape of rows 7 to 7e, batch 1: dq, dk, dv in bf16 within
    twice the error of autograd of ``attention_ref`` on the same bf16
    operands, both from fp32; the backward's time at (a)'s shape beside
@@ -410,21 +421,36 @@ SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES = 16, 64, PREFILL_LEN // 4
 # and in bf16 at the tensor cores' two.
 FLASH_FP32_DIMS = (32, 64, 128)
 FLASH_BF16_DIMS = (128, 64)
-# The [train] phase: qwen3-4b full() in bf16 takes AdamW steps (JAX's
-# defaults) at the prefill's 4 × 2048 tokens, from the port's pipeline:
-# one warm-up step and four timed, each on a fresh batch.  Its memory from
-# the code: bf16 params 8.04 GB, bf16 grads 8.04 GB and fp32 moments 32.2
-# GB (48.3 GB), the 36 saved layer inputs 1.51 GB, one layer's recompute,
-# one 512-row cross-entropy chunk (fp32 logits [4, 512, 151936], 1.24 GB)
-# and the fp32 table copy of `unembed` (1.56 GB): about 60 GB of the 80.
+# The [train] phase's full-width rows: (arch, optimizer, timed steps),
+# each at full depth and the prefill's 4 × 2048 tokens from the port's
+# pipeline, one warm-up step before the timed ones, each on a fresh batch.
+# - qwen3-4b, AdamW (JAX's defaults).  Its memory from the code: bf16
+#   params 8.04 GB, bf16 grads 8.04 GB and fp32 moments 32.2 GB (48.3 GB),
+#   the 36 saved layer inputs 1.51 GB, one layer's recompute, one 512-row
+#   cross-entropy chunk (fp32 logits [4, 512, 151936], 1.24 GB) and the
+#   fp32 table copy of `unembed` (1.56 GB): about 60 GB of the 80.
+# - recurrentgemma-9b, Adafactor: 9.40 B parameters, whose AdamW state
+#   (75 GB of fp32 moments) would not fit.  bf16 params and grads 37.6 GB,
+#   Adafactor's fp32 temporaries on the 1.05 B-element embedding about
+#   17 GB, `unembed`'s fp32 table copies (4.2 GB each): its peak on an
+#   H100 80GB HBM3 read 71.4 GB.
+# - xlstm-1.3b, AdamW: 1.82 B parameters by the config's count, 48 layers
+#   with the per-layer recompute of its 8-layer pattern.
+TRAIN_ROWS = (("qwen3-4b", "adamw", 4),
+              ("recurrentgemma-9b", "adafactor", 2),
+              ("xlstm-1.3b", "adamw", 2))
 TRAIN_ARCH = LM_ARCH
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS = PREFILL_BATCH, PREFILL_LEN, 36
-TRAIN_WARMUP, TRAIN_STEPS = 1, 4
+TRAIN_WARMUP = 1
 TRAIN_PEAK_LIMIT = 76e9
 # Gradient parity at cut depth and full width, fp32, 1 × 2048 tokens:
 # qwen3-4b's first 2 layers; gemma2-27b's first super-block (a local and a
-# global layer: softcap 50, window 4096, final softcap 30).
-GRAD_PARITY = (("qwen3-4b", 2), ("gemma2-27b", 1))
+# global layer: softcap 50, window 4096, final softcap 30);
+# recurrentgemma-9b's first super-block and its 2 extra layers (4 RG-LRU
+# layers, one local-attention layer at (256, 256)); xlstm-1.3b's first
+# super-block (7 mLSTM layers and an sLSTM, under both recompute levels).
+GRAD_PARITY = (("qwen3-4b", 2), ("gemma2-27b", 1),
+               ("recurrentgemma-9b", 1), ("xlstm-1.3b", 1))
 GRAD_SEQ = PREFILL_LEN
 # The flash op's gradient at each tensor-core shape of the serve rows,
 # batch 1: (row, (B, H, K, Sq, Sk, d, dv), keywords).
@@ -2101,37 +2127,42 @@ def train_step_profile(fn) -> dict:
             "top": [[r[0][:90], r[1], r[2]] for r in rows[:12]]}
 
 
-def train_full_width(dev) -> dict:
-    """(a) qwen3-4b ``full()`` in bf16 taking AdamW steps (JAX's defaults)
-    at TRAIN_BATCH × TRAIN_SEQ tokens from the port's pipeline (seed 0):
-    TRAIN_WARMUP + TRAIN_STEPS steps, each on a fresh batch, then one more
-    under the profiler.  Gates: every loss finite, each step's flash
+def train_full_width(dev, arch: str, optimizer: str, timed: int) -> dict:
+    """(a) One TRAIN_ROWS row: ``arch``'s ``full()`` in bf16 taking
+    ``optimizer`` steps (JAX's defaults) at TRAIN_BATCH × TRAIN_SEQ tokens
+    from the port's pipeline (seed 0): TRAIN_WARMUP + ``timed`` steps,
+    each on a fresh batch, then one more under the profiler, and one
+    optimizer update alone.  Prints the
+    step's analytic FLOPs and HBM bytes (``launch.analytic``) beside the
+    model FLOPs of the MFU.  Gates: every loss finite, each step's flash
     launches ``train_flash_launches(cfg)``, all on the tensor cores, and
     the peak device bytes within TRAIN_PEAK_LIMIT."""
     from repro_torch.configs import get_arch
     from repro_torch.data import make_pipeline
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import analytic
     from repro_torch.launch.steps import build_train_step, init_train_state
     from repro_torch.launch.train import data_config
     from repro_torch.models import param_count, train_flash_launches
     from repro_torch.models.layers import tree_map
-    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.optim import (AdafactorConfig, AdamWConfig,
+                                   adafactor_update, adamw_update)
 
-    cfg = get_arch(TRAIN_ARCH).full()
+    cfg = get_arch(arch).full()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    state = init_train_state(cfg, "adamw", device=dev)
+    state = init_train_state(cfg, optimizer, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    step = build_train_step(cfg, "adamw", device=dev)
+    step = build_train_step(cfg, optimizer, device=dev)
     flops = train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     want = train_flash_launches(cfg)
     pipe = make_pipeline(data_config(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0))
     steps = []
     try:
-        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        for i in range(TRAIN_WARMUP + timed):
             batch = next(pipe)
             reset_launch_counts()
             torch.cuda.synchronize()
@@ -2148,41 +2179,57 @@ def train_full_width(dev) -> dict:
                           "flash_tensor_core": counts["flash_attention_tc"],
                           "flash_cuda_core": counts["flash_attention"]
                           - counts["flash_attention_tc"]})
-            require(math.isfinite(loss), f"[train] step {i + 1}: loss {loss}")
+            print(f"[train] {arch} step {i + 1}: {json.dumps(steps[-1])}",
+                  flush=True)
+            require(math.isfinite(loss),
+                    f"[train] {arch} step {i + 1}: loss {loss}")
             require(counts["flash_attention"] == want
                     and counts["flash_attention_tc"] == want,
-                    f"[train] step {i + 1}: flash launches {counts}, not "
-                    f"{want} on the tensor cores")
+                    f"[train] {arch} step {i + 1}: flash launches {counts}, "
+                    f"not {want} on the tensor cores")
         batch = next(pipe)
         profile = train_step_profile(lambda: step(state, batch))
     finally:
         pipe.close()
-    # One AdamW update alone, over the whole state, with zero gradients
-    # (the step's update is interleaved with nothing, so this is its time).
+    step_peak = torch.cuda.max_memory_allocated()
+    # One optimizer update alone, over the whole state, with zero
+    # gradients (the step's update is interleaved with nothing, so this
+    # is its time).
     grads = tree_map(torch.zeros_like, state["params"])
-    adamw_ms = cuda_ms(lambda: adamw_update(state["params"], grads,
-                                            state["opt"], AdamWConfig()),
-                       reps=2, warmup=1)
-    del grads
+    if optimizer == "adamw":
+        update = functools.partial(adamw_update, state["params"], grads,
+                                   state["opt"], AdamWConfig())
+    else:
+        update = functools.partial(adafactor_update, state["params"], grads,
+                                   state["opt"], AdafactorConfig())
+    update_ms = cuda_ms(update, reps=2, warmup=1)
+    del grads, update
     peak = torch.cuda.max_memory_allocated()
-    timed = [s for s in steps if not s["warmup"]]
-    wall = sum(s["wall_s"] for s in timed) / len(timed)
+    timed_steps = [s for s in steps if not s["warmup"]]
+    wall = sum(s["wall_s"] for s in timed_steps) / len(timed_steps)
     row = {"check": "full_width", "arch": cfg.name,
+           "layers": cfg.num_layers, "superblocks": cfg.num_superblocks,
            "params": param_count(cfg), "batch": TRAIN_BATCH,
-           "seq": TRAIN_SEQ, "optimizer": "adamw", "dtype": "bfloat16",
+           "seq": TRAIN_SEQ, "optimizer": optimizer, "dtype": "bfloat16",
            "init_s": init_s, "steps": steps, "mean_wall_s": wall,
            "tokens_per_s": tokens / wall,
            "model_flops": flops, "mfu": flops / wall / PEAK_BF16_PER_S,
+           "analytic_train_flops": analytic.train_flops(cfg, TRAIN_BATCH,
+                                                        TRAIN_SEQ),
+           "analytic_train_hbm_bytes": analytic.train_hbm_bytes(
+               cfg, TRAIN_BATCH, TRAIN_SEQ),
            "profiled_step_device_ms": profile["device_ms"],
+           "device_busy_share": profile["device_ms"] / (wall * 1e3),
            "device_ms_by_class": profile["by_class"],
            "launches_by_class": profile["launches_by_class"],
-           "top_kernels": profile["top"], "adamw_update_ms": adamw_ms,
-           "peak_bytes": peak, "held_before_bytes": held,
-           "flash_launches_per_step": want,
+           "top_kernels": profile["top"], "update_ms": update_ms,
+           "step_peak_bytes": step_peak, "peak_bytes": peak,
+           "held_before_bytes": held, "flash_launches_per_step": want,
            "card": card_line()}
     print(f"[train] {json.dumps(row)}", flush=True)
     require(peak <= TRAIN_PEAK_LIMIT,
-            f"[train] peak {peak} device bytes over {TRAIN_PEAK_LIMIT}")
+            f"[train] {arch}: peak {peak} device bytes over "
+            f"{TRAIN_PEAK_LIMIT}")
     del state, step
     return row
 
@@ -2205,10 +2252,14 @@ def loss_and_grads(params, cfg, batch) -> tuple:
 def train_grad_parity(dev) -> list:
     """(b) fp32 at cut depth and full width (GRAD_PARITY): ``train_loss``
     and every leaf's gradient with the flash kernel forward and the
-    backward of ``backward.py`` against the same loss with the plain
-    ``attention_ref`` under autograd, on one batch of GRAD_SEQ tokens.
-    Gates: the loss within 1e-5 relative, each leaf within 1e-4 of that
-    leaf's gradient norm."""
+    backward of ``backward.py``, RG-LRU's scan Function, sLSTM's prefill
+    form (its stabilizer's Function and the scan) and the recompute
+    (super-blocks, xlstm's layers, cross-entropy chunks) against the same
+    loss with the plain versions under autograd: ``attention_ref``,
+    ``rglru_scan_ref`` and sLSTM's step loop, with nothing recomputed, on
+    one batch of GRAD_SEQ tokens.  Gates: the loss within 1e-5 relative, each
+    leaf within 1e-4 of that leaf's gradient norm."""
+    from contextlib import ExitStack
     from unittest import mock
 
     from repro_torch.configs import get_arch
@@ -2217,9 +2268,19 @@ def train_grad_parity(dev) -> list:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.launch.steps import batch_to_device
     from repro_torch.launch.train import data_config
-    from repro_torch.models import (attention, init_params,
-                                    train_flash_launches)
+    from repro_torch.models import (attention, init_params, recurrent,
+                                    train_flash_launches, transformer)
     from repro_torch.models.layers import tree_paths
+
+    def no_recompute(fn, *args, use_reentrant):
+        return fn(*args)
+
+    slstm_forward = recurrent.slstm_forward
+
+    def slstm_loop(params, cfg, x, state=None):
+        """sLSTM's step loop (its decode form) from a fresh state."""
+        fresh = recurrent.init_slstm_state(cfg, x.shape[0], device=x.device)
+        return slstm_forward(params, cfg, x, fresh)[0], None
 
     rows = []
     for arch, superblocks in GRAD_PARITY:
@@ -2235,8 +2296,13 @@ def train_grad_parity(dev) -> list:
         reset_launch_counts()
         loss, got = loss_and_grads(params, cfg, batch)
         counts = launch_counts()
-        with mock.patch.object(attention, "flash_attention_op",
-                               attention_ref):
+        with ExitStack() as plain:
+            for module, name, fn in (
+                    (attention, "flash_attention_op", attention_ref),
+                    (recurrent, "rglru_scan", recurrent.rglru_scan_ref),
+                    (recurrent, "slstm_forward", slstm_loop),
+                    (transformer, "checkpoint", no_recompute)):
+                plain.enter_context(mock.patch.object(module, name, fn))
             want_loss, want = loss_and_grads(params, cfg, batch)
         errs = []
         for (path, _), g, w in zip(tree_paths(params), got, want):
@@ -2416,14 +2482,17 @@ def train_restart(dev) -> list:
     return [row, row2]
 
 
-def train_phase(dev) -> dict:
-    """Training on the card: (a) full width, (b) gradient parity at cut
-    depth, (c) the flash op's gradient alone, (d) restart and
-    convergence.  Prints ``[train]`` rows; returns (a)'s."""
-    gc.collect()
-    torch.cuda.empty_cache()
+def train_phase(dev) -> list:
+    """Training on the card: (a) full width (TRAIN_ROWS, each row's state
+    freed before the next), (b) gradient parity at cut depth, (c) the
+    flash op's gradient alone, (d) restart and convergence.  Prints
+    ``[train]`` rows; returns (a)'s."""
     t0 = time.perf_counter()
-    full = train_full_width(dev)
+    full = []
+    for row in TRAIN_ROWS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        full.append(train_full_width(dev, *row))
     gc.collect()
     torch.cuda.empty_cache()
     train_grad_parity(dev)

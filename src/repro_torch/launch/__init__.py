@@ -1,2 +1,3 @@
-"""Single-device step functions and the serving CLI.  The mesh, the
-train step and the dry-run wait (ROADMAP)."""
+"""Single-device step functions, the training and serving CLIs, and the LM
+accounting (``graphs``: a model as a task graph; ``analytic``: FLOPs and
+bytes per step).  The mesh and the dry-run wait (ROADMAP Queue 1 item 8)."""

@@ -1,10 +1,11 @@
 """Steps: train_step / prefill_step / serve_step for a given arch config,
 on one device.
 
-These are the functions the training and serving CLIs execute.  Sharding
-over a mesh and the ``lower_*`` dry-run functions are not ported yet
-(ROADMAP Queue 1 item 8); each step runs on ``device``: ``cuda`` unless
-the caller names the CPU.
+These are the functions the training and serving CLIs execute, for every
+arch of ``configs`` (the recurrent ones train too).  Sharding over a mesh
+and the ``lower_*`` dry-run functions are not ported yet (ROADMAP Queue 1
+item 8); each step runs on ``device``: ``cuda`` unless the caller names
+the CPU.
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ def build_train_step(cfg: ModelConfig, optimizer: str = "adamw",
     The flash kernel runs ``transformer.train_flash_launches(cfg)`` times
     a microbatch."""
     _check_optimizer(optimizer)
-    T.check_trainable(cfg)
+    T.check_supported(cfg)
     dev = resolve_device(device)
     opt_cfg = AdamWConfig() if optimizer == "adamw" else AdafactorConfig()
     acc_dtype = torch.float32 if optimizer == "adamw" else torch.bfloat16

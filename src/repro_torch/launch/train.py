@@ -7,9 +7,10 @@ Runs the fault-tolerant Trainer (checkpoint/restart, straggler monitor)
 over the data pipeline with the train step, on the CUDA card unless
 ``--device cpu`` is given.  ``--smoke`` uses the reduced config
 (CPU-runnable); a full config needs the card (qwen3-4b's AdamW state is
-48 GB) and ``--seq`` a multiple of the cross-entropy's 512-position chunk.
-Training the recurrent archs (recurrentgemma-9b, xlstm-1.3b) waits for
-ROADMAP Queue 1 item 7b; the mesh path waits for item 8.
+48 GB; recurrentgemma-9b's fits with ``--optimizer adafactor`` only) and
+``--seq`` a multiple of the cross-entropy's 512-position chunk (and of
+the mLSTM chunk for xlstm-1.3b).  Every arch trains; the mesh path waits
+for ROADMAP Queue 1 item 8.
 
 ``--inject-failure-at N`` kills the run after step N; the supervisor
 (``runtime.run_with_restarts``) restarts it, the trainer restores the

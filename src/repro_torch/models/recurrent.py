@@ -6,11 +6,16 @@ port is plain PyTorch with the same names, parameter keys and dtypes:
 
 - RG-LRU is an elementwise linear recurrence.  The prefill runs it as a
   log-depth doubling scan (``ceil(log2 S)`` passes; JAX's
-  ``associative_scan``), decode as the explicit step loop.
+  ``associative_scan``), differentiable through a
+  ``torch.autograd.Function`` whose backward is the same scan run in
+  reverse; decode runs the explicit step loop (``rglru_scan_ref``).
 - mLSTM has a matrix state with scalar gates: the prefill runs the
   chunked-parallel form (quadratic within a chunk, a scan carrying
   (C, n, m) across chunks), decode the recurrent step.
-- sLSTM's normalizer recurrence is not associative: a loop over time.
+- sLSTM's gates read x alone, so its recurrence is per element: decode
+  runs the step loop; the prefill runs the stabilizer's loop (two
+  operations a step, a ``torch.autograd.Function``) and then the cell and
+  normalizer states as one doubling scan.
 
 Where JAX asks an einsum for ``preferred_element_type=float32`` on bf16
 operands, the port multiplies the fp32 copies (products of bf16 values are
@@ -92,10 +97,10 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return y, xp[:, -(W - 1):, :] if W > 1 else state
 
 
-def rglru_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t ⊙ h_{t-1} + bx_t (h_0 = 0) along axis 1: a doubling scan,
-    ceil(log2 S) passes, each combining every position with the one
-    ``off`` before it.  Each pass updates positions ``off..S-1`` in place
+def _doubling_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t-1} + bx_t (h_0 = 0) along axis 1: ceil(log2 S)
+    passes over clones of the operands, each combining every position with
+    the one ``off`` before it and updating positions ``off..S-1`` in place
     from a product taken before the write."""
     S = a.shape[1]
     a, h = a.clone(), bx.clone()
@@ -106,6 +111,53 @@ def rglru_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
             a[:, off:] = a[:, off:] * a[:, :-off]
         off *= 2
     return h
+
+
+class RGLRUScanFn(torch.autograd.Function):
+    """The doubling scan under autograd.  The forward records no graph and
+    keeps only ``a`` and ``h``.  The backward of h_t = a_t h_{t-1} + bx_t
+    is the reverse recurrence g_t = dh_t + a_{t+1} g_{t+1}: the same
+    doubling scan over the time-reversed dh and a shifted by one step.
+    Then d bx = g and d a_t = g_t h_{t-1} (h_{-1} = 0)."""
+
+    @staticmethod
+    def forward(ctx, a, bx):
+        h = _doubling_scan(a, bx)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        g = _doubling_scan(a_next.flip(1), dh.flip(1)).flip(1)
+        da = None
+        if ctx.needs_input_grad[0]:
+            da = g * torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return da, g if ctx.needs_input_grad[1] else None
+
+
+def rglru_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t ⊙ h_{t-1} + bx_t (h_0 = 0) along axis 1, as a log-depth
+    doubling scan (JAX's ``associative_scan``); differentiable through
+    :class:`RGLRUScanFn`."""
+    return RGLRUScanFn.apply(a, bx)
+
+
+def rglru_scan_ref(a: torch.Tensor, bx: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of :func:`rglru_scan`: the step loop from ``h0``
+    (zeros when None), under ordinary autograd.  Decode runs it too.  It
+    steps over ``unbind`` views, whose backward stacks the steps'
+    gradients once; indexing ``[:, t]`` would add a full-size gradient at
+    every step (O(S²) traffic)."""
+    h = torch.zeros_like(bx[:, 0]) if h0 is None else h0
+    hs = []
+    for a_t, b_t in zip(a.unbind(1), bx.unbind(1)):
+        h = a_t * h + b_t
+        hs.append(h)
+    return torch.stack(hs, dim=1)
 
 
 def rglru_forward(params, cfg: RGLRUConfig, x: torch.Tensor,
@@ -130,14 +182,9 @@ def rglru_forward(params, cfg: RGLRUConfig, x: torch.Tensor,
     bx = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6)
                     ) * gated_x
     if state is not None:
-        h_t = state["h"].float()
-        hs = []
-        for t in range(x.shape[1]):
-            h_t = a[:, t] * h_t + bx[:, t]
-            hs.append(h_t)
-        h = torch.stack(hs, dim=1)
+        h = rglru_scan_ref(a, bx, state["h"].float())
         new_state = {"conv": new_conv.to(state["conv"].dtype),
-                     "h": h_t.to(state["h"].dtype)}
+                     "h": h[:, -1].to(state["h"].dtype)}
     else:
         h = rglru_scan(a, bx)
         new_state = None
@@ -324,8 +371,8 @@ def init_mlstm_state(cfg: MLSTMConfig, batch: int, device=None) -> dict:
 
 
 # =============================================================================
-# xLSTM sLSTM — scalar-memory cell with normalizer recurrence (non-associative
-# → sequential loop; arXiv:2405.04517 §2.2)
+# xLSTM sLSTM — scalar-memory cell with normalizer recurrence
+# (arXiv:2405.04517 §2.2): the stabilizer's loop, then a linear scan
 # =============================================================================
 
 @dataclasses.dataclass(frozen=True)
@@ -356,13 +403,49 @@ def slstm_param_count(cfg: SLSTMConfig) -> int:
     return 5 * cfg.d_model ** 2 + cfg.d_model
 
 
+class SLSTMStabilizerFn(torch.autograd.Function):
+    """sLSTM's stabilizer m_t = max(lf_t + m_{t-1}, li_t) from ``m0``,
+    along axis 1 ([B,S,D] → [B,S,D]).  The forward is the step loop with
+    no graph recorded (two operations a step, the loop's bits); it keeps
+    w_t = ∂m_t/∂m_{t-1} = ∂m_t/∂lf_t, which is 1 where the forget path
+    wins, 0 where the input gate does and ½ on a tie (``torch.maximum``'s
+    and ``jnp.maximum``'s gradient).  The backward is the reverse scan
+    G_t = dm_t + w_{t+1} G_{t+1}, then d lf = w G, d li = (1 − w) G and
+    d m0 = w_0 G_0."""
+
+    @staticmethod
+    def forward(ctx, log_f, log_i, m0):
+        m, ms = m0, []
+        for lf, li in zip(log_f.unbind(1), log_i.unbind(1)):
+            m = torch.maximum(lf + m, li)
+            ms.append(m)
+        m_all = torch.stack(ms, dim=1)
+        fm = log_f + torch.cat([m0[:, None], m_all[:, :-1]], dim=1)
+        w = (fm > log_i).to(fm.dtype) + 0.5 * (fm == log_i).to(fm.dtype)
+        ctx.save_for_backward(w)
+        return m_all
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dm):
+        (w,) = ctx.saved_tensors
+        w_next = torch.cat([w[:, 1:], torch.zeros_like(w[:, :1])], dim=1)
+        g = _doubling_scan(w_next.flip(1), dm.flip(1)).flip(1)
+        return w * g, (1 - w) * g, w[:, 0] * g[:, 0]
+
+
 def slstm_forward(params, cfg: SLSTMConfig, x: torch.Tensor,
                   state: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """x: [B,S,D].  A sequential loop over time (the sLSTM recurrence is
-    stabilized with the m-state and cannot be parallelized — paper
-    §2.2)."""
-    B, S, D = x.shape
+    """x: [B,S,D].  The gates read x alone, so the recurrence is per
+    element.  Decode (``state``) runs the step loop.  The prefill runs
+    the stabilizer m's loop (:class:`SLSTMStabilizerFn`) and then, from
+    the gates fg_t = exp(lf_t + m_{t-1} − m_t) and ig_t = exp(li_t − m_t)
+    that it fixes (the loop's bits), the two linear recurrences
+    c_t = fg_t c_{t-1} + ig_t z_t and n_t = fg_t n_{t-1} + ig_t as one
+    doubling scan (:func:`rglru_scan`): two operations a time step in
+    place of the loop's thirteen, and none under autograd."""
+    B, _, D = x.shape
     z = torch.tanh(x @ params["wz_dd"]).float()
     o = torch.sigmoid(x @ params["wo_dd"])
     x32 = x.float()
@@ -370,26 +453,32 @@ def slstm_forward(params, cfg: SLSTMConfig, x: torch.Tensor,
     log_f = F.logsigmoid(x32 @ params["wf_dd"])
 
     if state is None:
-        c = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-        n = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-        m = torch.full((B, D), -1e30, dtype=torch.float32, device=x.device)
+        m0 = torch.full((B, D), -1e30, dtype=torch.float32, device=x.device)
+        m = SLSTMStabilizerFn.apply(log_f, log_i, m0)
+        fg = torch.exp(log_f + torch.cat([m0[:, None], m[:, :-1]], dim=1)
+                       - m)
+        ig = torch.exp(log_i - m)
+        cn = rglru_scan(torch.cat([fg, fg]), torch.cat([ig * z, ig]))
+        c, n = cn[:B], cn[B:]
+        h = c / torch.clamp_min(n, 1.0)
+        new_state = None
     else:
         c, n, m = state["c"], state["n"], state["m"]
-    hs = []
-    for t in range(S):
-        li, lf = log_i[:, t], log_f[:, t]
-        m_new = torch.maximum(lf + m, li)
-        fg = torch.exp(lf + m - m_new)
-        ig = torch.exp(li - m_new)
-        c = fg * c + ig * z[:, t]
-        n = fg * n + ig
-        hs.append(c / torch.clamp_min(n, 1.0))
-        m = m_new
-    h = torch.stack(hs, dim=1).to(x.dtype) * o
-    h = layers.rmsnorm(params["norm"], h)
-    y = h @ params["w_out_dd"]
-    new_state = {"c": c, "n": n, "m": m} if state is not None else None
-    return y, new_state
+        hs = []
+        for li, lf, zt in zip(log_i.unbind(1), log_f.unbind(1),
+                              z.unbind(1)):
+            fm = lf + m
+            m_new = torch.maximum(fm, li)
+            fg = torch.exp(fm - m_new)
+            ig = torch.exp(li - m_new)
+            c = fg * c + ig * zt
+            n = fg * n + ig
+            hs.append(c / torch.clamp_min(n, 1.0))
+            m = m_new
+        h = torch.stack(hs, dim=1)
+        new_state = {"c": c, "n": n, "m": m}
+    h = layers.rmsnorm(params["norm"], h.to(x.dtype) * o)
+    return h @ params["w_out_dd"], new_state
 
 
 def init_slstm_state(cfg: SLSTMConfig, batch: int, device=None) -> dict:

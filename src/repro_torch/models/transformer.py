@@ -27,11 +27,12 @@ the tokens), the DeepSeek-V3 ``mtp`` head's parameters, and the serving
 side (prefill stack, ``serve_step``, the recurrent states in the cache),
 and training: ``train_loss`` (with the MTP head's forward, which only it
 runs) and ``chunked_xent``, which computes the cross-entropy without a
-[B,S,V] logits tensor.  Under autograd each super-block of the stacks is
-recomputed in the backward (``torch.utils.checkpoint``, JAX's
-``jax.checkpoint(body)``), and so is each 512-row chunk of the
-cross-entropy.  Training the recurrent mixers waits (ROADMAP Queue 1 item
-7b): ``train_loss`` refuses a config with one.
+[B,S,V] logits tensor, for every mixer.  Under autograd each super-block
+of the stacks is recomputed in the backward (``torch.utils.checkpoint``,
+JAX's ``jax.checkpoint(body)``), and so is each 512-row chunk of the
+cross-entropy; a decoder pattern of 4 or more layers (xlstm's 8) also
+recomputes each layer inside its super-block's recompute (JAX's second
+remat level).
 """
 from __future__ import annotations
 
@@ -129,12 +130,12 @@ FFNS = ("dense", "moe", "none")
 ATTENTION_MIXERS = ("gqa", "mla")
 #: The layer kind of the MTP head's block.
 MTP_SPEC = LayerSpec("gqa", "dense")
-#: The mixers whose training waits for ROADMAP Queue 1 item 7b (RG-LRU's
-#: scan updates its operand in place; sLSTM is a step loop).
-RECURRENT_MIXERS = ("rglru", "mlstm", "slstm")
 #: The MTP loss's weight (DeepSeek-V3 §2.2) and the cross-entropy's chunk.
 MTP_WEIGHT = 0.3
 XENT_CHUNK = 512
+#: A decoder pattern of this many layers or more recomputes each layer in
+#: the backward inside its super-block's recompute (JAX's ``inner_remat``).
+INNER_REMAT_LAYERS = 4
 
 
 def _check_spec(spec: LayerSpec) -> None:
@@ -186,16 +187,26 @@ def train_flash_launches(cfg: ModelConfig) -> int:
     """Flash kernel launches of one ``train_loss`` forward and backward:
     each attention of a super-block (the mixer, and an enc-dec decoder
     layer's cross attention) runs twice, in the forward and in the
-    super-block's recompute; the ``extra_layers`` and the MTP head's
-    block are not recomputed and run once."""
+    super-block's recompute.  With the per-layer recompute of a pattern of
+    ``INNER_REMAT_LAYERS`` or more it runs a third time, in its layer's
+    recompute, except in the pattern's last layer: the super-block's
+    recompute stops once it holds that layer's input (PyTorch's
+    checkpoint early stop), as XLA drops a recompute whose output nothing
+    reads.  The ``extra_layers`` and the MTP head's block are not
+    recomputed and run once."""
     n_sb = cfg.num_superblocks * len(cfg.pattern)
     dec = layer_specs(cfg)
     cross = cfg.arch == "encdec"
+    inner = len(cfg.pattern) >= INNER_REMAT_LAYERS
 
     def per_layer(s: LayerSpec) -> int:
         return (s.mixer in ATTENTION_MIXERS) + cross
 
-    n = (2 * sum(per_layer(s) for s in dec[:n_sb])
+    def runs(i: int) -> int:
+        last = i % len(cfg.pattern) == len(cfg.pattern) - 1
+        return 3 if inner and not last else 2
+
+    n = (sum(runs(i) * per_layer(s) for i, s in enumerate(dec[:n_sb]))
          + sum(per_layer(s) for s in dec[n_sb:]))
     n += 2 * sum(s.mixer in ATTENTION_MIXERS for s in enc_layer_specs(cfg))
     return n + (1 if cfg.mtp else 0)
@@ -405,25 +416,36 @@ def _embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 def _superblocks(cfg: ModelConfig, specs, blocks, x: torch.Tensor,
-                 n_superblocks: int, **kw) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
+                 n_superblocks: int, inner_remat: bool = False,
+                 **kw) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ``n_superblocks`` copies of a pattern of ``len(specs) //
     n_superblocks`` layers over x; under autograd each copy is recomputed
     in the backward (JAX's ``jax.checkpoint(body)``), so only its input
-    is kept.  Returns (x, the summed MoE aux loss)."""
+    is kept.  With ``inner_remat`` each layer is recomputed too, inside
+    its super-block's recompute (JAX's per-layer ``jax.checkpoint``), so
+    the backward holds one layer's internals at a time.  Returns (x, the
+    summed MoE aux loss)."""
     n = len(specs) // n_superblocks if n_superblocks else 0
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
+
+    def one_layer(spec, p, h):
+        h, _, la = apply_layer(cfg, spec, p, h, **kw)
+        return h, la
 
     def body(h, first):
         a = torch.zeros((), dtype=torch.float32, device=h.device)
         for spec, p in zip(specs[first:first + n], blocks[first:first + n]):
-            h, _, la = apply_layer(cfg, spec, p, h, **kw)
+            if remat and inner_remat:
+                h, la = checkpoint(one_layer, spec, p, h, use_reentrant=False)
+            else:
+                h, la = one_layer(spec, p, h)
             if spec.ffn == "moe":
                 a = a + la
         return h, a
 
     for sb in range(n_superblocks):
-        if torch.is_grad_enabled():
+        if remat:
             x, a = checkpoint(body, x, sb * n, use_reentrant=False)
         else:
             x, a = body(x, sb * n)
@@ -438,13 +460,16 @@ def _run_stack(params, cfg: ModelConfig, x: torch.Tensor,
     """Run the decoder stack over a whole sequence: x [B,S,D], attending to
     ``enc_out`` in each cross block.  Returns (x, the summed MoE aux
     loss).  Under autograd each super-block is recomputed in the
-    backward; the ``extra_layers`` are not (as in JAX)."""
+    backward, and so is each of its layers when the pattern has
+    ``INNER_REMAT_LAYERS`` or more; the ``extra_layers`` are not (as in
+    JAX)."""
     check_supported(cfg)
     specs, blocks = layer_specs(cfg), params["blocks"]
     n_sb = cfg.num_superblocks * len(cfg.pattern)
     x, aux = _superblocks(cfg, specs[:n_sb], blocks[:n_sb], x,
-                          cfg.num_superblocks, positions=positions,
-                          enc_out=enc_out)
+                          cfg.num_superblocks,
+                          inner_remat=len(cfg.pattern) >= INNER_REMAT_LAYERS,
+                          positions=positions, enc_out=enc_out)
     for spec, p in zip(specs[n_sb:], blocks[n_sb:]):
         x, _, a = apply_layer(cfg, spec, p, x, positions, enc_out=enc_out)
         if spec.ffn == "moe":
@@ -457,7 +482,8 @@ def _run_encoder(params, cfg: ModelConfig, src: torch.Tensor,
     """The encoder over frame embeddings src [B,Senc,D] at ``positions``
     [B,Senc]: the ``enc_pattern`` layers, bidirectional, then
     ``enc_final_norm`` (a plain RMSNorm, as JAX's).  Under autograd each
-    super-block is recomputed in the backward."""
+    super-block is recomputed in the backward (no layer on its own: JAX's
+    encoder has no second remat level)."""
     x, _ = _superblocks(cfg, enc_layer_specs(cfg), params["enc_blocks"],
                         src, cfg.enc_superblocks, positions=positions,
                         causal=False)
@@ -506,26 +532,13 @@ def chunked_xent(params, cfg: ModelConfig, x: torch.Tensor,
     return total / torch.clamp(weights.sum(), min=1.0)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config with a recurrent mixer:
-    training RG-LRU, mLSTM and sLSTM waits for ROADMAP Queue 1 item 7b."""
-    check_supported(cfg)
-    mixers = {s.mixer for s in cfg.pattern + cfg.extra_layers
-              + cfg.enc_pattern} & set(RECURRENT_MIXERS)
-    if mixers:
-        raise NotImplementedError(
-            f"{cfg.name}: training the recurrent mixers {sorted(mixers)} "
-            f"waits for ROADMAP Queue 1 item 7b (RG-LRU's scan updates its "
-            f"operand in place, sLSTM is a step loop)")
-
-
 def train_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """batch: tokens [B,St], targets [B,S], weights [B,S]; optional
     frontend [B,P,D] (vision) or src [B,Senc,D] (audio enc-dec).  All on
     the params' device.  Returns the fp32 scalar loss: the cross-entropy,
     plus 0.3 × the MTP head's (predicting t+2) and ``aux_loss_weight`` ×
     the MoE aux loss where the config has them."""
-    check_trainable(cfg)
+    check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)

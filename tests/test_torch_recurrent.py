@@ -9,6 +9,17 @@ scan against JAX's ``associative_scan``, mLSTM's chunk scan at S below
 one chunk, one chunk and four chunks, sLSTM's loop) and the decode form
 over several steps from ``init_*_state``.
 
+Under autograd (training): RG-LRU's scan (``RGLRUScanFn``: the doubling
+scan forward, the reverse scan backward) against ``jax.vjp`` of JAX's
+``associative_scan`` and against autograd of the step loop
+(``rglru_scan_ref``), and by ``gradcheck`` in fp64; each mixer's
+prefill-path gradient with respect to x and to every leaf against
+``jax.grad`` (mLSTM over four chunks): x's within 1e-5 of its scale,
+each leaf within 1e-4 of its norm.  sLSTM's prefill form (the
+stabilizer's Function, then the scan) against its decode loop, forward
+and gradient, and the stabilizer's gradient on planted ties against
+autograd of its loop.
+
 One bf16 case per cell holds the port's bf16 output (prefill, and a decode
 step with its fp32 state) to JAX's within ``BF16_TOL`` of the output's
 scale.  Both round at the same places, but XLA's bf16 products on the
@@ -31,6 +42,7 @@ from repro_torch.models.convert import tree_from_numpy
 from _torch_parity import np_tree, scaled_err
 
 TOL = 1e-5
+LEAF_TOL = 1e-4
 #: bf16 outputs: a few bf16 steps (2^-8 relative) of the output's scale.
 BF16_TOL = 2e-2
 D, B = 32, 2
@@ -200,6 +212,64 @@ def test_slstm_prefill_matches_jax():
     assert scaled_err(got, want) <= TOL
 
 
+def test_slstm_prefill_equals_decode():
+    """The prefill form (the stabilizer's loop and the scan of c and n)
+    and the decode loop from a fresh state give one cell, and one
+    gradient with respect to x and every leaf."""
+    cfg = rec.SLSTMConfig(**SL)
+    p = rec.init_slstm(torch.Generator().manual_seed(0), cfg)
+    x = torch.from_numpy(_rand(B, 33, D, seed=5)).requires_grad_(True)
+    w = torch.from_numpy(_rand(B, 33, D, seed=6))
+    leaves = [t.requires_grad_(True) for _, t in _leaves(p)]
+    full, _ = rec.slstm_forward(p, cfg, x)
+    stepped, _ = rec.slstm_forward(p, cfg, x, rec.init_slstm_state(cfg, B))
+    assert scaled_err(full.detach(), stepped.detach().numpy()) <= TOL
+    got = torch.autograd.grad((full * w).sum(), (x, *leaves))
+    want = torch.autograd.grad((stepped * w).sum(), (x, *leaves))
+    for g, r in zip(got, want):
+        assert float((g - r).norm()) <= LEAF_TOL * float(r.norm())
+
+
+def _stabilizer_loop(log_f, log_i, m0):
+    m, ms = m0, []
+    for t in range(log_f.shape[1]):
+        m = torch.maximum(log_f[:, t] + m, log_i[:, t])
+        ms.append(m)
+    return torch.stack(ms, dim=1)
+
+
+def test_slstm_stabilizer_gradcheck_fp64():
+    rng = np.random.default_rng(9)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (
+        np.log(rng.uniform(0.3, 0.99, (B, 9, 5))),
+        rng.standard_normal((B, 9, 5)), rng.standard_normal((B, 5)))]
+    assert torch.autograd.gradcheck(rec.SLSTMStabilizerFn.apply, ts)
+
+
+def test_slstm_stabilizer_matches_the_loop_on_ties():
+    """m_t = max(lf_t + m_{t-1}, li_t) with ties planted (li equal to
+    lf + m_{t-1} in exact arithmetic) and the forget path losing and
+    winning: the Function's forward bits and its gradients equal autograd
+    of the step loop's, whose ``torch.maximum`` splits a tie's gradient
+    in halves, as ``jnp.maximum``'s does."""
+    lf = torch.tensor([[[-0.5, -0.25], [-0.5, -1.0], [-0.25, -0.5],
+                        [-2.0, -0.125]]], dtype=torch.float64)
+    li = torch.tensor([[[0.0, 1.0], [-0.5, -1.0], [-0.75, 3.0],
+                        [-2.75, 2.875]]], dtype=torch.float64)
+    m0 = torch.tensor([[0.5, -8.0]], dtype=torch.float64)
+    dm = torch.from_numpy(_rand(1, 4, 2, seed=3).astype(np.float64))
+    args = [t.clone().requires_grad_(True) for t in (lf, li, m0)]
+    ref = [t.clone().requires_grad_(True) for t in (lf, li, m0)]
+    got = rec.SLSTMStabilizerFn.apply(*args)
+    want = _stabilizer_loop(*ref)
+    assert torch.equal(got.detach(), want.detach())
+    fm = lf + torch.cat([m0[:, None], want.detach()[:, :-1]], dim=1)
+    assert int((fm == li).sum()) >= 3 and bool((fm > li).any())
+    for g, r in zip(torch.autograd.grad(got, args, dm),
+                    torch.autograd.grad(want, ref, dm)):
+        assert torch.allclose(g, r, rtol=0, atol=1e-15)
+
+
 def test_slstm_decode_matches_jax():
     """Six one-token steps, then one of three tokens, from
     ``init_slstm_state``: outputs and (c, n, m) equal to JAX's."""
@@ -306,3 +376,90 @@ def test_mlstm_chunk_takes_fp32_products_of_bf16_values():
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         assert scaled_err(g, w) <= TOL
+
+
+# -- gradients (training) -----------------------------------------------------
+
+def _scan_inputs(S, dtype=np.float32):
+    rng = np.random.default_rng(S)
+    return (rng.uniform(0.5, 1.0, (B, S, 24)).astype(dtype),
+            rng.standard_normal((B, S, 24)).astype(dtype),
+            rng.standard_normal((B, S, 24)).astype(dtype))
+
+
+@pytest.mark.parametrize("S", [1, 5, 16, 33])
+def test_rglru_scan_gradient_matches_jax(S):
+    """d a and d bx of the scan Function against ``jax.vjp`` of JAX's
+    ``associative_scan`` and against autograd of ``rglru_scan_ref``; its
+    forward bits are the doubling scan's, with or without a graph."""
+    a, bx, dh = _scan_inputs(S)
+    _, vjp = jax.vjp(jrec.rglru_scan, jnp.asarray(a), jnp.asarray(bx))
+    want = vjp(jnp.asarray(dh))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (a, bx)]
+    h = rec.rglru_scan(*ts)
+    assert type(h.grad_fn).__name__ == "RGLRUScanFnBackward"
+    with torch.no_grad():
+        assert torch.equal(rec.rglru_scan(*ts), h.detach())
+    got = torch.autograd.grad(h, ts, torch.from_numpy(dh))
+    plain = torch.autograd.grad(rec.rglru_scan_ref(*ts), ts,
+                                torch.from_numpy(dh))
+    for g, w, r in zip(got, want, plain):
+        assert scaled_err(g, w) <= TOL
+        assert scaled_err(g, r.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("S", [1, 5, 16, 33])
+def test_rglru_scan_gradcheck_fp64(S):
+    a, bx, _ = _scan_inputs(S, np.float64)
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (a, bx)]
+    assert torch.autograd.gradcheck(rec.rglru_scan, ts)
+
+
+def test_rglru_scan_gradient_of_one_operand():
+    """Only bx asks for a gradient (a is a constant): the Function returns
+    none for a and the same d bx."""
+    a, bx, dh = _scan_inputs(9)
+    t = torch.from_numpy(bx).requires_grad_(True)
+    (got,) = torch.autograd.grad(rec.rglru_scan(torch.from_numpy(a), t), t,
+                                 torch.from_numpy(dh))
+    (want,) = torch.autograd.grad(rec.rglru_scan_ref(torch.from_numpy(a), t),
+                                  t, torch.from_numpy(dh))
+    assert scaled_err(got, want.numpy()) <= TOL
+
+
+def _leaves(tree, prefix=""):
+    """(path, leaf) of a parameter tree or a nested dict, by sorted key."""
+    for k in sorted(tree.keys()):
+        if isinstance(tree[k], (torch.Tensor, np.ndarray)):
+            yield prefix + k, tree[k]
+        else:
+            yield from _leaves(tree[k], prefix + k + "/")
+
+
+@pytest.mark.parametrize("cell,S", [("rglru", 13), ("mlstm", 32),
+                                    ("slstm", 13)])
+def test_mixer_gradients_match_jax(cell, S):
+    """The prefill path's gradient of ⟨y, w⟩ with respect to x and every
+    parameter leaf against ``jax.grad`` on the same weights and inputs
+    (mLSTM over four 8-position chunks, the carry under autograd)."""
+    jinit, jfwd, jcls, fwd, cls, kw, _ = CELLS[cell]
+    jcfg, cfg = jcls(**kw), cls(**kw)
+    jp, p = _params(jinit, jcfg, 4)
+    x, w = _rand(B, S, D, seed=7), _rand(B, S, D, seed=8)
+
+    def jloss(params, xx):
+        return jnp.sum(jfwd(params, jcfg, xx)[0] * jnp.asarray(w))
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    names, leaves = zip(*_leaves(p))
+    leaves = [t.requires_grad_(True) for t in leaves]
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, _ = fwd(p, cfg, xt)
+    got = torch.autograd.grad((y * torch.from_numpy(w)).sum(),
+                              (xt, *leaves))
+    assert scaled_err(got[0], jgx) <= TOL
+    want = dict(_leaves(np_tree(jgp)))
+    assert sorted(want) == sorted(names)
+    for name, g in zip(names, got[1:]):
+        ref = want[name]
+        err = float(np.linalg.norm(g.numpy() - ref))
+        assert err <= LEAF_TOL * float(np.linalg.norm(ref)), (name, err)

@@ -164,6 +164,31 @@ Phases (any failure exits non-zero before the final line):
    (AdamW, lr 1e-3): 6 steps saving every 2, killed after step 3 and
    resumed under ``run_with_restarts``, the same params bit for bit as an
    uninterrupted run; and 30 steps on one batch (lr 3e-3) halve the loss.
+5c. The mesh (``[mesh]`` lines, after the training rows), on a one-rank
+   NCCL group's (1, 1) ('data', 'model') mesh (NCCL cannot place two
+   ranks on one card; the multi-rank checks are the CPU tests').  (a)
+   qwen3-4b ``full()`` with AdamW at 4 x 2048 tokens: two steps through
+   ``build_train_step(mesh=)`` from the seeded state sharded by the rules
+   (``shard_state``), against two no-mesh steps from the same state and
+   batches (their leaves kept on the host): each loss and every param
+   and moment leaf the same bits (every collective at world 1 is an
+   identity), 72 flash launches a step, all on the tensor cores, the
+   peak within 76 GB; each step's wall seconds beside the ``[train]``
+   row's mean.  (b) ``compressed_psum`` of a full-width fp32 leaf over
+   that group: the bits of the same call on the CPU over a one-rank gloo
+   group.  (c) The prefill step over the 4 x 2048 prompts and 8 decode
+   steps of qwen3-4b through ``mesh=`` (the train layout for the
+   prefill, the serving layout and ``cache_shardings`` for decode): the
+   no-mesh logits bit for bit.
+5d. The dry run (``[dryrun]`` lines, last): ``python -m
+   repro_torch.launch.dryrun`` for qwen3-4b ``train_4k`` on the 16 x 16
+   mesh and deepseek-v3-671b ``decode_32k`` on the 2 x 16 x 16 one, each
+   in a subprocess on the host's CPU (its fake process group cannot share
+   a process with the NCCL one), both started after the last card phase
+   (so no earlier phase shares the host with them), with 600 s each.  Each record must be ``ok``;
+   prints its plan, memory, FLOPs and bytes per rank, collective bytes by
+   kind within a pod and across pods, and the roofline terms at the
+   H100's data-sheet rates.
 
 6. Observability and snapshots (``[obs]`` lines; nothing compiled again
    that phase 4 compiled).  (a) The obs smoke's logic
@@ -287,6 +312,7 @@ import dataclasses
 import functools
 import gc
 import json
+import logging
 import math
 import os
 import subprocess
@@ -2507,6 +2533,322 @@ def train_phase(dev) -> list:
     return full
 
 
+# -- phase 5c: the mesh -------------------------------------------------------
+
+MESH_STEPS = 2
+MESH_DECODE_STEPS = 8
+#: The dry run's cells (arch, shape, mesh) and each one's time limit.
+#: deepseek-v3-671b's train_4k cell on the multi-pod mesh did not finish
+#: in 1000 s on the card's host; its decode_32k cell takes about 25 s,
+#: qwen3-4b's train_4k about 370 s.
+DRYRUN_CELLS = (("qwen3-4b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT = 600
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bit patterns (-0.0 is not 0.0, NaN is its
+    own bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+             8: torch.int64}[a.element_size()]
+    return torch.equal(a.reshape(-1).view(width), b.reshape(-1).view(width))
+
+
+def one_rank_mesh(dev):
+    """A (1, 1) ('data', 'model') mesh over a one-rank NCCL group (NCCL
+    cannot place two ranks on one card; the multi-rank checks run in the
+    CPU tests)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    # DTensor warns of every reduction over the two mesh dims in turn.
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def mesh_train_row(dev, mesh, train_wall_s: float) -> dict:
+    """(a) qwen3-4b ``full()`` with AdamW at TRAIN_BATCH x TRAIN_SEQ:
+    MESH_STEPS no-mesh steps from the seeded state, its leaves kept on the
+    host, then the same steps through ``mesh=`` from the same state and
+    batches.  Gates: each loss and every param and moment leaf the same
+    bits, each step's flash launches ``train_flash_launches(cfg)``, all
+    on the tensor cores, and the mesh run's peak within
+    TRAIN_PEAK_LIMIT."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.steps import (build_train_step,
+                                          init_train_state, shard_state)
+    from repro_torch.launch.train import data_config
+    from repro_torch.models import train_flash_launches
+    from repro_torch.models.layers import tree_paths
+
+    cfg = get_arch(TRAIN_ARCH).full()
+    want = train_flash_launches(cfg)
+    pipe = make_pipeline(data_config(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0))
+    try:
+        batches = [next(pipe) for _ in range(MESH_STEPS)]
+    finally:
+        pipe.close()
+
+    def run(on_mesh):
+        state = init_train_state(cfg, "adamw", device=dev)
+        if on_mesh is not None:
+            state = shard_state(state, cfg, on_mesh, "adamw")
+        step = build_train_step(cfg, "adamw", device=dev, mesh=on_mesh)
+        out = []
+        for i, batch in enumerate(batches):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            out.append({"step": i + 1, "loss": metrics["loss"].detach()
+                        .cpu(), "wall_s": wall,
+                        "flash_tensor_core": counts["flash_attention_tc"],
+                        "flash_cuda_core": counts["flash_attention"]
+                        - counts["flash_attention_tc"]})
+        return state, out
+
+    def leaves(state):
+        return tree_paths({"params": state["params"],
+                           "mu": state["opt"]["mu"],
+                           "nu": state["opt"]["nu"]})
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, ref_steps = run(None)
+    ref = {path: t.detach().cpu() for path, t in leaves(state)}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, steps = run(mesh)
+    peak = torch.cuda.max_memory_allocated()
+    differ = []
+    for path, t in leaves(state):
+        local = t.detach().to_local() if hasattr(t, "to_local") else t
+        if not same_bits(local, ref.pop(path).to(dev)):
+            differ.append(path)
+    require(not ref, f"[mesh] leaves missing from the mesh state: "
+            f"{list(ref)[:3]}")
+    del state
+    losses_same = all(same_bits(a["loss"], b["loss"])
+                      for a, b in zip(steps, ref_steps))
+    for s in steps + ref_steps:
+        s["loss"] = float(s["loss"])
+    row = {"check": "mesh_train", "arch": cfg.name, "mesh": [1, 1],
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": "adamw",
+           "steps": steps, "no_mesh_steps": ref_steps,
+           "train_phase_mean_wall_s": train_wall_s,
+           "losses_same_bits": losses_same,
+           "leaves_differing": len(differ), "differing": differ[:8],
+           "peak_bytes": peak, "flash_launches_per_step": want,
+           "card": card_line()}
+    print(f"[mesh] {json.dumps(row)}", flush=True)
+    require(losses_same and not differ,
+            f"[mesh] the mesh steps differ from the no-mesh steps: losses "
+            f"same {losses_same}, {len(differ)} leaves {differ[:4]}")
+    for s in steps:
+        require(s["flash_tensor_core"] == want and s["flash_cuda_core"] == 0,
+                f"[mesh] step {s['step']}: flash launches {s}, not {want} "
+                f"on the tensor cores")
+    require(peak <= TRAIN_PEAK_LIMIT,
+            f"[mesh] peak {peak} device bytes over {TRAIN_PEAK_LIMIT}")
+    return row
+
+
+def mesh_psum_row(dev, mesh) -> dict:
+    """(b) ``compressed_psum`` over the mesh's one-rank NCCL group of a
+    full-width gradient-shaped leaf (qwen3-4b's ``wo_fd`` [9728, 2560],
+    fp32 from seed 0 at a gradient's scale) against the same call on the
+    CPU over a one-rank gloo group: the same bits."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import compressed_psum
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((9728, 2560), generator=gen, device=dev) * 1e-3
+    t0 = time.perf_counter()
+    got = compressed_psum(x, group=mesh.get_group("data"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    want = compressed_psum(x.cpu(), group=gloo)
+    same = same_bits(got.cpu(), want)
+    row = {"check": "compressed_psum", "shape": list(x.shape),
+           "same_bits_as_gloo_cpu": same, "card_s": card_s,
+           "max_abs": float((got.cpu() - want).abs().max())}
+    print(f"[mesh] {json.dumps(row)}", flush=True)
+    require(same, f"[mesh] compressed_psum on the card differs from the "
+            f"CPU's: {row}")
+    return row
+
+
+def mesh_serve_row(dev, mesh) -> dict:
+    """(c) qwen3-4b ``full()`` (bf16, seed 0): the prefill step over the
+    PREFILL_BATCH x PREFILL_LEN prompts and MESH_DECODE_STEPS decode steps
+    through ``mesh=`` (params in the train layout for the prefill, the
+    serving layout for decode; the cache placed by ``cache_shardings``)
+    against the no-mesh steps: the logits the same bits."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, shard_cache,
+                                          shard_params)
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_arch(LM_ARCH).full()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompts, _ = lm_prompts(cfg.vocab)
+    tokens = torch.as_tensor(prompts, device=dev)
+    rng = np.random.default_rng(1)
+    new = torch.as_tensor(rng.integers(1, cfg.vocab, (
+        PREFILL_BATCH, MESH_DECODE_STEPS)), device=dev)
+    t0 = time.perf_counter()
+    want_pre = build_prefill_step(cfg, device=dev)(params, {"tokens": tokens})
+    step = build_serve_step(cfg, device=dev)
+    cache = init_cache(cfg, PREFILL_BATCH, MESH_DECODE_STEPS, device=dev)
+    want_dec = []
+    for t in range(MESH_DECODE_STEPS):
+        cache, lg = step(params, cache, new[:, t:t + 1], t)
+        want_dec.append(lg)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del cache
+    train_layout = shard_params(params, cfg, mesh)
+    serve_layout = shard_params(params, cfg, mesh, serve=True)
+    t0 = time.perf_counter()
+    got_pre = build_prefill_step(cfg, device=dev, mesh=mesh)(
+        train_layout, {"tokens": tokens})
+    step = build_serve_step(cfg, device=dev, mesh=mesh)
+    cache = shard_cache(init_cache(cfg, PREFILL_BATCH, MESH_DECODE_STEPS,
+                                   device=dev), cfg, mesh)
+    got_dec = []
+    for t in range(MESH_DECODE_STEPS):
+        cache, lg = step(serve_layout, cache, new[:, t:t + 1], t)
+        got_dec.append(lg)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    same_pre = same_bits(got_pre, want_pre)
+    same_dec = [same_bits(a, b) for a, b in zip(got_dec, want_dec)]
+    row = {"check": "mesh_serve", "arch": cfg.name, "mesh": [1, 1],
+           "prefill": [PREFILL_BATCH, PREFILL_LEN],
+           "decode_steps": MESH_DECODE_STEPS,
+           "prefill_same_bits": same_pre, "decode_same_bits": same_dec,
+           "no_mesh_s": plain_s, "mesh_s": mesh_s,
+           "prefill_finite": bool(torch.isfinite(got_pre).all())}
+    print(f"[mesh] {json.dumps(row)}", flush=True)
+    require(same_pre and all(same_dec) and row["prefill_finite"],
+            f"[mesh] prefill/decode through mesh= differ: {row}")
+    del params, train_layout, serve_layout, cache
+    return row
+
+
+def mesh_phase(dev, train_wall_s: float) -> list:
+    """The mesh on the card (``[mesh]`` lines): (a) train steps, (b)
+    ``compressed_psum``, (c) prefill and decode, on a one-rank NCCL group's
+    (1, 1) mesh; the group is destroyed after."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    mesh = one_rank_mesh(dev)
+    try:
+        rows = [mesh_train_row(dev, mesh, train_wall_s)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows.append(mesh_psum_row(dev, mesh))
+        rows.append(mesh_serve_row(dev, mesh))
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] phase {time.perf_counter() - t0:.1f} s; card: "
+          f"{card_line()}", flush=True)
+    return rows
+
+
+# -- phase 5d: the dry run ----------------------------------------------------
+
+def start_dryrun(out_dir: Path) -> list:
+    """Starts ``python -m repro_torch.launch.dryrun`` for each of
+    DRYRUN_CELLS, one subprocess each (the fake process group cannot share
+    a process with the NCCL one), on the host's CPU.  Returns (cell,
+    process, log path, start time)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        log = out_dir / f"{arch}__{shape}__{mesh}.log"
+        with open(log, "w") as f:
+            p = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--out", str(out_dir)], stdout=f, stderr=subprocess.STDOUT,
+                cwd=ROOT, env=env)
+        procs.append(((arch, shape, mesh), p, log, time.perf_counter()))
+    return procs
+
+
+def dryrun_phase(out_dir: Path) -> list:
+    """Runs the dry-run cells side by side after the card's phases (so none
+    of those shares the host with them) and waits for each
+    (DRYRUN_TIMEOUT from its start; a cell past it is killed and fails the
+    phase); prints its record's memory, FLOPs, collective bytes by kind
+    (within a pod and across pods) and roofline terms.  Every record must
+    be ``ok``."""
+    t0 = time.perf_counter()
+    procs = start_dryrun(out_dir)
+    try:
+        rows = [dryrun_row(out_dir, *proc) for proc in procs]
+    finally:
+        for _, p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def dryrun_row(out_dir: Path, cell: tuple, p, log: Path,
+               started: float) -> dict:
+    arch, shape, mesh = cell
+    left = max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - started))
+    try:
+        rc = p.wait(timeout=left)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        rc = None
+    name = {"single": "16x16", "multi": "2x16x16"}[mesh]
+    path = out_dir / f"{arch}__{shape}__{name}.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    row = {"check": "dryrun", "arch": arch, "shape": shape,
+           "mesh": name, "rc": rc, "ok": rec.get("ok"),
+           "wall_s": time.perf_counter() - started,
+           "record_total_s": rec.get("total_s"),
+           "plan": {k: rec.get("plan", {}).get(k) for k in
+                    ("optimizer", "pod_strategy", "microbatches")},
+           "memory": rec.get("memory"),
+           "flops_per_chip": rec.get("cost_raw", {}).get("flops"),
+           "bytes_accessed_per_chip": rec.get("cost_raw", {}).get(
+               "bytes_accessed"),
+           "collectives": rec.get("collectives"),
+           "roofline": rec.get("roofline"),
+           "error": rec.get("error")}
+    print(f"[dryrun] {json.dumps(row)}", flush=True)
+    require(rc == 0 and rec.get("ok") is True,
+            f"[dryrun] {arch}/{shape}/{name}: rc {rc}, "
+            f"{rec.get('error')}; log {log.read_text()[-1500:]}")
+    return row
+
+
 def release_kernel_phase() -> None:
     """Frees what the kernel phase leaves allocated, so that no path's peak
     counts it: cuBLAS keeps a workspace for every stream it ran on.
@@ -3015,6 +3357,12 @@ def main() -> int:
             f"cuobjdump finds HGMMA in {len(tc_kernels)} tensor-core flash "
             f"kernels, not 4")
 
+    return card_phases(dev)
+
+
+def card_phases(dev) -> int:
+    """Phases 3 to 8, the dry run's records, the kernels line and the last
+    line."""
     rows = kernel_phase(dev)
     release_kernel_phase()
 
@@ -3044,10 +3392,12 @@ def main() -> int:
         if r["kernel_row"] is not None:
             launches[r["kernel_row"]] += r["launches"]["flash_attention"]
     torch.cuda.empty_cache()
-    train_phase(dev)
+    train_rows = train_phase(dev)
+    mesh_phase(dev, train_rows[0]["mean_wall_s"])
     obs_phase(dev, designs)
     tenants_phase(dev)
     chaos_phase(dev)
+    dryrun_phase(ROOT / "results" / "dryrun_torch")
 
     blas = "src/repro/kernels/hbm_blas/kernel.py"
     sources = {"dilate": ("src/repro_torch/csrc/dilate.cu",

@@ -11,6 +11,12 @@ path as JAX's ``keystr`` writes it (``['params']['blocks'][0]['attn']
 viewed as uint16, as npy has no bf16) and the manifest records each
 leaf's file, shape and dtype.  JAX restores onto a mesh's shardings; the port restores onto the
 devices and dtypes of the ``like`` tree's tensors.
+
+A tree of DTensors (a mesh's train state) is saved whole: every rank
+gathers each leaf (``full_tensor``, a collective), rank 0 writes and
+publishes, and every rank waits for the publish (a barrier), so a save
+blocks.  It is restored with ``distribute_tensor`` onto each ``like``
+leaf's placements.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..models.layers import tree_paths
 
@@ -29,8 +37,20 @@ def _flatten(tree) -> Dict[str, torch.Tensor]:
     return dict(tree_paths(tree))
 
 
+def _distributed(flat: Dict[str, torch.Tensor]) -> bool:
+    return any(isinstance(v, DTensor) for v in flat.values())
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or a process with no group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _host_array(t: torch.Tensor) -> np.ndarray:
-    """A numpy copy of ``t`` (bf16 as its uint16 bit patterns)."""
+    """A numpy copy of ``t`` (bf16 as its uint16 bit patterns); a DTensor
+    whole."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -48,9 +68,16 @@ def save_checkpoint(directory: str, step: int, tree, *,
     failure mode the atomic-rename layout exists to prevent.  (Leftover
     ``.tmp`` dirs from a crashed writer are fair game either way.)
     """
-    os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"step_{step}.tmp")
     final = os.path.join(directory, f"step_{step}")
+    flat = _flatten(tree)
+    sharded = _distributed(flat)
+    if sharded and not _writer():
+        for v in flat.values():
+            _host_array(v)             # this rank's part of each gather
+        dist.barrier()                 # rank 0 has published
+        return _done_thread()
+    os.makedirs(directory, exist_ok=True)
     if os.path.exists(final) and not overwrite:
         raise FileExistsError(
             f"checkpoint step_{step} already published in {directory!r}; "
@@ -58,7 +85,6 @@ def save_checkpoint(directory: str, step: int, tree, *,
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = _flatten(tree)
     # The device→host copies happen on the caller's thread (so a later
     # in-place update cannot race them); serialization runs in the
     # background writer.
@@ -80,8 +106,16 @@ def save_checkpoint(directory: str, step: int, tree, *,
 
     t = threading.Thread(target=_write, daemon=True)
     t.start()
-    if blocking:
+    if blocking or sharded:
         t.join()
+    if sharded:
+        dist.barrier()
+    return t
+
+
+def _done_thread() -> threading.Thread:
+    t = threading.Thread(target=lambda: None, daemon=True)
+    t.start()
     return t
 
 
@@ -123,6 +157,9 @@ def load_checkpoint(directory: str, like_tree, step: Optional[int] = None):
             t = t.view(torch.int16).view(torch.bfloat16)
         else:
             t = t.to(getattr(torch, meta["dtype"]))
+        if isinstance(like, DTensor):
+            t = distribute_tensor(t.to(device=like.device, dtype=like.dtype),
+                                  like.device_mesh, like.placements)
         like.copy_(t)
     return like_tree, step
 
@@ -163,6 +200,8 @@ class CheckpointManager:
         return latest_step(self.directory)
 
     def _gc(self):
+        if not _writer():
+            return
         steps = sorted(
             int(n.split("_")[1]) for n in os.listdir(self.directory)
             if n.startswith("step_") and not n.endswith(".tmp"))

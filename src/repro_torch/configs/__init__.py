@@ -6,8 +6,8 @@ its audio frame stub, and llava-next-34b with its vision patch stub).
 from . import (chatglm3_6b, deepseek_v2_236b, deepseek_v3_671b, gemma2_27b,
                llava_next_34b, mistral_nemo_12b, qwen3_4b,
                recurrentgemma_9b, seamless_m4t_large_v2, xlstm_1_3b)
-from .base import (ARCHS, SHAPES, ShapeCell, get_arch, register,
-                   supported_shapes)
+from .base import (ARCHS, SHAPES, ShapeCell, get_arch, input_specs,
+                   register, supported_shapes)
 
 register("seamless-m4t-large-v2", seamless_m4t_large_v2)
 register("chatglm3-6b", chatglm3_6b)
@@ -23,4 +23,4 @@ register("llava-next-34b", llava_next_34b)
 ALL_ARCHS = tuple(ARCHS.keys())
 
 __all__ = ["ARCHS", "ALL_ARCHS", "SHAPES", "ShapeCell", "get_arch",
-           "register", "supported_shapes"]
+           "input_specs", "register", "supported_shapes"]

@@ -7,16 +7,18 @@ plus metadata: FAMILY, SUPPORTED_SHAPES.
 
 ``_frontend_len`` and ``_enc_len`` give the lengths of the stub frontends'
 inputs (vision patches prepended to the tokens; audio frames for the
-encoder), ``prefill_input_shapes`` a prefill batch's shapes.  The
-dry-run's ``input_specs`` (shape stand-ins for lowering) is not ported
-yet: the port has no dry-run.
+encoder), ``prefill_input_shapes`` a prefill batch's shapes, and
+``input_specs(cfg, shape)`` the dry run's stand-ins for a cell's inputs:
+meta tensors (no allocation) of JAX's shapes and dtypes.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Tuple
 
-from ..models import ModelConfig
+import torch
+
+from ..models import ModelConfig, init_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +63,41 @@ def prefill_input_shapes(cfg: ModelConfig, batch: int,
     if E:
         shapes["src"] = (batch, E, cfg.d_model)
     return shapes
+
+
+def input_specs(cfg: ModelConfig, shape: str) -> Dict[str, object]:
+    """Meta tensors for one (arch × shape) cell, JAX's shapes and dtypes.
+
+    train/prefill: token batch (+ frontend/src embeddings).
+    decode: single-token batch + cache (``init_cache`` on the meta
+    device: one dict per layer) + position.
+    """
+    cell = SHAPES[shape]
+    B, S = cell.global_batch, cell.seq_len
+    P = _frontend_len(cfg)
+    E = _enc_len(cfg, S)
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    f32, i32 = torch.float32, torch.int32
+    if cell.kind in ("train", "prefill"):
+        specs: Dict[str, object] = {"tokens": meta((B, S - P), i32)}
+        if cell.kind == "train":
+            specs["targets"] = meta((B, S), i32)
+            specs["weights"] = meta((B, S), f32)
+        if P:
+            specs["frontend"] = meta((B, P, cfg.d_model), cfg.dtype)
+        if E:
+            specs["src"] = meta((B, E, cfg.d_model), cfg.dtype)
+        return specs
+    # decode: one new token against a cache of size seq_len.
+    specs = {"tokens": meta((B, 1), i32),
+             "cache": init_cache(cfg, B, S, device="meta"),
+             "pos": meta((), i32)}
+    if E:
+        specs["enc_out"] = meta((B, E, cfg.d_model), cfg.dtype)
+    return specs
 
 
 # Registry filled by __init__.

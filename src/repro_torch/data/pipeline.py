@@ -1,9 +1,8 @@
 """Host-sharded token pipeline with background prefetch.
 
 A copy of the JAX package's ``data/pipeline.py`` (numpy only, so the same
-seed gives the same batches bit for bit), without
-``synthetic_batch_specs``, which builds the dry run's shape stand-ins and
-waits for the port's dry run (ROADMAP Queue 1 item 8).
+seed gives the same batches bit for bit); ``synthetic_batch_specs`` gives
+the dry run's stand-ins for one global batch as meta tensors.
 
 Production posture: each host produces only its slice of the global batch
 (``host_index``/``num_hosts``), batches are assembled as dicts of numpy
@@ -123,3 +122,25 @@ class Pipeline:
 
 def make_pipeline(cfg: DataConfig) -> Pipeline:
     return Pipeline(cfg)
+
+
+def synthetic_batch_specs(cfg: DataConfig):
+    """Meta tensors for one *global* batch (dry-run input), the JAX
+    package's shapes and dtypes."""
+    import torch
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    B = cfg.global_batch
+    specs = {
+        "tokens": meta((B, cfg.seq_len - cfg.frontend_tokens), torch.int32),
+        "targets": meta((B, cfg.seq_len), torch.int32),
+        "weights": meta((B, cfg.seq_len), torch.float32),
+    }
+    if cfg.frontend_tokens:
+        specs["frontend"] = meta((B, cfg.frontend_tokens, cfg.d_model),
+                                 torch.float32)
+    if cfg.enc_len:
+        specs["src"] = meta((B, cfg.enc_len, cfg.d_model), torch.float32)
+    return specs

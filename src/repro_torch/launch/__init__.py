@@ -1,3 +1,6 @@
-"""Single-device step functions, the training and serving CLIs, and the LM
-accounting (``graphs``: a model as a task graph; ``analytic``: FLOPs and
-bytes per step).  The mesh and the dry-run wait (ROADMAP Queue 1 item 8)."""
+"""Step functions (one device or a mesh), the training and serving CLIs,
+the LM accounting (``graphs``: a model as a task graph; ``analytic``:
+FLOPs and bytes per step), and the sharded and dry-run parts: ``mesh``,
+``shardings`` (the placement rules), ``pipeline`` (GPipe over the pod
+axis), ``plan`` (the partitioner on a cell), ``hlo_analysis`` and
+``dryrun``."""

@@ -9,8 +9,18 @@ over the data pipeline with the train step, on the CUDA card unless
 (CPU-runnable); a full config needs the card (qwen3-4b's AdamW state is
 48 GB; recurrentgemma-9b's fits with ``--optimizer adafactor`` only) and
 ``--seq`` a multiple of the cross-entropy's 512-position chunk (and of
-the mLSTM chunk for xlstm-1.3b).  Every arch trains; the mesh path waits
-for ROADMAP Queue 1 item 8.
+the mLSTM chunk for xlstm-1.3b).  Every arch trains.
+
+Started with a world size above 1 (``torch.distributed.run``), it takes
+the mesh path, as JAX's does with more than one device: it creates the
+process group (nccl on ``cuda``, gloo on the CPU) and a ``(world, 1)``
+('data', 'model') mesh, shards the state by the sharding rules and runs
+the mesh train step.  Every rank reads the global stream (host 0's) and
+keeps its slice.  Checkpoints are written whole by rank 0 and restored
+onto each rank's shards.
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 2 \
+        -m repro_torch.launch.train --arch qwen3-4b --smoke --device cpu
 
 ``--inject-failure-at N`` kills the run after step N; the supervisor
 (``runtime.run_with_restarts``) restarts it, the trainer restores the
@@ -27,6 +37,9 @@ import os
 import tempfile
 from typing import Any, Callable, List, Optional, Tuple
 
+import torch
+import torch.distributed as dist
+
 from ..ckpt import latest_step
 from ..configs import get_arch
 from ..data import DataConfig, make_pipeline
@@ -34,7 +47,9 @@ from ..exec.programs import resolve_device
 from ..models import ModelConfig
 from ..runtime import (FailureInjector, Trainer, TrainerConfig,
                        run_with_restarts)
-from .steps import OPTIMIZERS, build_train_step, init_train_state
+from .mesh import make_mesh
+from .steps import (OPTIMIZERS, build_train_step, init_train_state,
+                    shard_state)
 
 
 def data_config(cfg: ModelConfig, batch: int, seq: int,
@@ -98,19 +113,49 @@ def main(argv=None) -> int:
     mod = get_arch(args.arch)
     cfg = mod.smoke() if args.smoke else mod.full()
     dev = resolve_device(args.device)
+    mesh = _mesh(dev)
+
+    def init_state():
+        state = init_train_state(cfg, args.optimizer, device=dev)
+        if mesh is None:
+            return state
+        return shard_state(state, cfg, mesh, args.optimizer)
+
     step_fn = build_train_step(cfg, args.optimizer,
-                               microbatches=args.microbatches, device=dev)
-    trainers, state = train_with_restarts(
-        step_fn, lambda: init_train_state(cfg, args.optimizer, device=dev),
-        data_config(cfg, args.batch, args.seq),
-        TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt,
-                      save_interval=args.save_interval),
-        FailureInjector([args.inject_failure_at]
-                        if args.inject_failure_at else None))
+                               microbatches=args.microbatches, device=dev,
+                               mesh=mesh)
+    writer = mesh is None or dist.get_rank() == 0
+    try:
+        trainers, state = train_with_restarts(
+            step_fn, init_state, data_config(cfg, args.batch, args.seq),
+            TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt,
+                          save_interval=args.save_interval),
+            FailureInjector([args.inject_failure_at]
+                            if args.inject_failure_at else None))
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
     history = trainers[-1].metrics_history
     final_loss = history[-1]["loss"] if history else float("nan")
-    print(f"done: step={int(state['step'])} loss={final_loss:.4f}")
+    if writer:
+        print(f"done: step={int(state['step'])} loss={final_loss:.6f}")
     return 0
+
+
+def _mesh(dev):
+    """The (world, 1) ('data', 'model') mesh when the process was started
+    with a world size above 1 (``torch.distributed.run`` sets
+    ``WORLD_SIZE``, ``RANK`` and the rendezvous), else None."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return None
+    # DTensor warns of every reduction over the two mesh dims in turn.
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return make_mesh((world, 1), ("data", "model"))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """LM model substrate: attention (GQA, cross attention, MLA), the
 recurrent mixers (RG-LRU, mLSTM, sLSTM), dense and MoE FFN layers and
 stack assembly (decoder-only and enc-dec, with the audio and vision
-frontend stubs), and the training loss (``train_loss``)."""
+frontend stubs), the training loss (``train_loss``), and ``shardctx``,
+the mesh context that gathers sharded weights at use."""
 from .attention import AttnConfig, MLAConfig
 from .convert import opt_state_from_jax, params_from_jax
 from .ffn import FFNConfig

@@ -6,9 +6,10 @@ nested dicts of tensors; a whole model's tree is held as a
 :class:`ParamTree`, a module tree with the same names (``p["attn"]``), so
 the JAX leaf names carry over one to one.
 Initialisers draw from an explicit ``torch.Generator`` on the device the
-tensors are made on.  :func:`tree_map`, :func:`tree_leaves` and
-:func:`tree_paths` walk such trees (a ParamTree, nested dicts and lists,
-or a training state holding both) for the optimizers and checkpoints.
+tensors are made on.  :func:`tree_map`, :func:`tree_map_with_keys`,
+:func:`tree_leaves` and :func:`tree_paths` walk such trees (a ParamTree,
+nested dicts and lists, or a training state holding both) for the
+optimizers, the checkpoints and the sharding rules.
 """
 from __future__ import annotations
 
@@ -72,6 +73,19 @@ def tree_map(fn: Callable, tree, *rest):
     if kids is None:
         return fn(tree, *rest)
     out = [(k, tree_map(fn, c, *(r[k] for r in rest))) for k, c in kids]
+    if isinstance(tree, (ParamTree, Mapping)):
+        return dict(out)
+    return [v for _, v in out]
+
+
+def tree_map_with_keys(fn: Callable, tree, keys: Tuple = ()):
+    """``fn(keys, leaf)`` over the tensor leaves of ``tree``, ``keys`` the
+    tuple of names and list indices from the root to the leaf; the result
+    is shaped as :func:`tree_map`'s."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(keys, tree)
+    out = [(k, tree_map_with_keys(fn, c, keys + (k,))) for k, c in kids]
     if isinstance(tree, (ParamTree, Mapping)):
         return dict(out)
     return [v for _, v in out]

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import layers
+from . import layers, shardctx
 from .ffn import FFNConfig, ffn_forward, init_ffn
 
 #: The leaves the router keeps in fp32 whatever ``param_dtype`` is.
@@ -109,11 +109,17 @@ def _route(params, cfg: MoEConfig, x: torch.Tensor
     w = w / (w.sum(dim=-1, keepdim=True) + 1e-9)
     # Switch-style load-balance aux loss (kept in aux-free mode as a
     # monitored metric); ce from a histogram of the choices.
-    me = probs.mean(dim=(0, 1))
     counts = torch.zeros(cfg.num_experts, dtype=torch.float32,
                          device=x.device).index_add_(
         0, idx.reshape(-1), torch.ones(idx.numel(), device=x.device))
-    aux = cfg.num_experts * torch.sum(me * counts / idx.numel())
+    # The means are the whole batch's: on a mesh each rank holds 1/split of
+    # it, and each rank's loss carries 1/split of the aux loss.
+    split = shardctx.batch_split()
+    me = shardctx.batch_sum(probs.sum(dim=(0, 1))) / (
+        probs.shape[0] * probs.shape[1] * split)
+    counts = shardctx.batch_sum(counts)
+    aux = cfg.num_experts * torch.sum(
+        me * counts / (idx.numel() * split)) / split
     return idx, w.to(x.dtype), aux
 
 
@@ -172,12 +178,15 @@ def moe_forward(params, cfg: MoEConfig, x: torch.Tensor
     # Each slot's place in the [E, G, C] buffer, flat; a dropped slot's is
     # E·G·C, which the combine reads as a zero row.
     slot_of = torch.where(keep, (flat_e * G + g) * C + pos, E * G * C)
-    dest = slot_of[keep]
-    slot = torch.arange(E * G * C, device=dev)
+    # The kept slots' places are distinct; the dropped ones all write the
+    # spare entry E·G·C, which is cut off (no data-dependent shapes).
+    slot = torch.arange(E * G * C + 1, device=dev)
     buf_src = (slot // C % G) * (S + 1) + S               # empty: the pad row
-    buf_src[dest] = src[keep]
-    w_buf = torch.zeros(E * G * C, dtype=torch.float32, device=dev)
-    w_buf[dest] = w.reshape(G, S * k)[keep].float()
+    buf_src[slot_of.reshape(-1)] = src.reshape(-1)
+    buf_src = buf_src[:E * G * C]
+    w_buf = torch.zeros(E * G * C + 1, dtype=torch.float32, device=dev)
+    w_buf[slot_of.reshape(-1)] = w.reshape(-1).float()
+    w_buf = w_buf[:E * G * C]
 
     x_pad = torch.cat([x, x.new_zeros((G, 1, D))], dim=1).reshape(-1, D)
     xe = x_pad[buf_src].view(E, G * C, D)

@@ -48,6 +48,7 @@ from . import ffn as ffnmod
 from . import layers
 from . import moe as moemod
 from . import recurrent as rec
+from . import shardctx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,13 +353,16 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, p, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Optional[dict],
                            Union[torch.Tensor, float]]:
     """One residual block: the full sequence, or with ``cache`` one decode
-    step at ``pos``.  With ``enc_out`` [B,Senc,D], a layer that has a cross
+    step at ``pos``.  On a mesh the layer's sharded weights are gathered
+    here (``shardctx.gather``), so under autograd inside the super-block's
+    recompute too.  With ``enc_out`` [B,Senc,D], a layer that has a cross
     block attends to it between the mixer and the FFN (no post-norm);
     ``causal=False`` makes GQA bidirectional (the encoder).  Returns (x,
     new_cache, moe_aux); moe_aux is an fp32 scalar tensor for a MoE FFN
     and the float 0.0 for a dense one, so a dense step allocates nothing
     for it."""
     _check_spec(spec)
+    p = shardctx.gather(p)
     new_cache: Optional[dict] = None
     h = _norm(cfg, p["ln_mixer"], x)
     if spec.mixer == "gqa":
@@ -508,7 +512,9 @@ def chunked_xent(params, cfg: ModelConfig, x: torch.Tensor,
     computes its logits [B,C,V] in fp32 (``layers.unembed``), the final
     softcap, logsumexp and the gold logit, and its weighted sum; under
     autograd the chunk is recomputed in the backward (JAX's
-    ``@jax.checkpoint``).  Returns Σ(lse − gold)·w / max(Σw, 1)."""
+    ``@jax.checkpoint``).  Returns Σ(lse − gold)·w / max(Σw, 1); on a
+    mesh that splits the batch, Σw is the whole batch's
+    (``shardctx.batch_sum``), so the ranks' losses add up to it."""
     B, S, D = x.shape
     table = _unembed_table(params, cfg)
     chunk = min(chunk, S)
@@ -529,7 +535,7 @@ def chunked_xent(params, cfg: ModelConfig, x: torch.Tensor,
                 weights[:, i:i + chunk])
         total = total + (checkpoint(one, *args, use_reentrant=False)
                          if torch.is_grad_enabled() else one(*args))
-    return total / torch.clamp(weights.sum(), min=1.0)
+    return total / torch.clamp(shardctx.batch_sum(weights.sum()), min=1.0)
 
 
 def train_loss(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:

@@ -14,6 +14,10 @@ The arithmetic is the JAX package's line for line.  Two differences:
   all L layers.  The port factors and clips per layer, which is what
   JAX's Adafactor does on an unstacked tree; the two agree at
   ``num_superblocks == 1``.
+
+On a mesh the params and gradients are DTensors: the row and column
+means and the clipping RMS are DTensor reductions over the shards, and
+each new moment and param takes the placements of the one it replaces.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import dataclasses
 from typing import Any, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..models.layers import tree_leaves, tree_map
 
@@ -61,6 +67,14 @@ def adafactor_update(params, grads, state: dict, cfg: AdafactorConfig,
     beta2 = 1.0 - c ** (-cfg.decay)
 
     def upd(p, g, s):
+        if isinstance(p, DTensor):
+            with implicit_replication():
+                ns = upd_leaf(p, g, s)
+            return {k: v.redistribute(s[k].device_mesh, s[k].placements)
+                    for k, v in ns.items()}
+        return upd_leaf(p, g, s)
+
+    def upd_leaf(p, g, s):
         g = g.float()
         g2 = torch.square(g) + cfg.eps
         if _factored(p.shape):
@@ -79,8 +93,11 @@ def adafactor_update(params, grads, state: dict, cfg: AdafactorConfig,
         rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
         u = u / torch.clamp(rms / cfg.clip_threshold, min=1.0)
         p32 = p.float()
-        p.copy_(p32 - cfg.lr * lr_scale * u
-                - cfg.lr * lr_scale * cfg.weight_decay * p32)
+        new = (p32 - cfg.lr * lr_scale * u
+               - cfg.lr * lr_scale * cfg.weight_decay * p32)
+        if isinstance(p, DTensor):
+            new = new.redistribute(p.device_mesh, p.placements)
+        p.copy_(new)
         return ns
 
     new_v = tree_map(upd, params, grads, state["v"])

@@ -16,6 +16,11 @@ arithmetic:
   gradient (16 GB at qwen3-4b).  The norm is summed as JAX sums it, leaf by
   leaf in tree order, each leaf's sum of squares in fp32, and the factor
   is applied to ``g.float()`` inside each leaf's update.
+
+On a mesh (``launch.steps.build_train_step(..., mesh=)``) the params,
+gradients and moments are DTensors with the same placements: the update
+runs on each rank's shards, and each leaf's sum of squares is summed over
+its shards (``full_tensor``) before the leaves are added in tree order.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import math
 from typing import Any, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.layers import tree_leaves, tree_map
 
@@ -53,7 +59,12 @@ def global_norm(grads) -> torch.Tensor:
     fp32 sum of squares (an fp32 scalar)."""
     total = 0
     for g in tree_leaves(grads):
-        total = total + torch.sum(torch.square(g.float()))
+        s = torch.sum(torch.square(g.float()))
+        if isinstance(s, DTensor):
+            # A sharded leaf's sum is the sum over its shards; a
+            # replicated dim is counted once.
+            s = s.full_tensor()
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -83,6 +94,10 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig,
     lr = cfg.lr * lr_scale
 
     def upd(p, g, mu, nu):
+        if isinstance(p, DTensor):
+            # The leaves share the param's placements: the update is
+            # elementwise, so each rank updates its own shard.
+            p, g, mu, nu = (t.to_local() for t in (p, g, mu, nu))
         g = g.float() * scale
         mu.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
         nu.mul_(cfg.b2).add_(torch.square(g), alpha=1 - cfg.b2)

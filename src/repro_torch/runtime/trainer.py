@@ -3,9 +3,11 @@ failure injection + straggler monitoring, independent of model specifics.
 
 The loop is a pure function of (restored state, data stream): every entry
 restores from the latest published checkpoint, so process death at any point
-resumes correctly (at-most-one-interval loss).  The JAX package's trainer
-on torch tensors; it restores onto the devices of the fresh state that
-``init_state_fn`` builds (there is no mesh to reshard onto).
+resumes correctly (at-most-one-interval loss); a loop that dies waits for
+its pending save first, so the restart sees it published.  The JAX
+package's trainer on torch tensors; it restores onto the devices (and,
+for a mesh's DTensors, the placements) of the fresh state that
+``init_state_fn`` builds.
 """
 from __future__ import annotations
 
@@ -60,20 +62,27 @@ class Trainer:
     def run(self) -> Any:
         state, start = self._restore_or_init()
         step = start
-        while step < self.cfg.total_steps:
-            batch = next(self.data)
-            self.monitor.start()
-            state, metrics = self.step_fn(state, batch)
-            # Wait for the loss so step time is real, then fault-check.
-            loss = float(metrics["loss"])
-            self.monitor.stop(step)
-            step += 1
-            self.injector.check(step)
-            if step % self.cfg.log_interval == 0:
-                log.info("step %d loss %.4f", step, loss)
-            self.metrics_history.append({"step": step, "loss": loss})
-            if self.ckpt.should_save(step):
-                self.ckpt.save(step, state)
+        try:
+            while step < self.cfg.total_steps:
+                batch = next(self.data)
+                self.monitor.start()
+                state, metrics = self.step_fn(state, batch)
+                # Wait for the loss so step time is real, then fault-check.
+                loss = float(metrics["loss"])
+                self.monitor.stop(step)
+                step += 1
+                self.injector.check(step)
+                if step % self.cfg.log_interval == 0:
+                    log.info("step %d loss %.4f", step, loss)
+                self.metrics_history.append({"step": step, "loss": loss})
+                if self.ckpt.should_save(step):
+                    self.ckpt.save(step, state)
+        except BaseException:
+            # A save still being written publishes before the restart
+            # reads the directory (or writes the same step again, which
+            # raced this writer for its ``.tmp`` directory).
+            self.ckpt.wait()
+            raise
         self.ckpt.save(step, state)
         self.ckpt.wait()
         return state

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 import numpy as np
 
@@ -119,3 +120,26 @@ def torch_model_config(jcfg):
     for key in ("dtype", "param_dtype"):
         kw[key] = getattr(torch, jnp.dtype(kw[key]).name)
     return ModelConfig(**kw)
+
+
+RANKS_SCRIPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "_torch_ranks.py")
+
+
+def run_ranks(scenario: str, world: int, workdir, inp, timeout: float = 600):
+    """Run ``tests/_torch_ranks.py``'s ``scenario`` on ``world`` gloo ranks
+    over ``inp`` in a subprocess (its own timeout, so a hung collective
+    fails the test); returns rank 0's output."""
+    import subprocess
+    import sys
+
+    import torch
+
+    workdir = str(workdir)
+    torch.save(inp, os.path.join(workdir, "in.pt"))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, RANKS_SCRIPT, scenario, str(world),
+                          workdir], capture_output=True, text=True,
+                         timeout=timeout, env=env)
+    assert res.returncode == 0, res.stderr[-4000:]
+    return torch.load(os.path.join(workdir, "out.pt"), weights_only=False)

@@ -204,6 +204,9 @@ def test_port_sources_import_no_jax_and_no_repro():
              "smoke")} <= names
     assert {f"src/repro_torch/chaos/{m}.py" for m in
             ("scenario", "runner", "smoke")} <= names
+    assert {f"src/repro_torch/launch/{m}.py" for m in
+            ("mesh", "shardings", "pipeline", "plan", "hlo_analysis",
+             "dryrun")} | {"src/repro_torch/models/shardctx.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -285,6 +288,14 @@ def test_port_path_loads_no_jax_and_no_repro():
         "    'tokens': [[1, 2, 3, 4]], 'targets': [[2, 3, 4, 5]],\n"
         "    'weights': [[1.0, 1.0, 1.0, 1.0]]})\n"
         "assert int(s['step']) == 1 and float(m['loss']) > 0\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.shardings\n"
+        "import repro_torch.launch.pipeline, repro_torch.launch.plan\n"
+        "import repro_torch.launch.hlo_analysis, repro_torch.launch.dryrun\n"
+        "import repro_torch.models.shardctx\n"
+        "from repro_torch.launch import dryrun\n"
+        "rec = dryrun.run_on_mesh('qwen3-4b', cfg, 'decode_32k', (2, 2),\n"
+        "                         ('data', 'model'))\n"
+        "assert rec['ok'], rec.get('error')\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -10,9 +10,11 @@ Phases (any failure exits non-zero before the final line):
    build (a spill in the tensor-core flash kernel's (192, 128) or
    (256, 256) instance is a failure; the CUDA-core kernel's two
    (256, 256) instances, fp32 and bf16, are printed on a line of their
-   own); counts the ``HGMMA`` instructions that ``cuobjdump -sass`` finds
-   in each of the four tensor-core flash attention instances (none is a
-   failure).
+   own, and the (64, 64) kernel's two instances, two and three consumer
+   warpgroups, on another); counts the ``HGMMA`` instructions that
+   ``cuobjdump -sass`` finds in each of the five tensor-core flash
+   attention instances, three of ``flash_sm90_kernel`` and two of
+   ``flash_sm90_d64_kernel`` (none is a failure).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main path gives it (dilate bit for bit,
    NaN where both are NaN, on the main-path image, on an image with NaN,
@@ -256,9 +258,11 @@ Sq < Sk, ragged lengths, window, softcap, both, non-causal, a fully masked
 leading block) at d = 128 and d = 64: elementwise within
 atol = rtol = 2e-2, each row within 1e-2 of its norm, and the tensor cores
 no further than twice the CUDA-core kernel's error from the fp32 plain
-version.  Two planted faults at the main shape (the last query block's
+version.  Three planted faults at the main shape (the last query block's
 rows without their first or their diagonal key tile, at the instance's
-key tile: 128 keys, 64 at (256, 256)) must fail the row check.  The
+key tile: 128 keys, 64 at (256, 256); and the last query tile's rows
+never written, at the instance's query tile: 128 rows, and at head dim
+64 192 past Sq = 512) must fail the row check.  The
 same cases in fp32 at d = 32, 64 and 128 go to the CUDA cores (within
 2e-5).  It also times the CUDA-core kernel and a non-causal call at the
 main shape.  Its yardstick is ``F.scaled_dot_product_attention``
@@ -275,21 +279,26 @@ tenth of the CUDA cores' time at MLA's shape.  Its bound counts 2·(d + dv)
 operations a visible pair at the bf16 tensor-core rate, its yardstick is
 ``F.scaled_dot_product_attention(is_causal=True)``, timed with CUDA
 events around 10 back-to-back calls.  After the build, ``ptxas``
-registers and spills of each flash_kernel and flash_sm90_kernel instance
-are printed.
+registers and spills of each flash_kernel, flash_sm90_kernel and
+flash_sm90_d64_kernel instance are printed.
 
 The ``flash_attention_g7`` row (llava-next-34b's q [4, 56, 2048, 128]
 on k, v [4, 8, 2048, 128], causal) and the ``flash_attention_seamless``
 row's three uses (head dim 64: the encoder's [4, 16, 512, 64] and the
 decoder's [4, 16, 2048, 64], cross attention's 2048 queries on 512 keys;
 the encoder's and cross attention's without a mask) hold the tensor
-cores under the flash row's gates, each with two planted faults (one key
+cores under the flash row's gates, each with three planted faults (one key
 tile skipped: the first or the diagonal one when causal, the first or the
-last one without a mask); the cross use also holds the decode step's one
-query on 512 keys.  Each is timed beside the plain version and SDPA
-(``enable_gqa`` at G = 7); their bound counts 2 B an element of q, k, v
-and o and 4·d operations a visible pair.  The seamless row's times and
-bound are its three uses' means (its prefill launches each 24 times).
+last one without a mask; the last query tile never written: seamless's
+decoder and cross attention the ragged 128 rows past 10 tiles of 192);
+the cross use also holds the decode step's one query on 512 keys.  Each
+is timed beside the plain version and SDPA (``enable_gqa`` at G = 7);
+their bound counts 2 B an element of q, k, v and o and 4·d operations a
+visible pair.  The seamless row's times and bound are its three uses'
+means (its prefill launches each 24 times); each use prints its TFLOP/s,
+its instance of ``flash_sm90_d64_kernel`` (two consumer warpgroups at
+the encoder's 512 rows, three at 2048) and that instance's ``ptxas``
+registers and spills.
 
 The ``flash_attention_hd256`` row holds both kernels' (256, 256)
 instances at recurrentgemma-9b's prefill shape (q [4, 16, 2048, 256], k,
@@ -489,6 +498,12 @@ FLASH_GRAD_CASES = (
     ("7e decoder", (1, 16, 16, 2048, 2048, 64, 64), {}),
     ("7e cross", (1, 16, 16, 2048, 512, 64, 64), {"causal": False}),
 )
+
+
+# ptxas -v of the (64, 64) kernel's two instances (two and three consumer
+# warpgroups), by mangled name, from the build: the seamless uses print
+# their instance's.
+D64_PTXAS: dict = {}
 
 
 class SmokeFailure(RuntimeError):
@@ -950,13 +965,20 @@ def planted_faults(label, q, k, v, got, want, causal=True) -> dict:
     instance that takes q's head dim (``tc_key_tile``: 128, 64 at 256), as
     a kernel that skipped that tile would give them: the first tile or
     the diagonal one (causal, Sq = Sk), the first tile or the last one
-    (no mask, any Sq and Sk).  The row gate must reject each; the
-    elementwise gate's reading is printed beside it."""
+    (no mask, any Sq and Sk); and with the rows of its last query tile
+    (``tc_query_tile``: 128, and at head dim 64 192 past Sq = 512, the
+    ragged 128 rows from 1920 at Sq = 2048) never written, as a kernel
+    that skipped that work tile would leave them (zeros here: the
+    wrapper's ``torch.empty`` holds whatever the memory held).  The row
+    gate must reject each; the elementwise gate's reading is printed
+    beside it."""
     from repro_torch.kernels.flash_attention import cases
-    from repro_torch.kernels.flash_attention.kernel import tc_key_tile
+    from repro_torch.kernels.flash_attention.kernel import (tc_key_tile,
+                                                            tc_query_tile)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     Sq, Sk, T = q.shape[2], k.shape[2], tc_key_tile(q.shape[3])
+    R = tc_query_tile(q.shape[3], Sq)
     if causal:
         require(Sq == Sk, f"{label}: causal planted faults need Sq == Sk")
         faults = {"skips_first_tile": (k[:, :, T:], v[:, :, T:], True),
@@ -978,6 +1000,17 @@ def planted_faults(label, q, k, v, got, want, causal=True) -> dict:
                 f"{label}: the row gate passes the planted fault {name} "
                 f"({planted[name]})")
         del bad
+    bad = got.clone()
+    bad[:, :, (Sq - 1) // R * R:] = 0
+    planted["skips_last_query_tile"] = dict(
+        rows=[(Sq - 1) // R * R, Sq],
+        row_rel_err=cases.row_rel_err(bad, want),
+        norm_rel_err=norm_rel(bad, want), excess=cases.excess(bad, want))
+    require(planted["skips_last_query_tile"]["row_rel_err"]
+            > cases.ROW_REL_LIMIT,
+            f"{label}: the row gate passes the planted fault "
+            f"skips_last_query_tile ({planted['skips_last_query_tile']})")
+    del bad
     return planted
 
 
@@ -1304,19 +1337,35 @@ def flash_new_arch_rows(dev, gen) -> dict:
     each held and timed by ``flash_use_row``.  seamless's decode step runs
     cross attention with one query on the same 512 keys: held to the plain
     version beside the cross use.  llava's is a row of the kernels line,
-    seamless's three uses are one row (``uses``)."""
-    from repro_torch.kernels.flash_attention.kernel import route
+    seamless's three uses are one row (``uses``), each with its TFLOP/s,
+    its instance of the (64, 64) kernel and that instance's ptxas
+    registers and spills."""
+    from repro_torch.kernels.flash_attention.kernel import (route,
+                                                            tc_query_tile)
 
     B, S = PREFILL_BATCH, PREFILL_LEN
     rows = {"flash_attention_g7": flash_use_row(
         "llava-next-34b shape (G = 7)", dev, gen, B, G7_HEADS, G7_KV_HEADS,
         S, S, 128, True)}
     H, d, E = SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES
-    uses = {use: flash_use_row(f"seamless {use} shape", dev, gen, B, H, H,
-                               Sq, Sk, d, causal)
-            for use, (Sq, Sk, causal) in {"encoder": (E, E, False),
-                                          "decoder": (S, S, True),
-                                          "cross": (S, E, False)}.items()}
+    uses = {}
+    for use, (Sq, Sk, causal) in {"encoder": (E, E, False),
+                                  "decoder": (S, S, True),
+                                  "cross": (S, E, False)}.items():
+        uses[use] = flash_use_row(f"seamless {use} shape", dev, gen, B, H, H,
+                                  Sq, Sk, d, causal)
+        # The (64, 64) kernel's instance: a consumer warpgroup a 64 rows of
+        # the work tile.
+        wgs = tc_query_tile(d, Sq) // 64
+        uses[use].update(
+            query_tile=tc_query_tile(d, Sq),
+            instance=f"flash_sm90_d64_kernel<{wgs}>",
+            ptxas=next((r for n, r in D64_PTXAS.items()
+                        if f"d64_kernelILi{wgs}E" in n), None))
+        print(f"[kernel] seamless {use}: {uses[use]['ms']:.5f} ms, "
+              f"{uses[use]['tflops']:.1f} TFLOP/s, "
+              f"{uses[use]['instance']}, ptxas {uses[use]['ptxas']}",
+              flush=True)
     q1, k, v = (torch.randn(B, n, H, d, device=dev, generator=gen).to(
         torch.bfloat16).transpose(1, 2) for n in (1, E, E))
     require(route(q1, k, v) == "tensor_core",
@@ -3348,14 +3397,22 @@ def main() -> int:
                     and sm90[inst[0]].get("spill_load_bytes") == 0,
                     f"ptxas: the {pair} flash_sm90_kernel instance spills "
                     f"or is missing: {sm90}")
+        D64_PTXAS.update(ptxas_report(info.log, "flash_sm90_d64_kernel"))
+        print(f"ptxas: flash_sm90_d64_kernel instances "
+              f"{json.dumps(D64_PTXAS)}", flush=True)
+        require(len(D64_PTXAS) == 2, f"ptxas: {len(D64_PTXAS)} "
+                f"flash_sm90_d64_kernel instances, not 2 (two and three "
+                f"consumer warpgroups)")
     build.library()
     hgmma = hgmma_counts(info.path)
     print(f"sass: HGMMA instructions per kernel {json.dumps(hgmma)}",
           flush=True)
-    tc_kernels = [n for n in hgmma if "flash_sm90_kernel" in n]
-    require(len(tc_kernels) == 4 and all(hgmma[n] > 0 for n in tc_kernels),
+    tc_kernels = [n for n in hgmma
+                  if "flash_sm90_kernel" in n or "flash_sm90_d64_kernel" in n]
+    require(len(tc_kernels) == 5 and all(hgmma[n] > 0 for n in tc_kernels),
             f"cuobjdump finds HGMMA in {len(tc_kernels)} tensor-core flash "
-            f"kernels, not 4")
+            f"kernels, not 5 (three flash_sm90_kernel instances, two "
+            f"flash_sm90_d64_kernel)")
 
     return card_phases(dev)
 

@@ -1,10 +1,13 @@
-// Flash attention on Hopper's tensor cores: bf16 wgmma fed by TMA, with
-// one producer warpgroup and two consumer warpgroups per thread block.
-// GQA, causal masking aligned at the end (delta = Sk - Sq), a sliding
-// window and a tanh logit softcap, on q, k [B, H, S, DQK] and v [B, H, S, DV]
-// views with (DQK, DV) in {(64, 64), (128, 128), (192, 128), (256, 256)}:
-// (192, 128) is DeepSeek's MLA prefill (128 nope + 64 rope dims for q and
-// k, 128 for v), (256, 256) recurrentgemma's local attention.
+// Flash attention on Hopper's tensor cores: bf16 wgmma fed by TMA, with a
+// producer warpgroup and consumer warpgroups of 64 query rows per thread
+// block.  GQA, causal masking aligned at the end (delta = Sk - Sq), a
+// sliding window and a tanh logit softcap, on q, k [B, H, S, DQK] and
+// v [B, H, S, DV] views with (DQK, DV) in {(64, 64), (128, 128),
+// (192, 128), (256, 256)}: (192, 128) is DeepSeek's MLA prefill (128 nope
+// + 64 rope dims for q and k, 128 for v), (256, 256) recurrentgemma's local
+// attention, (64, 64) seamless-m4t-large-v2's.  Two kernels:
+// flash_sm90_kernel for the last three pairs, flash_sm90_d64_kernel (its
+// own design, below) for (64, 64).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, `flash_attention`
 // (`_flash_kernel`), the TPU kernel whose innermost, sequential grid axis
@@ -20,15 +23,20 @@
 // S 2048, DQK 192, DV 128) it is 2 (DQK + DV) = 640 operations a visible
 // (query, key) pair, about 6.87e11 on 1.34 GB: 0.695 ms, 0.40 ms for the
 // bytes.  At recurrentgemma's (B 4, H 16, K 1, S 2048, 256, 256) 1.37e11
-// on 142 MB: 0.139 ms, 0.042 ms for the bytes.
+// on 142 MB: 0.139 ms, 0.042 ms for the bytes.  At seamless's (B 4,
+// H = K 16, d 64): the decoder's S 2048 causal 3.44e10 on 33.6 MB, 0.0348
+// ms; cross attention's 2048 queries on 512 keys 1.72e10, 0.0174 ms; the
+// encoder's 512 on 512 4.3e9 operations on 16.8 MB, 0.0050 ms for the
+// bytes.
 //
-// Design.  A block owns 128 query rows of one (batch, head) and walks the
-// visible keys in tiles of BN (the loop bounds skip the fully masked
-// tiles, the TPU kernel's `run`): 128 keys, and 64 at (256, 256), where
-// two stages of 128-key K and V tiles (256 KB) would not fit beside Q.
-// The grid takes the (batch, head) pairs in groups of eight, each group's
-// heaviest causal blocks (the last rows) first, so the blocks in flight
-// read the K and V of a few heads, which stay in L2 (see the kernel).
+// flash_sm90_kernel.  A block owns 128 query rows of one (batch, head) and
+// walks the visible keys in tiles of BN (the loop bounds skip the fully
+// masked tiles, the TPU kernel's `run`): 128 keys, and 64 at (256, 256),
+// where two stages of 128-key K and V tiles (256 KB) would not fit beside
+// Q.  The grid takes the (batch, head) pairs in groups of eight, each
+// group's heaviest causal blocks (the last rows) first, so the blocks in
+// flight read the K and V of a few heads, which stay in L2 (see the
+// kernel).
 // - Producer warpgroup (setmaxnreg down to 24 registers): one thread loads
 //   the Q tile once, and K and V tiles into two rings of two stages by TMA,
 //   each stage guarded by a "full" and an "empty" mbarrier (a K stage is
@@ -39,7 +47,7 @@
 //   memory.  Each tile lies in shared memory as width / 64 chunks of
 //   [rows][64 bf16] in the 128-byte swizzle that the wgmma descriptors
 //   name (Q 128 rows, K and V BN): Q and K DQK / 64 chunks, V DV / 64.
-// - Consumer warpgroups (setmaxnreg up to 240), 64 query rows each:
+// - Two consumer warpgroups (setmaxnreg up to 240), 64 query rows each:
 //   S = Q K^T is DQK / 16 steps of wgmma m64n{BN}k16 with both operands in
 //   shared memory (K stored [keys, DQK] is the K-major B operand), fp32
 //   accumulator.  The online softmax runs on the accumulator fragments: a
@@ -66,9 +74,8 @@
 // tiles: Q 64 KB, two stages of K and V (32 KB each) 128 KB, 193 KB; each
 // under the 227 KB a block may take (a third stage would not fit at the
 // last two).  One block per SM.  A consumer's registers: S BN / 2 and O
-// DV / 2, so 64 + 64 at the first three and 32 + 128 at (256, 256), beside
+// DV / 2, so 64 + 64 at the first two and 32 + 128 at (256, 256), beside
 // P's BN / 4.
-//
 // What is left between it and the bound: inside a warpgroup the softmax
 // still waits for both products (running it while the warpgroup's own P V
 // is in flight, that P V a group of its own, measured slower on the card),
@@ -78,6 +85,55 @@
 // memory at (192, 128) and (256, 256), so a third has no room.  At
 // (256, 256), 80-key tiles (224 KB) and one m64n256k16 for P V measured
 // within 2% of this design on the card.
+//
+// flash_sm90_d64_kernel, the (64, 64) instance.  At head dim 64 a 64 x 128
+// tile of scores costs the tensor cores half of what it costs at 128, but
+// its softmax costs the same: 64 exponentials a thread (the MUFU unit's 16
+// a cycle an SM make them as long as the products), the max, P's
+// conversion to bf16 and the rescale.  Two consumer warpgroups taking turns
+// leave the tensor cores idle for most of each softmax, and blocks that
+// walk only 4 key tiles (seamless's encoder and cross attention) spend much
+// of their life loading Q and storing O.  So:
+// - Persistent: one block per SM (the SM count read at launch), walking the
+//   work tiles (a query tile of one (batch, head)) in flash_sm90_kernel's
+//   order; a block takes every gridDim-th, or, causal, the next free one
+//   from a counter in device memory (the tiles differ in length), zeroed
+//   before each launch.  The producer writes a tile's index beside its Q
+//   buffer; two Q buffers and four stages of K and V (one full and one
+//   empty barrier a stage) let it load the next tile while the consumers
+//   finish the current one, and a tile's output is stored from registers
+//   while the other warpgroups' products run.
+// - Three consumer warpgroups of 64 rows (192-row tiles), turns round-robin,
+//   so each warpgroup's softmax runs beside two others' products; two (128-
+//   row tiles) when Sq <= 512, where 192-row tiles would leave most SMs idle
+//   in a second round (d64_rows).  A turn issues the pending tile's P V,
+//   waits for it (at three warpgroups P and S cannot both be held in 160
+//   registers), then issues the next Q K^T and hands over.  The turns go
+//   on across work tiles, and a warpgroup skips the products of key tiles
+//   that none of its rows sees (rows past Sq, the causal edge).
+// - Softmax: the row max as a tree, the scale folded into the exponent's
+//   fma on unmasked tiles, O rescaled only when a row of the warp has a new
+//   max.  At three warpgroups the tensor cores also take the row sums: P V
+//   is m64n72k16 over V's 64 columns and 8 of a 16 KB tile of ones, so
+//   l = sum of the bf16 P lands in o[32 ..] and is rescaled with O; at two
+//   the warpgroup sums the unrounded p (measured faster there).
+// - Branches around wgmma hang on values broadcast from lane 0 (__shfl_sync
+//   of the warpgroup index and of the work index read from shared memory):
+//   where ptxas cannot see a branch to be uniform it serializes every
+//   wgmma of the kernel.  One thread a warp arrives on each barrier.
+// Shared memory: Q 2 x 24 KB (16 KB at two warpgroups), four stages of K
+// and V 128 KB, the ones 16 KB: 193 KB (177 KB).  Registers: producer 32
+// and consumers 160 at three warpgroups (65,536 a block), 24 and 240 at
+// two; a consumer holds S 64, O 36 (32) and P 32, and the three-warpgroup
+// instance spills a few of its other values.
+// What is left: a 128-key step still costs a warpgroup its whole chain
+// (turn, P V, Q K^T, softmax), and three warps sharing each SM sub-
+// partition's issue slot and MUFU unit give back much of the overlap;
+// cross attention's 704 tiles of 192 rows leave 88 of the 132 SMs idle
+// in the last of six rounds.  Tried and slower on the card: the softmax
+// overlapping its own P V (two groups), a quarter of the exponentials on
+// the FMA pipe, one P V + Q K^T group at two warpgroups.
+//
 // The tensor maps are encoded on the host per call (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint so the library needs no -lcuda)
 // and passed by value as a __grid_constant__ parameter, which a CUDA graph
@@ -116,6 +172,9 @@ struct Params {
   float scale_log2;           // scale * log2(e)
   float cap_in, cap_out;      // scale / softcap, softcap * log2(e)
   int softcap, causal, window;
+  int BH;                     // B H: the (64, 64) kernel's pairs (last, so
+                              // flash_sm90_kernel's fields keep their
+                              // offsets)
 };
 
 // Shared memory, from a 1024-byte aligned base: Q, then stage s's K and V,
@@ -185,6 +244,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
+__device__ __forceinline__ void st_shared(uint32_t addr, int x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
+}
+
+__device__ __forceinline__ int ld_shared(uint32_t addr) {
+  int x;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(x) : "r"(addr) : "memory");
+  return x;
+}
+
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
@@ -216,6 +285,12 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// The descriptor of the operand `bytes` further on (a multiple of 16):
+// the start address is the low field, in 16-byte units.
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -225,6 +300,7 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+
 // Keep the compiler from moving reads or writes of wgmma's registers across
 // the asynchronous instructions.
 __device__ __forceinline__ void fence_reg(float& r) {
@@ -353,6 +429,32 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[36] += A (registers, bf16x2) x B (shared, MN-major), m64n72k16: the
+// (64, 64) kernel's P V, whose B is V's 64 columns and 8 columns of ones
+// (the row sums of P land in d[32 ..]).
+__device__ __forceinline__ void wgmma_rs_n72(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // S (+)= Q K^T for one 16-wide slice of DQK: m64n{BN}k16, both from
 // shared memory.
 template <int BN>
@@ -374,15 +476,10 @@ __device__ __forceinline__ void qk_product(float* sc, uint64_t da,
 template <int DV>
 __device__ __forceinline__ void pv_product(float* o, const uint32_t* a,
                                            uint32_t rows, uint32_t chunk) {
-  static_assert(DV == 64 || DV == 128 || DV == 256,
-                "P V takes n = 64, 128 or 2 x 128");
+  static_assert(DV == 128 || DV == 256, "P V takes n = 128 or 2 x 128");
+  wgmma_rs_n128(o, a, desc_sw128(rows, chunk, 1024));
   if constexpr (DV == 256) {
-    wgmma_rs_n128(o, a, desc_sw128(rows, chunk, 1024));
     wgmma_rs_n128(o + 64, a, desc_sw128(rows + 2 * chunk, chunk, 1024));
-  } else if constexpr (DV == 128) {
-    wgmma_rs_n128(o, a, desc_sw128(rows, chunk, 1024));
-  } else {
-    wgmma_rs_n64(o, a, desc_sw128(rows, chunk, 1024));
   }
 }
 
@@ -674,6 +771,521 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The (64, 64) instance: a kernel of its own (see the header).
+
+constexpr int kD64Stages = 4;    // K and V stages of the (64, 64) kernel
+
+// Query rows of a work tile of the (64, 64) kernel, 64 a consumer
+// warpgroup: three warpgroups, and two when Sq <= 512, where a third
+// would leave many SMs idle in the last round of tiles (seamless's
+// encoder: 4 x 16 heads of 512 rows are 256 tiles of 128 on 132 SMs, 192
+// of 192).
+__host__ __device__ constexpr int d64_rows(int Sq) {
+  return Sq <= 512 ? 128 : 192;
+}
+
+// Query rows of Q's TMA box, a block's (kBlockM) or, at head dim 64, a
+// work tile's (kernels/flash_attention/kernel.py::tc_query_tile).
+__host__ __device__ constexpr int query_tile(int dqk, int Sq) {
+  return dqk == 64 ? d64_rows(Sq) : kBlockM;
+}
+
+// Shared memory of the (64, 64) kernel, from a 1024-byte aligned base: two
+// Q buffers of kRows rows (the next work tile's Q loads while the current
+// one's last products run), kD64Stages stages of a 128-key K tile and a
+// 128-key V tile (16 KB each), a [128][64] tile of ones (at three
+// warpgroups P V reads its first 8 columns beside V's 64, so the row sums
+// of P come out of the tensor cores), the barriers, then the work index of
+// each Q buffer.  Every tile is [rows][64 bf16] in the 128-byte swizzle.
+template <int kWGs>
+struct D64Layout {
+  static constexpr int kRows = 64 * kWGs;
+  static constexpr int kQTile = kRows * 128;
+  static constexpr int kKVTile = 128 * 128;
+  __host__ __device__ static constexpr int q(int buf) { return buf * kQTile; }
+  __host__ __device__ static constexpr int k(int s) {
+    return 2 * kQTile + 2 * s * kKVTile;
+  }
+  __host__ __device__ static constexpr int v(int s) { return k(s) + kKVTile; }
+  static constexpr int kOnesTile = k(kD64Stages);
+  static constexpr int kBars = kOnesTile + kKVTile;
+  // q_full[2], q_empty[2], full and empty (kD64Stages each: a stage's K
+  // and V fill together and are freed together, after their P V),
+  // turn[kWGs].
+  static constexpr int kBarriers = 4 + 2 * kD64Stages + kWGs;
+  static constexpr int kSlots = kBars + 8 * kBarriers;
+  // Two work indices and 1024 bytes of alignment slack.
+  static constexpr int kBytes = kSlots + 8 + 1024;
+  static_assert(kBytes <= 232448, "over the 227 KB a block may take");
+};
+
+// One work tile: kRows query rows from q0 of (batch, head) pair bh =
+// b H + h, and the 128-key tiles t_begin .. t_begin + n_tiles - 1 that
+// those rows see (the loop bounds of the generic kernel's blocks).
+struct D64Tile {
+  int bh, q0, t_begin, n_tiles;
+};
+
+// Work tile w of n_q query tiles a (batch, head) pair, in the generic
+// grid's order: the pairs in groups of kHeadGroup, each group's query
+// tiles heaviest first (the last rows), each over the group's pairs.
+template <int kRows>
+__device__ __forceinline__ D64Tile d64_tile(const Params& p, int w, int n_q) {
+  const int per_group = kHeadGroup * n_q;
+  const int group = w / per_group;
+  const int in_group = w - group * per_group;
+  const int group_size = min(kHeadGroup, p.BH - group * kHeadGroup);
+  D64Tile t;
+  t.bh = group * kHeadGroup + in_group % group_size;
+  t.q0 = (n_q - 1 - in_group / group_size) * kRows;
+  const int delta = p.Sk - p.Sq;
+  const int q_last = min(t.q0 + kRows, p.Sq) - 1;
+  int k_begin = 0;
+  int k_end = p.Sk;
+  if (p.causal) k_end = min(k_end, q_last + delta + 1);
+  if (p.window > 0) k_begin = max(0, t.q0 + delta - p.window + 1);
+  t.t_begin = k_begin / 128;
+  t.n_tiles = k_end > k_begin ? (k_end + 127) / 128 - t.t_begin : 0;
+  return t;
+}
+
+// Whether any of the 64 rows from r0 sees a key of the 128 from k0; a
+// warpgroup skips the products of the tiles that none of its rows sees
+// (rows past Sq see none).
+__device__ __forceinline__ bool d64_active(const Params& p, int r0, int k0) {
+  const int delta = p.Sk - p.Sq;
+  if (r0 >= p.Sq) return false;
+  if (p.causal && k0 > min(r0 + 63, p.Sq - 1) + delta) return false;
+  return p.window <= 0 || k0 + 127 > r0 + delta - p.window;
+}
+
+__device__ __forceinline__ float fold(bool max, float x, float y) {
+  return max ? fmaxf(x, y) : x + y;
+}
+
+// One level of row_reduce's trees: element k with element k + W.
+template <bool kMax, int W>
+__device__ __forceinline__ void row_fold(float* a, float* b) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    a[k] = fold(kMax, a[k], a[k + W]);
+    b[k] = fold(kMax, b[k], b[k + W]);
+  }
+}
+
+// The largest (!kMax: the sum) of a thread's 32 fragments of each of its
+// two rows, fragment j of row (j & 2 ? b : a), as trees of depth 5.
+template <bool kMax>
+__device__ __forceinline__ void row_reduce(const float* x, float& r_a,
+                                           float& r_b) {
+  float a[16], b[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    a[k] = fold(kMax, x[4 * k], x[4 * k + 1]);
+    b[k] = fold(kMax, x[4 * k + 2], x[4 * k + 3]);
+  }
+  row_fold<kMax, 8>(a, b);
+  row_fold<kMax, 4>(a, b);
+  row_fold<kMax, 2>(a, b);
+  row_fold<kMax, 1>(a, b);
+  r_a = a[0];
+  r_b = b[0];
+}
+
+// Scores of warpgroup wg's 64 x 128 tile from key k0 of the work tile
+// from row q0, in place: scaled, capped and masked where that is needed
+// (returns 1), otherwise left raw (returns the scale, which d64_softmax
+// folds into the exponent).
+__device__ __forceinline__ float d64_scores(float* sc, const Params& p,
+                                            int q0, int wg, int row_in,
+                                            int col, int k0) {
+  const int r0 = q0 + 64 * wg;
+  const int delta = p.Sk - p.Sq;
+  const bool mask = k0 + 128 > p.Sk || (p.causal && k0 + 127 > r0 + delta) ||
+                    (p.window > 0 && k0 <= r0 + 63 + delta - p.window);
+  const int row_a = q0 + row_in;
+  float mx_a = kNegInf, mx_b = kNegInf;   // unused: row_reduce takes them
+  if (p.softcap && mask) {
+    scores<128, true, true>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
+  } else if (p.softcap) {
+    scores<128, true, false>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
+  } else if (mask) {
+    scores<128, false, true>(sc, p, k0, row_a, col, delta, mx_a, mx_b);
+  } else {
+    return p.scale_log2;
+  }
+  return 1.f;
+}
+
+// The online softmax of one 64 x 128 tile of scores on its fragments, the
+// score of fragment j being sc[j] * mul in the log2 domain: mul is 1 when
+// sc holds them scaled (capped, masked), the scale when it holds them raw
+// (the scale then rides in the exponent's fma).  Updates the running max
+// m, leaves P, rounded to bf16, in pa, and rescales O by alpha =
+// 2^(m_old - m_new), but not when no row of the warp has a new max (every
+// alpha 1, the product exact).  kOnes: the row sums l of P are O's
+// columns 64 .. (o[32 ..], rescaled with it); otherwise l is the thread's
+// share of them, summed here from the unrounded p.
+template <bool kOnes>
+__device__ __forceinline__ void d64_softmax(float* sc, float mul, float& m_a,
+                                            float& m_b, float& l_a,
+                                            float& l_b, float* o,
+                                            uint32_t (*pa)[4]) {
+  float mx_a, mx_b;
+  row_reduce<true>(sc, mx_a, mx_b);
+  const float mn_a = fmaxf(m_a, quad_max(mx_a) * mul);
+  const float mn_b = fmaxf(m_b, quad_max(mx_b) * mul);
+  const float alpha_a = ex2(m_a - mn_a);
+  const float alpha_b = ex2(m_b - mn_b);
+  m_a = mn_a;
+  m_b = mn_b;
+#pragma unroll
+  for (int j = 0; j < 64; j += 2) {
+    const float m = (j & 2) ? mn_b : mn_a;
+    const float e0 = ex2(fmaf(sc[j], mul, -m));
+    const float e1 = ex2(fmaf(sc[j + 1], mul, -m));
+    pa[j / 8][(j % 8) / 2] = pack_bf16(e0, e1);
+    if constexpr (!kOnes) {     // kept for the sums
+      sc[j] = e0;
+      sc[j + 1] = e1;
+    }
+  }
+  if constexpr (!kOnes) {
+    float ps_a, ps_b;
+    row_reduce<false>(sc, ps_a, ps_b);
+    l_a = alpha_a * l_a + ps_a;
+    l_b = alpha_b * l_b + ps_b;
+  }
+  if (__any_sync(0xffffffffu, alpha_a != 1.f || alpha_b != 1.f)) {
+#pragma unroll
+    for (int j = 0; j < (kOnes ? 36 : 32); ++j) {
+      o[j] *= (j & 2) ? alpha_b : alpha_a;
+    }
+  }
+}
+
+// O / l of a thread's two rows (kOnes: l is o[32] and o[34]; otherwise the
+// sum of the quad's shares l_a, l_b; l == 0 divides by 1), rounded to bf16
+// and stored through the output's strides; rows past Sq are not stored.
+template <bool kOnes>
+__device__ __forceinline__ void d64_store(const Params& p, int bh, int row_a,
+                                          int col, const float* o, float l_a,
+                                          float l_b) {
+  const float den_a = kOnes ? o[32] : quad_sum(l_a);
+  const float den_b = kOnes ? o[34] : quad_sum(l_b);
+  const float inv_a = 1.f / (den_a == 0.f ? 1.f : den_a);
+  const float inv_b = 1.f / (den_b == 0.f ? 1.f : den_b);
+  const int b = bh / p.H;
+  __nv_bfloat16* ob = p.o + b * p.o_sb + (bh - b * p.H) * p.o_sh;
+  if (row_a < p.Sq) {
+    __nv_bfloat16* dst = ob + row_a * p.o_ss + col;
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      *reinterpret_cast<uint32_t*>(dst + 8 * g) =
+          pack_bf16(o[4 * g] * inv_a, o[4 * g + 1] * inv_a);
+    }
+  }
+  if (row_a + 8 < p.Sq) {
+    __nv_bfloat16* dst = ob + (row_a + 8) * p.o_ss + col;
+#pragma unroll
+    for (int g = 0; g < 8; ++g) {
+      *reinterpret_cast<uint32_t*>(dst + 8 * g) =
+          pack_bf16(o[4 * g + 2] * inv_b, o[4 * g + 3] * inv_b);
+    }
+  }
+}
+
+// The (64, 64) kernel: persistent, one block per SM, kWGs consumer
+// warpgroups of 64 query rows and a producer warpgroup.  The blocks take
+// the work tiles in d64_tile's order: block i tile i first, then, when
+// next_tile is null, every gridDim.x-th after it; otherwise the next one
+// that nobody has taken (next_tile counts those past the first gridDim.x,
+// from 0 at the launch): the causal tiles differ in length.  The producer
+// takes each tile, writes its index beside its Q buffer and loads its Q and
+// its K and V tiles; the consumers read the index when the Q buffer fills
+// (an index past the last tile ends the block).  The consumers' turns at
+// the tensor cores run round-robin and go on across work tiles: turn i
+// issues the P V of the warpgroup's previous key tile and, once that has
+// retired (P's registers are then free for S), Q K^T of its next one (of
+// the next work tile after the last), and hands over; a work tile's output
+// is stored while the other warpgroups' products run.
+template <int kWGs>
+__global__ void __launch_bounds__((kWGs + 1) * 128, 1)
+    flash_sm90_d64_kernel(const __grid_constant__ Params p, int* next_tile) {
+  using L = D64Layout<kWGs>;
+  constexpr int kRows = L::kRows;
+  constexpr int kConsumerThreads = kWGs * 128;
+  constexpr int kConsumerWarps = kWGs * 4;
+  // Three warpgroups (160 registers) have the tensor cores sum P (its
+  // products are 12% longer, the softmax 64 adds shorter); two (240) sum
+  // it themselves, which measured faster there.
+  constexpr bool kOnes = kWGs == 3;
+  constexpr int kO = kOnes ? 36 : 32;     // O's fragments (and l's)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t slot0 = base + L::kSlots;    // work index of Q buffer i
+  // Barriers: buffer or stage i of each at + 8 i; turn[wg] at turn0 + 8 wg.
+  const uint32_t q_full0 = base + L::kBars;
+  const uint32_t q_empty0 = q_full0 + 16;
+  const uint32_t full0 = q_empty0 + 16;
+  const uint32_t empty0 = full0 + 8 * kD64Stages;
+  const uint32_t turn0 = empty0 + 8 * kD64Stages;
+  const int n_q = (p.Sq + kRows - 1) / kRows;
+  const int n_work = p.BH * n_q;
+
+  // The ones (bf16 1.0 in every element, so the swizzle does not matter),
+  // written through the generic proxy and read by wgmma's async one.
+  for (int i = threadIdx.x; kOnes && i < L::kKVTile / 16; i += blockDim.x) {
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     base + L::kOnesTile + 16 * i),
+                 "r"(0x3F803F80u), "r"(0x3F803F80u), "r"(0x3F803F80u),
+                 "r"(0x3F803F80u) : "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full0 + 8 * i, 1);
+      mbar_init(q_empty0 + 8 * i, kConsumerWarps);
+    }
+    for (int s = 0; s < kD64Stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumerWarps);
+    }
+    for (int g = 0; g < kWGs; ++g) mbar_init(turn0 + 8 * g, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {
+    // Producer: 512 threads hold 65,536 registers with the consumers at
+    // 160 and this warpgroup at 32; 384 with them at 240 and it at 24.
+    if constexpr (kWGs == 3) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    }
+    if (threadIdx.x == kConsumerThreads) {
+      int it = 0;                  // key tiles loaded (the ring's count)
+      int w = blockIdx.x;
+      for (int n = 0;; ++n) {      // n: work tiles taken (the Q buffers')
+        const int qb = n & 1;
+        const uint32_t q_full = q_full0 + 8 * qb;
+        mbar_wait(q_empty0 + 8 * qb, ((n >> 1) & 1) ^ 1);
+        st_shared(slot0 + 4 * qb, w);
+        if (w >= n_work) {
+          mbar_arrive(q_full);
+          break;
+        }
+        const D64Tile t = d64_tile<kRows>(p, w, n_q);
+        const int b = t.bh / p.H;
+        const int h = t.bh - b * p.H;
+        const int kvh = h / p.G;
+        if (t.n_tiles == 0) {
+          mbar_arrive(q_full);
+        } else {
+          mbar_expect_tx(q_full, L::kQTile);
+          tma_load(base + L::q(qb), &p.tq, q_full, 0, t.q0, h, b);
+        }
+        for (int i = 0; i < t.n_tiles; ++i, ++it) {
+          const int s = it % kD64Stages;
+          const int k0 = (t.t_begin + i) * 128;
+          mbar_wait(empty0 + 8 * s, ((it / kD64Stages) & 1) ^ 1);
+          mbar_expect_tx(full0 + 8 * s, 2 * L::kKVTile);
+          tma_load(base + L::k(s), &p.tk, full0 + 8 * s, 0, k0, kvh, b);
+          tma_load(base + L::v(s), &p.tv, full0 + 8 * s, 0, k0, kvh, b);
+        }
+        w = next_tile != nullptr ? gridDim.x + atomicAdd(next_tile, 1)
+                                 : w + gridDim.x;
+      }
+    }
+  } else {
+    if constexpr (kWGs == 3) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n" ::: "memory");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    }
+    // Warpgroup wg owns a work tile's rows 64 wg .. 64 wg + 63; of the
+    // wgmma fragments, a thread holds rows row_in and row_in + 8 of them
+    // and, of each 8 columns, columns col and col + 1.  wg, and the work
+    // index read from shared memory, are broadcast from lane 0 so that the
+    // compiler sees one value a warp: the products' branches hang on them,
+    // and wgmma in a branch it takes for divergent is serialized.
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    const int row_in = 64 * wg + 16 * ((threadIdx.x % 128) / 32) +
+                       (threadIdx.x % 32) / 4;
+    const int col = 2 * (threadIdx.x % 4);
+    // One thread a warp arrives on a barrier for the warp: after the
+    // warp's wgmma.wait_group, its share of the products has retired.
+    const bool leader = threadIdx.x % 32 == 0;
+    const uint32_t my_turn = turn0 + 8 * wg;
+    const uint32_t next_turn = turn0 + 8 * ((wg + 1) % kWGs);
+    const float zeros[36] = {};
+
+    // O and, when kOnes, in o[32 ..], the row sums l of P.
+    float o[kO];
+#pragma unroll
+    for (int i = 0; i < kO; ++i) o[i] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf;   // running max, log2 domain
+    float l_a = 0.f, l_b = 0.f;           // !kOnes: the thread's share of l
+    // P of the previous key tile, the A registers of its P V.
+    uint32_t pa[8][4];
+
+    int it = 0;      // key tiles taken (the ring's count)
+    int n = 0;       // work tiles taken (the Q buffers' count)
+    int k0 = 0;      // first key of cur's next key tile
+    int left = 0;    // cur's key tiles from that one on
+    D64Tile cur;
+    // have: a key tile of cur is next; need: take a work tile first.  The
+    // pending P V: whether there is one, whether this warpgroup issues it,
+    // whether it closes a work tile (whose bh and q0 are out_*).
+    bool have = false, need = true;
+    bool pend = false, pend_active = false, pend_closes = false;
+    int out_bh = 0, out_q0 = 0;
+    for (int turn = 0;; ++turn) {
+      // The next work tile that has key tiles (an empty one's rows are
+      // stored as zeros); none past the last.
+      while (need) {
+        const int qb = n & 1;
+        mbar_wait(q_full0 + 8 * qb, (n >> 1) & 1);
+        const int w = __shfl_sync(0xffffffffu, ld_shared(slot0 + 4 * qb), 0);
+        need = false;
+        if (w >= n_work) break;
+        cur = d64_tile<kRows>(p, w, n_q);
+        k0 = cur.t_begin * 128;
+        left = cur.n_tiles;
+        have = left > 0;
+        if (have) break;
+        need = true;
+        if (leader) mbar_arrive(q_empty0 + 8 * qb);
+        ++n;
+        d64_store<kOnes>(p, cur.bh, cur.q0 + row_in, col, zeros, 0.f, 0.f);
+      }
+      if (!have && !pend) break;
+      // The last warpgroup opens the first one's first turn and does not
+      // hand over after its last, so every arrival on a turn barrier is
+      // waited for.
+      if (turn == 0 && wg == kWGs - 1 && leader) mbar_arrive(turn0);
+      const int s = it % kD64Stages;                        // this tile's
+      const int sp = (it + kD64Stages - 1) % kD64Stages;    // the pending
+      const int qb = n & 1;
+      const bool active = have && d64_active(p, cur.q0 + 64 * wg, k0);
+      const bool closes = have && left == 1;
+      // The pending tile's V came with its K, a turn ago.
+      if (have) mbar_wait(full0 + 8 * s, (it / kD64Stages) & 1);
+      mbar_wait(my_turn, turn & 1);
+
+      // O += P V of the pending tile, one group: 8 steps of 16 keys, V's
+      // rows and the ones' advancing 16 x 128 bytes a step (the ones lie
+      // a leading byte offset beyond V).  It retires before S = Q K^T
+      // issues: 4 steps of 16 along d, 32 bytes a step along the 128-byte
+      // rows of Q and K.
+#pragma unroll
+      for (int i = 0; i < kO; ++i) fence_reg(o[i]);
+      wgmma_fence();
+      if (pend_active) {
+        const uint32_t v_tile = base + L::v(sp);
+        const uint64_t dv = desc_sw128(v_tile, L::kOnesTile - L::v(sp), 1024);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          if constexpr (kOnes) {
+            wgmma_rs_n72(o, pa[kk], desc_add(dv, kk * 16 * 128));
+          } else {
+            wgmma_rs_n64(o, pa[kk], desc_add(dv, kk * 16 * 128));
+          }
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+      }
+      if (pend && leader) mbar_arrive(empty0 + 8 * sp);
+#pragma unroll
+      for (int i = 0; i < kO; ++i) fence_reg(o[i]);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fence_reg(pa[kk][e]);
+      }
+      float sc[64];
+      if (active) {
+        const uint64_t dq =
+            desc_sw128(base + L::q(qb) + wg * 64 * 128, 16, 1024);
+        const uint64_t dk = desc_sw128(base + L::k(s), 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss_n128(sc, desc_add(dq, kk * 32), desc_add(dk, kk * 32),
+                        kk > 0);
+        }
+        wgmma_commit();
+      }
+      if ((have || wg != kWGs - 1) && leader) mbar_arrive(next_turn);
+      wgmma_wait_all();
+      if (pend_closes) {
+        d64_store<kOnes>(p, out_bh, out_q0 + row_in, col, o, l_a, l_b);
+#pragma unroll
+        for (int i = 0; i < kO; ++i) o[i] = 0.f;
+        m_a = m_b = kNegInf;
+        l_a = l_b = 0.f;
+      }
+      if (!have) break;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_reg(sc[i]);
+      if (closes && leader) mbar_arrive(q_empty0 + 8 * qb);
+      if (active) {
+        const float mul = d64_scores(sc, p, cur.q0, wg, row_in, col, k0);
+        d64_softmax<kOnes>(sc, mul, m_a, m_b, l_a, l_b, o, pa);
+      }
+      pend = true;
+      pend_active = active;
+      pend_closes = closes;
+      ++it;
+      if (closes) {
+        out_bh = cur.bh;
+        out_q0 = cur.q0;
+        ++n;
+        have = false;
+        need = true;
+      } else {
+        k0 += 128;
+        --left;
+      }
+    }
+  }
+}
+
+template <int kWGs>
+cudaError_t launch_d64(const Params& p, int* next_tile, cudaStream_t stream) {
+  using L = D64Layout<kWGs>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_sm90_d64_kernel<kWGs>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return e;
+  // Dynamic order for the causal tiles only: the others are of one length.
+  if (!p.causal) {
+    next_tile = nullptr;
+  } else if (next_tile == nullptr) {
+    return cudaErrorInvalidValue;
+  } else {
+    e = cudaMemsetAsync(next_tile, 0, sizeof(int), stream);
+    if (e != cudaSuccess) return e;
+  }
+  const int n_work = p.BH * ((p.Sq + L::kRows - 1) / L::kRows);
+  const dim3 grid(n_work < sms ? n_work : sms);
+  flash_sm90_d64_kernel<kWGs>
+      <<<grid, (kWGs + 1) * 128, L::kBytes, stream>>>(p, next_tile);
+  return cudaGetLastError();
+}
+
 template <int DQK, int DV>
 cudaError_t launch(const Params& p, int BH, int Sq, cudaStream_t stream) {
   constexpr int BN = key_tile(DQK);
@@ -742,8 +1354,10 @@ int encode(CUtensorMap* map, const void* ptr, const long long* g, int rows) {
 // bf16 q [B,H,Sq,d], k [B,K,Sk,d] and v [B,K,Sk,dv], (d, dv) one of (64, 64),
 // (128, 128), (192, 128) and (256, 256), read through the tensor maps that
 // geom describes (11 values each for q, k, v in turn, see encode; q's box
-// 128 rows, k's and v's key_tile(d)); o
-// [B,H,Sq,dv] written through its element strides (batch, head, seq).
+// query_tile(d, Sq) rows, k's and v's key_tile(d)); o [B,H,Sq,dv] written
+// through its element strides (batch, head, seq).  scratch: 4 bytes of
+// device memory that a causal call at (64, 64) counts its work tiles in
+// (the kernel zeroes them first), unused otherwise.
 // Returns the cudaError_t of the launch (0 = cudaSuccess), or -r when
 // encoding a tensor map failed with CUresult r.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
@@ -753,7 +1367,7 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
                                           int H, int K, int Sq, int Sk, int d,
                                           int dv, float scale, float softcap,
                                           int causal, int window,
-                                          void* stream) {
+                                          void* scratch, void* stream) {
   const bool pair = (d == 64 && dv == 64) || (d == 128 && dv == 128) ||
                     (d == 192 && dv == 128) || (d == 256 && dv == 256);
   if (B <= 0 || H <= 0 || K <= 0 || H % K != 0 || Sq <= 0 || Sk <= 0 ||
@@ -761,7 +1375,7 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
     return cudaErrorInvalidValue;
   }
   Params p;
-  int err = encode(&p.tq, q, geom, kBlockM);
+  int err = encode(&p.tq, q, geom, query_tile(d, Sq));
   if (err == 0) err = encode(&p.tk, k, geom + 11, key_tile(d));
   if (err == 0) err = encode(&p.tv, v, geom + 22, key_tile(d));
   if (err != 0) return err;
@@ -769,6 +1383,7 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
   p.o_sb = o_strides[0];
   p.o_sh = o_strides[1];
   p.o_ss = o_strides[2];
+  p.BH = B * H;
   p.H = H;
   p.G = H / K;
   p.Sq = Sq;
@@ -780,7 +1395,11 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
   p.causal = causal;
   p.window = window;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64, 64>(p, B * H, Sq, s);
+  if (d == 64) {
+    int* const next_tile = static_cast<int*>(scratch);
+    return d64_rows(Sq) == 192 ? launch_d64<3>(p, next_tile, s)
+                               : launch_d64<2>(p, next_tile, s);
+  }
   if (d == 128) return launch<128, 128>(p, B * H, Sq, s);
   if (d == 192) return launch<192, 128>(p, B * H, Sq, s);
   return launch<256, 256>(p, B * H, Sq, s);

@@ -133,7 +133,7 @@ _SIGNATURES = {
                               _F32, _F32, _INT, _INT, _INT, _VP],
     "repro_flash_attention_sm90": [_VP, _VP, _VP, _VP, _VP, _VP,
                                    _INT, _INT, _INT, _INT, _INT, _INT, _INT,
-                                   _F32, _F32, _INT, _INT, _VP],
+                                   _F32, _F32, _INT, _INT, _VP, _VP],
 }
 
 

@@ -39,6 +39,25 @@ FEATURE_CASES = (
     # seamless's cross attention: no mask with Sq > Sk (delta < 0), the
     # keys ending 96 into a key tile.
     ("noncausal_sq_gt_sk", (1, 4, 4, 256, 96), {"causal": False}),
+    # The (64, 64) instance's 192-row work tiles: Sq past a multiple of 192
+    # (the last tile's second and third warpgroups hold rows past Sq, or
+    # none), causal and not; a causal diagonal that crosses two 128-key
+    # tiles inside the second 192-row tile; Sq > Sk without a mask, Sk
+    # ending 72 into a key tile; the decode step's one query on 512 keys;
+    # G = 2 with a ragged Sq.
+    ("ragged_sq_200", (1, 2, 2, 200, 200), {}),
+    ("ragged_sq_320_noncausal", (1, 2, 2, 320, 320), {"causal": False}),
+    ("ragged_sq_577", (1, 2, 2, 577, 577), {}),
+    ("diagonal_across_key_tiles", (1, 2, 2, 384, 384), {}),
+    ("noncausal_sq_gt_sk_tail", (1, 2, 2, 600, 200), {"causal": False}),
+    ("one_query_512_keys", (4, 4, 4, 1, 512), {"causal": False}),
+    ("gqa_g2_ragged", (2, 4, 2, 250, 250), {}),
+    # Past Sq = 512 (three warpgroups): a window and a softcap with
+    # Sk - Sq = 300, where a warpgroup skips the key tiles its rows do not
+    # see and the others mask them; G = 2, causal, ragged.
+    ("window_softcap_three_wgs", (1, 2, 2, 600, 900),
+     {"window": 100, "softcap": 30.0}),
+    ("gqa_g2_three_wgs", (1, 4, 2, 700, 700), {}),
 )
 #: The cases of the (256, 256) instances (bf16 on the tensor cores' 64-key
 #: tiles, fp32 on the CUDA cores), run at d = dv = 256: recurrentgemma-9b's

@@ -38,8 +38,8 @@ MAX_V_HEAD_DIM = 256
 #: The (q/k head dim, v head dim) pairs of the tensor-core kernel.
 TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
 #: One TMA load of the tensor-core kernel: 64 of d (128 bytes, the swizzle
-#: span) by 128 rows of one head of one batch.  Q's boxes are this; K's and
-#: V's are :func:`tc_key_tile` rows.
+#: span) by 128 rows of one head of one batch.  Q's boxes are
+#: :func:`tc_query_tile` rows, K's and V's :func:`tc_key_tile` rows.
 TC_BOX = (64, 128, 1, 1)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,13 +77,24 @@ def tc_key_tile(d: int) -> int:
     return 64 if d == 256 else TC_BOX[1]
 
 
+def tc_query_tile(d: int, sq: int) -> int:
+    """Query rows of a block of the tensor-core instance at q/k head dim
+    ``d`` and query length ``sq``, and so Q's TMA box: 128; at 64, whose
+    kernel runs a consumer warpgroup for each 64 rows, 192 (three), or 128
+    (two) when ``sq <= 512``, where 192-row tiles would leave many SMs idle
+    in the last round (``query_tile`` in the CUDA source)."""
+    if d != 64:
+        return TC_BOX[1]
+    return 128 if sq <= 512 else 192
+
+
 def tma_geometry(t: torch.Tensor, rows: int = TC_BOX[1]
                  ) -> Tuple[tuple, tuple, tuple]:
     """(dims, byte strides, box) of the tensor-core kernel's 4-D tensor map
     over a ``[batch, heads, S, d]`` view: dims innermost first,
     ``(d, S, heads, batch)``, the byte strides of the last three, and a box
-    of 64 of d by ``rows`` (128 for q; :func:`tc_key_tile` for k and
-    v)."""
+    of 64 of d by ``rows`` (:func:`tc_query_tile` for q; :func:`tc_key_tile`
+    for k and v)."""
     B, heads, S, d = t.shape
     size = t.element_size()
     return ((d, S, heads, B),
@@ -159,16 +170,22 @@ def _launch_tensor_core(q, k, v, *, causal=True, window=None, softcap=None,
     B, H, Sq, d = q.shape
     K, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     out = empty_like_q(q, dv)           # q's layout, unit stride in dv
+    # The (64, 64) kernel counts its causal work tiles here (the call
+    # zeroes it first).
+    scratch = (torch.empty(1, dtype=torch.int32, device=q.device)
+               if d == 64 and causal else None)
     tile = tc_key_tile(d)
     geom = (ctypes.c_longlong * 33)(
-        *(x for t, rows in ((q, TC_BOX[1]), (k, tile), (v, tile))
+        *(x for t, rows in ((q, tc_query_tile(d, Sq)), (k, tile), (v, tile))
           for part in tma_geometry(t, rows) for x in part))
     o_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
     err = build.library().repro_flash_attention_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.addressof(geom), ctypes.addressof(o_strides),
         B, H, K, Sq, Sk, d, dv, _scale(scale, d), softcap or 0.0,
-        int(causal), window or 0, build.stream_handle(q.device))
+        int(causal), window or 0,
+        None if scratch is None else scratch.data_ptr(),
+        build.stream_handle(q.device))
     build.check(err, "flash_attention (tensor cores)")
     TC_LAUNCHES.count += 1
     LAUNCHES.count += 1

@@ -7,8 +7,8 @@ every other call to the CUDA-core kernel (fp32, recurrentgemma's fp32
 parity runs among them, and misaligned views); ``check_operands`` refuses
 head dims past 256; ``tma_geometry`` gives the tensor map over (d, S,
 heads, batch) of a ``[B, S, H, d]`` tensor seen as ``[B, H, S, d]``, with
-a box of 128 rows for q and ``tc_key_tile(d)`` rows (64 at d = 256) for
-k and v.
+a box of ``tc_query_tile(d, Sq)`` rows for q (128; at d = 64 192, or 128
+when Sq <= 512) and ``tc_key_tile(d)`` rows (64 at d = 256) for k and v.
 Matmul: ``route(M, K, N)`` sends N <= 16 to the narrow kernel while B fits
 its shared memory.  The routes read dtypes, shapes, strides and pointers
 only, so CPU tensors answer as the card's would.
@@ -136,6 +136,20 @@ def test_key_tile_of_each_tensor_core_instance(d, want):
     assert flash.tc_key_tile(d) == want
 
 
+@pytest.mark.parametrize("d,sq,want", [(64, 1, 128), (64, 200, 128),
+                                       (64, 512, 128), (64, 513, 192),
+                                       (64, 2048, 192), (128, 1, 128),
+                                       (128, 2048, 128), (192, 2048, 128),
+                                       (256, 2048, 128)])
+def test_query_tile_of_each_tensor_core_instance(d, sq, want):
+    """Q's box rows: a block's 128, and at head dim 64 a work tile of three
+    consumer warpgroups' 192 rows, or two's 128 when Sq <= 512, where
+    192-row tiles would leave most SMs idle in a second round (seamless's
+    encoder: 4 x 16 heads of 512 rows are 192 tiles of 192 on 132 SMs,
+    256 of 128)."""
+    assert flash.tc_query_tile(d, sq) == want
+
+
 @pytest.mark.parametrize("d,dv", [(257, 257), (256, 257), (257, 128),
                                   (320, 256)])
 def test_head_dims_past_256_are_refused(d, dv):
@@ -231,6 +245,34 @@ def test_tma_geometry_of_recurrentgemma_views():
         assert dims == (256, S, 1, B)
         assert strides == (256 * 2, 256 * 2, S * 256 * 2)
         assert box == (64, 64, 1, 1)
+        assert all(s % 16 == 0 for s in strides)
+
+
+@pytest.mark.parametrize("Sq,Sk,rows", [(512, 512, 128), (2048, 2048, 192),
+                                        (2048, 512, 192)],
+                         ids=["encoder", "decoder", "cross"])
+def test_tma_geometry_of_seamless_views(Sq, Sk, rows):
+    """seamless's three uses at head dim 64 (16 heads, G = 1), [B, S, 16,
+    64] projections seen as [B, 16, S, 64]: the encoder's 512 frames on
+    themselves, the decoder's 2048 positions on themselves, and cross
+    attention's 2048 queries on the encoder's 512 keys.  Q's box is the
+    work tile's rows (tc_query_tile), K's and V's tc_key_tile(64) = 128;
+    one 64-wide box a row (128 bytes, the swizzle span)."""
+    B, H, d = 4, 16, 64
+    q, k, v = _bshd(B, Sq, H, d), _bshd(B, Sk, H, d), _bshd(B, Sk, H, d)
+    assert flash.route(q, k, v) == "tensor_core"
+    assert flash.tc_query_tile(d, Sq) == rows
+    dims, strides, box = flash.tma_geometry(q, flash.tc_query_tile(d, Sq))
+    assert dims == (64, Sq, H, B)
+    assert strides == (H * 64 * 2, 64 * 2, Sq * H * 64 * 2)
+    assert box == (64, rows, 1, 1) and dims[0] == box[0]
+    tile = flash.tc_key_tile(d)
+    assert tile == 128
+    for t in (k, v):
+        dims, strides, box = flash.tma_geometry(t, tile)
+        assert dims == (64, Sk, H, B)
+        assert strides == (2048, 128, Sk * 2048)
+        assert box == (64, 128, 1, 1)
         assert all(s % 16 == 0 for s in strides)
 
 

@@ -132,15 +132,24 @@ Phases (any failure exits non-zero before the final line):
    the 608 tokens).
 5b. Training (``[train]`` lines, after the LM rows; its flash launches
    stay off the ``kernels`` line, whose counts are the serve path's).
-   (a) Three rows (``TRAIN_ROWS``), each ``full()`` in bf16 taking steps
+   (a) Six rows (``TRAIN_ROWS``), each at full width in bf16 taking steps
    (JAX's optimizer defaults) through ``build_train_step`` at 4 x 2048
    tokens from the port's pipeline (seed 0), each row's state freed
    before the next: qwen3-4b (4.02 B parameters) with AdamW, one warm-up
-   step and four timed; recurrentgemma-9b (9.40 B, 38 layers) with
-   Adafactor and xlstm-1.3b (48 layers, the per-layer recompute of its
-   8-layer pattern) with AdamW, one warm-up step and two timed.  Each
-   prints every step's loss, wall seconds, tokens/s and MFU (6·N·T plus
-   the attention's products, forward and backward, over the wall time,
+   step and four timed; then one warm-up step and two timed each for
+   recurrentgemma-9b (9.40 B, 38 layers) with Adafactor, xlstm-1.3b (48
+   layers, the per-layer recompute of its 8-layer pattern) with AdamW,
+   seamless-m4t-large-v2 (1.77 B, 24 encoder layers over src
+   [4, 512, 1024] and 24 decoder layers with cross attention, all at
+   (64, 64)) with AdamW, llava-next-34b cut to 6 of 60 layers (4.26 B,
+   576 patches among the 2048 positions, G = 7) with AdamW, and
+   deepseek-v2-236b cut to 1 of 60 layers (5.02 B: MLA at (192, 128),
+   160 routed experts) with Adafactor.  Each
+   prints every step's loss, wall seconds, tokens/s and MFU (the model
+   FLOPs of ``train_step_flops``: 6 × the weights a token uses × the
+   tokens, the encoder's on its frames, a MoE layer's routed experts at
+   top_k / num_experts, plus the attention's products at each use's
+   pairs and dims, forward and backward, over the wall time,
    against 989 TFLOP/s), then one step under the profiler (device ms, by
    kernel class and the top kernels, and their share of the mean step's
    wall time), one optimizer update alone, the step's and the row's peak
@@ -148,11 +157,13 @@ Phases (any failure exits non-zero before the final line):
    ``train_hbm_bytes`` for the step.  Gates: every loss finite, each
    step's flash launches ``train_flash_launches`` (qwen3-4b 72,
    recurrentgemma 24: each attention layer's forward and its recompute;
-   xlstm none), all on the tensor cores, the peak within 76 GB.  (b) fp32
-   at full width and cut depth (qwen3-4b 2 layers, gemma2-27b one
-   super-block: softcaps, window, post-norms; recurrentgemma-9b one
+   xlstm none; seamless 144; llava 12; deepseek-v2 2), all on the tensor
+   cores, the peak within 76 GB; each row prints its depth and ``row_s``.
+   (b) fp32 at full width and cut depth (qwen3-4b 2 layers, gemma2-27b
+   one super-block: softcaps, window, post-norms; recurrentgemma-9b one
    super-block and its 2 extra layers; xlstm-1.3b one super-block of 8
-   layers) on 1 x 2048 tokens: ``train_loss`` and every leaf's gradient
+   layers; seamless one encoder and one decoder layer; llava 2 layers
+   with its patches) on 1 x 2048 tokens: ``train_loss`` and every leaf's gradient
    with the flash kernel forward and the backward of
    ``kernels/flash_attention/backward.py``, RG-LRU's scan Function,
    sLSTM's prefill form and the recompute, against autograd of the plain
@@ -456,9 +467,10 @@ SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES = 16, 64, PREFILL_LEN // 4
 # and in bf16 at the tensor cores' two.
 FLASH_FP32_DIMS = (32, 64, 128)
 FLASH_BF16_DIMS = (128, 64)
-# The [train] phase's full-width rows: (arch, optimizer, timed steps),
-# each at full depth and the prefill's 4 × 2048 tokens from the port's
-# pipeline, one warm-up step before the timed ones, each on a fresh batch.
+# The [train] phase's full-width rows: (arch, optimizer, timed steps,
+# super-blocks to keep or None for full depth), each at the prefill's
+# 4 × 2048 tokens from the port's pipeline, one warm-up step before the
+# timed ones, each on a fresh batch.
 # - qwen3-4b, AdamW (JAX's defaults).  Its memory from the code: bf16
 #   params 8.04 GB, bf16 grads 8.04 GB and fp32 moments 32.2 GB (48.3 GB),
 #   the 36 saved layer inputs 1.51 GB, one layer's recompute, one 512-row
@@ -471,9 +483,30 @@ FLASH_BF16_DIMS = (128, 64)
 #   H100 80GB HBM3 read 71.4 GB.
 # - xlstm-1.3b, AdamW: 1.82 B parameters by the config's count, 48 layers
 #   with the per-layer recompute of its 8-layer pattern.
-TRAIN_ROWS = (("qwen3-4b", "adamw", 4),
-              ("recurrentgemma-9b", "adafactor", 2),
-              ("xlstm-1.3b", "adamw", 2))
+# - seamless-m4t-large-v2, AdamW, full depth (24 encoder and 24 decoder
+#   layers): 1.772 B parameters; bf16 params and grads 7.1 GB, fp32
+#   moments 14.2 GB, one 512-row chunk's fp32 logits over 256,206 words
+#   2.1 GB, `unembed`'s fp32 table copy 1.05 GB: about 28 GB (its peak on
+#   an H100 80GB HBM3 read 30.5 GB).  The encoder runs over src
+#   [4, 512, 1024]; 144 flash launches a step at (64, 64): encoder,
+#   decoder and cross attention.
+# - llava-next-34b, AdamW, 6 of its 60 layers (G = 7, the 576 patches among
+#   the 2048 positions): 4.265 B parameters; bf16 params and grads
+#   17.1 GB, fp32 moments 34.1 GB, `unembed`'s fp32 copy of the untied
+#   64000 × 7168 table 1.84 GB, one layer's recompute about 1.3 GB: about
+#   58 GB (read 58.7 GB).  The 60 layers' params, grads and moments would
+#   be 413 GB.
+# - deepseek-v2-236b, Adafactor, 1 of its 60 layers (MLA at (192, 128),
+#   160 routed experts, top 6, capacity 384 slots an expert a step):
+#   5.021 B parameters; bf16 params and grads 20.1 GB, Adafactor's fp32
+#   temporaries on the 1.26 B-element expert leaves: its peak read
+#   60.5 GB.  AdamW's moments (40 GB) would not fit beside them.
+TRAIN_ROWS = (("qwen3-4b", "adamw", 4, None),
+              ("recurrentgemma-9b", "adafactor", 2, None),
+              ("xlstm-1.3b", "adamw", 2, None),
+              ("seamless-m4t-large-v2", "adamw", 2, None),
+              ("llava-next-34b", "adamw", 2, 6),
+              ("deepseek-v2-236b", "adafactor", 2, 1))
 TRAIN_ARCH = LM_ARCH
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LAYERS = PREFILL_BATCH, PREFILL_LEN, 36
 TRAIN_WARMUP = 1
@@ -483,9 +516,14 @@ TRAIN_PEAK_LIMIT = 76e9
 # global layer: softcap 50, window 4096, final softcap 30);
 # recurrentgemma-9b's first super-block and its 2 extra layers (4 RG-LRU
 # layers, one local-attention layer at (256, 256)); xlstm-1.3b's first
-# super-block (7 mLSTM layers and an sLSTM, under both recompute levels).
+# super-block (7 mLSTM layers and an sLSTM, under both recompute levels);
+# seamless-m4t-large-v2's first encoder and first decoder layer (the
+# encoder's cut to the decoder's super-blocks: encoder, decoder and cross
+# attention at (64, 64) over 512 frames); llava-next-34b's first 2 layers
+# with its 576 patches (G = 7).
 GRAD_PARITY = (("qwen3-4b", 2), ("gemma2-27b", 1),
-               ("recurrentgemma-9b", 1), ("xlstm-1.3b", 1))
+               ("recurrentgemma-9b", 1), ("xlstm-1.3b", 1),
+               ("seamless-m4t-large-v2", 1), ("llava-next-34b", 2))
 GRAD_SEQ = PREFILL_LEN
 # The flash op's gradient at each tensor-core shape of the serve rows,
 # batch 1: (row, (B, H, K, Sq, Sk, d, dv), keywords).
@@ -2103,6 +2141,16 @@ def lm_path_phase(dev) -> dict:
     return row
 
 
+def cut_depth(cfg, superblocks):
+    """``cfg`` at full width with ``superblocks`` super-blocks (an enc-dec
+    encoder cut to as many), or as it is for None."""
+    if superblocks is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_superblocks=superblocks,
+        enc_superblocks=min(cfg.enc_superblocks, superblocks))
+
+
 def lm_rows_phase(dev) -> dict:
     """chatglm3-6b, the DeepSeek archs, the recurrent archs, mistral-nemo,
     gemma2, seamless and llava (``LM_ROWS``), then MLA + MoE parity on
@@ -2113,9 +2161,7 @@ def lm_rows_phase(dev) -> dict:
 
     rows = {}
     for arch, superblocks, route, kernel_row, note in LM_ROWS:
-        cfg = get_arch(arch).full()
-        if superblocks is not None:
-            cfg = dataclasses.replace(cfg, num_superblocks=superblocks)
+        cfg = cut_depth(get_arch(arch).full(), superblocks)
         t0 = time.perf_counter()
         row = serve_row(dev, cfg, route)
         row["note"] = note
@@ -2139,11 +2185,9 @@ def lm_rows_phase(dev) -> dict:
                       prefill_flash_launches(cfg))
     for arch, superblocks, prompt_len in FP32_PARITY:
         t0 = time.perf_counter()
-        cfg = get_arch(arch).full()
         cfg = dataclasses.replace(
-            cfg, num_superblocks=superblocks, dtype=torch.float32,
-            param_dtype=torch.float32,
-            enc_superblocks=min(cfg.enc_superblocks, superblocks))
+            cut_depth(get_arch(arch).full(), superblocks),
+            dtype=torch.float32, param_dtype=torch.float32)
         parity = fp32_parity(dev, cfg, prompt_len)
         row = {"app": "fp32_parity", "arch": arch, **parity,
                "row_s": time.perf_counter() - t0}
@@ -2156,16 +2200,67 @@ def lm_rows_phase(dev) -> dict:
 # -- phase 5b: training -----------------------------------------------------
 
 def train_step_flops(cfg, batch: int, seq: int) -> float:
-    """Model FLOPs of one training step (no recompute): 6·N·T, plus the
-    attention's score and value products, forward and backward (three
-    times the forward's 2·(d + dv) a visible pair and head)."""
-    from repro_torch.models import param_count
-    from repro_torch.models.transformer import layer_specs
+    """Model FLOPs of one training step (no recompute): 6 × the weights
+    that a token's products use × its tokens, plus the attention's score
+    and value products, forward and backward (three times the forward's
+    2·(d + dv) a visible pair and head).
 
-    n_attn = sum(s.mixer == "gqa" for s in layer_specs(cfg))
-    attn = (3 * 2 * batch * cfg.num_heads * 2 * cfg.head_dim
-            * visible_pairs(seq, seq) * n_attn)
-    return 6.0 * param_count(cfg) * batch * seq + attn
+    The decoder's weights act on its ``batch × seq`` positions (patches
+    included), the unembedding table once (twice with the MTP head's
+    second cross-entropy); an untied input table is a lookup and counts
+    nothing.  A MoE layer's routed experts count ``top_k / num_experts``
+    of theirs (the useful work: the capacity buffer's empty slots are not
+    counted).  An enc-dec encoder's weights, and a cross block's K and V
+    projections, act on the ``seq // 4`` frames of each row.  Pairs:
+    causal (and within a window) in the decoder's GQA and MLA layers and
+    the MTP block, at MLA's own head count and dims; every pair in the
+    encoder and in cross attention (``seq`` queries on the frames)."""
+    from repro_torch.models import param_count
+    from repro_torch.models.transformer import (
+        ATTENTION_MIXERS, _layer_count, enc_layer_specs, layer_specs)
+
+    D, hd = cfg.d_model, cfg.head_dim
+    frames = seq // 4 if cfg.arch == "encdec" else 0
+    enc = enc_layer_specs(cfg)
+    dec = layer_specs(cfg)
+    enc_params = (sum(_layer_count(cfg, s) for s in enc) + D) if enc else 0
+    cross_kv = 2 * D * cfg.num_kv_heads * hd if frames else 0
+    idle = 0
+    if cfg.moe is not None:
+        m = cfg.moe
+        routed = 3 * m.num_experts * D * m.d_ff_expert
+        idle = (sum(s.ffn == "moe" for s in dec)
+                * routed * (1 - m.top_k / m.num_experts))
+    table = cfg.vocab * D
+    per_token = (param_count(cfg) - enc_params - cross_kv * len(dec) - idle
+                 - (0 if cfg.tie_embeddings else table)
+                 + (table if cfg.mtp else 0))
+    per_frame = enc_params + cross_kv * len(dec)
+
+    gqa = (cfg.num_heads, hd, hd)
+    mla = cfg.mla and (cfg.mla.num_heads,
+                       cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim,
+                       cfg.mla.v_head_dim)
+
+    def pairs(dims, Sq, Sk, causal=True, window=None):
+        """Three times the forward's score and value FLOPs of one row."""
+        heads, d, dv = dims
+        n = (sum(min(i + 1, window) for i in range(Sq))
+             if causal and window is not None
+             else visible_pairs(Sq, Sk, causal))
+        return 3 * 2 * (d + dv) * heads * n
+
+    attn = sum(pairs(gqa if s.mixer == "gqa" else mla, seq, seq,
+                     window=s.window)
+               for s in dec if s.mixer in ATTENTION_MIXERS)
+    attn += sum(pairs(gqa, frames, frames, causal=False)
+                for s in enc if s.mixer == "gqa")
+    if frames:
+        attn += len(dec) * pairs(gqa, seq, frames, causal=False)
+    if cfg.mtp:
+        attn += pairs(gqa, seq, seq)
+    return (6.0 * batch * (per_token * seq + per_frame * frames)
+            + batch * attn)
 
 
 #: Kernel classes of a training step's profile, by name: the first class
@@ -2202,8 +2297,10 @@ def train_step_profile(fn) -> dict:
             "top": [[r[0][:90], r[1], r[2]] for r in rows[:12]]}
 
 
-def train_full_width(dev, arch: str, optimizer: str, timed: int) -> dict:
-    """(a) One TRAIN_ROWS row: ``arch``'s ``full()`` in bf16 taking
+def train_full_width(dev, arch: str, optimizer: str, timed: int,
+                     superblocks) -> dict:
+    """(a) One TRAIN_ROWS row: ``arch``'s ``full()`` in bf16, at
+    ``superblocks`` super-blocks (None: full depth), taking
     ``optimizer`` steps (JAX's defaults) at TRAIN_BATCH × TRAIN_SEQ tokens
     from the port's pipeline (seed 0): TRAIN_WARMUP + ``timed`` steps,
     each on a fresh batch, then one more under the profiler, and one
@@ -2223,7 +2320,8 @@ def train_full_width(dev, arch: str, optimizer: str, timed: int) -> dict:
     from repro_torch.optim import (AdafactorConfig, AdamWConfig,
                                    adafactor_update, adamw_update)
 
-    cfg = get_arch(arch).full()
+    row_t0 = time.perf_counter()
+    cfg = cut_depth(get_arch(arch).full(), superblocks)
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -2284,6 +2382,7 @@ def train_full_width(dev, arch: str, optimizer: str, timed: int) -> dict:
     wall = sum(s["wall_s"] for s in timed_steps) / len(timed_steps)
     row = {"check": "full_width", "arch": cfg.name,
            "layers": cfg.num_layers, "superblocks": cfg.num_superblocks,
+           "enc_layers": cfg.enc_superblocks * len(cfg.enc_pattern),
            "params": param_count(cfg), "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "optimizer": optimizer, "dtype": "bfloat16",
            "init_s": init_s, "steps": steps, "mean_wall_s": wall,
@@ -2300,7 +2399,7 @@ def train_full_width(dev, arch: str, optimizer: str, timed: int) -> dict:
            "top_kernels": profile["top"], "update_ms": update_ms,
            "step_peak_bytes": step_peak, "peak_bytes": peak,
            "held_before_bytes": held, "flash_launches_per_step": want,
-           "card": card_line()}
+           "row_s": time.perf_counter() - row_t0, "card": card_line()}
     print(f"[train] {json.dumps(row)}", flush=True)
     require(peak <= TRAIN_PEAK_LIMIT,
             f"[train] {arch}: peak {peak} device bytes over "
@@ -2332,8 +2431,11 @@ def train_grad_parity(dev) -> list:
     (super-blocks, xlstm's layers, cross-entropy chunks) against the same
     loss with the plain versions under autograd: ``attention_ref``,
     ``rglru_scan_ref`` and sLSTM's step loop, with nothing recomputed, on
-    one batch of GRAD_SEQ tokens.  Gates: the loss within 1e-5 relative, each
-    leaf within 1e-4 of that leaf's gradient norm."""
+    one batch of GRAD_SEQ tokens.  The plain side's ``attention_ref``
+    takes ``flash_attention_op``'s name in ``attention``, through which
+    ``attention_core`` reaches it for every use: GQA, MLA, the encoder and
+    cross attention.  Gates: the loss within 1e-5 relative, each leaf
+    within 1e-4 of that leaf's gradient norm."""
     from contextlib import ExitStack
     from unittest import mock
 
@@ -2360,10 +2462,9 @@ def train_grad_parity(dev) -> list:
     rows = []
     for arch, superblocks in GRAD_PARITY:
         t0 = time.perf_counter()
-        cfg = dataclasses.replace(get_arch(arch).full(),
-                                  num_superblocks=superblocks,
-                                  dtype=torch.float32,
-                                  param_dtype=torch.float32)
+        cfg = dataclasses.replace(
+            cut_depth(get_arch(arch).full(), superblocks),
+            dtype=torch.float32, param_dtype=torch.float32)
         params = init_params(torch.Generator(dev).manual_seed(0), cfg)
         pipe = make_pipeline(data_config(cfg, 1, GRAD_SEQ, seed=0))
         batch = batch_to_device(cfg, next(pipe), dev)
@@ -2386,7 +2487,9 @@ def train_grad_parity(dev) -> list:
             errs.append((e / n if n > 0 else e, path))
         worst = max(errs)
         row = {"check": "grad_parity", "arch": arch,
-               "superblocks": superblocks, "dtype": "float32",
+               "superblocks": superblocks, "layers": cfg.num_layers,
+               "enc_layers": cfg.enc_superblocks * len(cfg.enc_pattern),
+               "dtype": "float32",
                "tokens": GRAD_SEQ, "loss": loss, "ref_loss": want_loss,
                "loss_rel_err": abs(loss - want_loss) / abs(want_loss),
                "leaves": len(errs), "worst_leaf": worst[1],

@@ -887,7 +887,10 @@ def test_slstm_prefill_gradient_on_cuda(cuda, S):
 
 @pytest.mark.parametrize("arch,param_tol", [
     ("qwen3-4b", 1e-3), ("gemma2-27b", 1e-3), ("deepseek-v3-671b", 1e-3),
-    ("recurrentgemma-9b", 1e-3), ("xlstm-1.3b", 5e-3)])
+    ("recurrentgemma-9b", 1e-3), ("xlstm-1.3b", 5e-3),
+    ("seamless-m4t-large-v2", 1e-3), ("llava-next-34b", 1e-3),
+    ("chatglm3-6b", 1e-3), ("mistral-nemo-12b", 1e-3),
+    ("deepseek-v2-236b", 1e-3)])
 def test_train_step_on_cuda_matches_cpu(cuda, arch, param_tol):
     """Two fp32 AdamW steps of the arch's ``smoke()`` on the card and on
     the CPU from the same weights and batches: the losses within 1e-5

@@ -173,7 +173,8 @@ def test_flash_op_records_autograd_only_where_asked():
 # -- train_loss and its gradient -------------------------------------------------
 
 TRAIN_ARCHS = ["qwen3-4b", "gemma2-27b", "deepseek-v3-671b",
-               "seamless-m4t-large-v2", "llava-next-34b"]
+               "seamless-m4t-large-v2", "llava-next-34b", "chatglm3-6b",
+               "mistral-nemo-12b", "deepseek-v2-236b"]
 #: The archs with recurrent mixers (xlstm's has no attention, so the
 #: flash op's launch test leaves them out).
 RECURRENT_ARCHS = ["recurrentgemma-9b", "xlstm-1.3b"]

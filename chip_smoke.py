@@ -197,8 +197,9 @@ Phases (any failure exits non-zero before the final line):
    repro_torch.launch.dryrun`` for qwen3-4b ``train_4k`` on the 16 x 16
    mesh and deepseek-v3-671b ``decode_32k`` on the 2 x 16 x 16 one, each
    in a subprocess on the host's CPU (its fake process group cannot share
-   a process with the NCCL one), both started after the last card phase
-   (so no earlier phase shares the host with them), with 600 s each.  Each record must be ``ok``;
+   a process with the NCCL one), both started after the last timed card
+   phase (so no timed phase shares the host with them; phase 9 runs
+   beside them), with 600 s each.  Each record must be ``ok``;
    prints its plan, memory, FLOPs and bytes per rank, collective bytes by
    kind within a pod and across pods, and the roofline terms at the
    H100's data-sheet rates.
@@ -260,6 +261,27 @@ Phases (any failure exits non-zero before the final line):
    a tenant cell) must equal the port's CPU run of the same cell: the
    faults are drawn on the host from the scenario's seed.  dilate, matmul
    and knn must each launch in their app's cells.
+9. The entry points and the examples (``[examples]`` lines, on the card
+   while the dry runs use the host's CPU).  (a) ``run_numeric`` of
+   stencil, KNN, CNN and PageRank at the JAX package's defaults, and CNN's
+   at a VGG-16 conv3 layer (56 x 56 x 256 -> 256), each against the same
+   call with ``device="cpu"`` (the plain versions): stencil bit for bit,
+   KNN within 1e-4 with equal indices, CNN within 2e-4 of the output's
+   scale, PageRank within 1e-5 of the largest rank; dilate must launch 4
+   times (``iters``), knn once, and CNN's product once on the tiled
+   kernel (``route`` is ``"tiled"``; the ``matmul`` counter 1 as well, so
+   the narrow kernel never ran), which gives the ``matmul_tiled`` rows'
+   launches.  (b) The examples' card parts, called from
+   ``examples/torch_*.py``: the quickstart's KNN design (compiled without
+   floorplans) executed on the card, its outputs within 1e-4 of the same
+   design executed with ``device="cpu"``, equal indices, every
+   ``agreement()`` value true, knn launched; its 20 AdamW steps of
+   qwen3-4b ``smoke()``, every loss finite and the last below the first;
+   multi_fpga_apps' ``fabric_execution``, bit-identical to the ideal path,
+   dilate launched; serve_lm twice, equal tokens from the generator's seed
+   7; train_lm ending at step 60 after one injected failure, resumed from
+   the step-20 checkpoint, every loss finite.  Prints the phase's wall
+   time.
 
 The flash attention row (phase 3) holds both kernels, on the same bf16
 inputs, to their plain version at the prefill step's shape (causal), at
@@ -281,7 +303,14 @@ main shape.  Its yardstick is ``F.scaled_dot_product_attention``
 (989 TFLOP/s) over the visible (query, key) pairs.  The matmul row names
 the kernel each of its two shapes takes (narrow at N = 4, tiled at
 N = 80), checks that two runs agree bit for bit, and times the tiled
-kernel at N = 4 beside the narrow one.  The ``flash_attention_mla`` row
+kernel at N = 4 beside the narrow one.  The ``matmul_tiled`` and
+``matmul_tiled_vgg_conv3`` rows hold the tiled kernel at the products
+``route()`` sends it from CNN's ``run_numeric``: its default, [1024, 576]
+x [576, 64], and a VGG-16 conv3 layer, 56 x 56 x 256 -> 256 ([3136, 2304]
+x [2304, 256]); each within 2e-4 of ``matmul_ref``'s scale (TF32 off),
+two runs bit-equal, timed beside ``matmul_ref`` and ``torch.matmul``
+(TF32 off), its bound fp32 operations at the CUDA cores' rate against the
+bytes; their launches are phase 9's.  The ``flash_attention_mla`` row
 holds both kernels' (192, 128) instances at MLA's shape (causal) and at
 every feature case at d = 192, dv = 128: bf16 on the tensor cores under
 the flash row's gates (and its two planted faults at MLA's shape), fp32
@@ -536,6 +565,23 @@ FLASH_GRAD_CASES = (
     ("7e decoder", (1, 16, 16, 2048, 2048, 64, 64), {}),
     ("7e cross", (1, 16, 16, 2048, 512, 64, 64), {"causal": False}),
 )
+
+# The tiled matmul's own rows: CNN's run_numeric at the JAX package's
+# default (32 x 32 x 64 -> 64) and a VGG-16 conv3 layer (56 x 56 x 256 ->
+# 256), each an im2col product that route() sends to the tiled kernel:
+# (kernels-line row, (h, w, cin, cout), reps a CUDA graph holds).
+TILED_ROWS = (("matmul_tiled", (32, 32, 64, 64), 200),
+              ("matmul_tiled_vgg_conv3", (56, 56, 256, 256), 20))
+# The examples phase: each entry point's run_numeric on the card against
+# the same call with device="cpu" (the plain versions): (app, keywords,
+# the launch counter it must raise, by how much, the kernels-line row
+# whose launches it gives).
+NUMERIC_RUNS = (("stencil", {}, "dilate", 4, None),
+                ("knn", {}, "knn", 1, None),
+                ("cnn", {}, "matmul_tiled", 1, "matmul_tiled"),
+                ("cnn", {"h": 56, "w": 56, "cin": 256, "cout": 256},
+                 "matmul_tiled", 1, "matmul_tiled_vgg_conv3"),
+                ("pagerank", {}, None, 0, None))
 
 
 # ptxas -v of the (64, 64) kernel's two instances (two and three consumer
@@ -911,8 +957,56 @@ def kernel_phase(dev) -> dict:
     new = flash_new_arch_rows(dev, gen)
     new["flash_attention_g7"]["rows_s"] = time.perf_counter() - t0
     rows.update(new)
+    rows.update(matmul_tiled_rows(dev))
     for name, row in rows.items():
         print(f"[kernel] {name} {json.dumps(row)}", flush=True)
+    return rows
+
+
+def matmul_tiled_rows(dev) -> dict:
+    """The tiled matmul kernel at TILED_ROWS' im2col products (inputs from
+    a generator of their own, seed 1, so the earlier rows' inputs stay
+    as they were): route() must pick it; held to ``matmul_ref`` with TF32
+    off within 2e-4 of the output's scale, two runs bit-equal; ``ms`` (the
+    wrapper), ``plain_ms`` (``matmul_ref``) and ``library_ms``
+    (``torch.matmul``, TF32 off) as CUDA-graph device times, the bound
+    from fp32 operations at the CUDA cores' peak against the bytes."""
+    from repro_torch.kernels.systolic_matmul.kernel import matmul, route
+    from repro_torch.kernels.systolic_matmul.ref import im2col3x3, matmul_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+    for name, (h, w, cin, cout), reps in TILED_ROWS:
+        x = torch.randn(h, w, cin, device=dev, generator=gen)
+        a = im2col3x3(x)
+        b = torch.randn(9 * cin, cout, device=dev, generator=gen) * 0.05
+        (M, K), N = a.shape, cout
+        require(route(M, K, N) == "tiled",
+                f"{name}: route({M}, {K}, {N}) is {route(M, K, N)}")
+        got = matmul(a, b)
+        ref = matmul_ref(a, b)
+        err = float((got - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        require(err <= 2e-4 * scale,
+                f"{name} [{M},{K}]x[{K},{N}] err {err:.3e} > 2e-4*{scale:.2f}")
+        require(torch.equal(got, matmul(a, b)),
+                f"{name} [{M},{K}]x[{K},{N}]: two runs differ")
+        ms = graph_ms(lambda i: matmul(a, b), reps)
+        plain = graph_ms(lambda i: matmul_ref(a, b), reps)
+        lib = graph_ms(lambda i: torch.matmul(a, b), reps)
+        nbytes = 4 * (M * K + K * N + M * N)
+        ops = 2 * M * K * N
+        bnd, by = bound(nbytes, ops)
+        rows[name] = dict(shape=[M, K, N], conv=[h, w, cin, cout],
+                          route="tiled", max_abs_err=err, scale=scale,
+                          two_runs_equal=True, ms=ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bnd, bound_by=by,
+                          bytes=nbytes, ops=ops, tflops=ops / ms / 1e9,
+                          over_library=ms / lib,
+                          device_kernels=device_kernels(
+                              lambda: matmul(a, b)))
+        del x, a, b, got, ref
     return rows
 
 
@@ -2948,16 +3042,18 @@ def start_dryrun(out_dir: Path) -> list:
     return procs
 
 
-def dryrun_phase(out_dir: Path) -> list:
-    """Runs the dry-run cells side by side after the card's phases (so none
-    of those shares the host with them) and waits for each
-    (DRYRUN_TIMEOUT from its start; a cell past it is killed and fails the
-    phase); prints its record's memory, FLOPs, collective bytes by kind
-    (within a pod and across pods) and roofline terms.  Every record must
-    be ``ok``."""
+def dryrun_phase(out_dir: Path) -> tuple:
+    """Runs the dry-run cells side by side after the card's timed phases
+    (so none of those shares the host with them), and phase 9 on the card
+    while they run on the host's CPU; waits for each cell (DRYRUN_TIMEOUT
+    from its start; a cell past it is killed and fails the phase); prints
+    its record's memory, FLOPs, collective bytes by kind (within a pod and
+    across pods) and roofline terms.  Every record must be ``ok``.
+    Returns (phase 9's launches by kernels-line row, the rows)."""
     t0 = time.perf_counter()
     procs = start_dryrun(out_dir)
     try:
+        launches = examples_phase()
         rows = [dryrun_row(out_dir, *proc) for proc in procs]
     finally:
         for _, p, _, _ in procs:
@@ -2965,7 +3061,7 @@ def dryrun_phase(out_dir: Path) -> list:
                 p.kill()
                 p.wait()
     print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s", flush=True)
-    return rows
+    return launches, rows
 
 
 def dryrun_row(out_dir: Path, cell: tuple, p, log: Path,
@@ -3014,6 +3110,170 @@ def release_kernel_phase() -> None:
     after = torch.cuda.memory_allocated()
     print(f"kernel phase: {before} device bytes still allocated after it, "
           f"{after} after freeing the cuBLAS workspaces", flush=True)
+
+
+# -- phase 9: the entry points and the examples ------------------------------
+
+def example_module(name: str):
+    """``examples/<name>.py`` as a module (``examples`` is no package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def numeric_rows() -> dict:
+    """(a) NUMERIC_RUNS: each ``run_numeric`` on the card (its default
+    device) against the same call with ``device="cpu"``: stencil bit for
+    bit, KNN within 1e-4 with equal indices, CNN within 2e-4 of the
+    output's scale, PageRank within 1e-5 of the largest rank; each raises
+    its kernel's counter by the count given (counts zeroed just before the
+    card's call, read just after), CNN's on the tiled kernel that route()
+    picks and on no other.  Returns the launches by kernels-line row."""
+    import inspect
+
+    from repro_torch.apps import APPS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.stencil_dilate.ref import bit_mismatches
+    from repro_torch.kernels.systolic_matmul.kernel import route
+
+    out = {}
+    for app, kw, counter, want_launches, kernel_row in NUMERIC_RUNS:
+        fn = APPS[app].run_numeric
+        args = inspect.signature(fn).bind(**kw)
+        args.apply_defaults()
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        got = fn(**kw)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        card_s = time.perf_counter() - t0
+        want = fn(**kw, device="cpu")
+        row = {"check": "run_numeric", "app": app, **args.arguments,
+               "card_s": card_s}
+        if app == "stencil":
+            row["bit_mismatches"] = bit_mismatches(got.cpu(), want)
+            ok = row["bit_mismatches"] == 0
+        elif app == "knn":
+            row["max_abs_err"] = float((got[0].cpu() - want[0]).abs().max())
+            row["index_diffs"] = int((got[1].cpu() != want[1]).sum())
+            ok = row["max_abs_err"] <= 1e-4 and row["index_diffs"] == 0
+        elif app == "cnn":
+            a = args.arguments
+            row["route"] = route(a["h"] * a["w"], 9 * a["cin"], a["cout"])
+            row["max_abs_err"] = float((got.cpu() - want).abs().max())
+            row["scale"] = max(1.0, float(want.abs().max()))
+            ok = (row["route"] == "tiled" and counts["matmul"] == 1
+                  and row["max_abs_err"] <= 2e-4 * row["scale"])
+        else:
+            row["rel_err"] = (float((got.cpu() - want).abs().max())
+                              / float(want.max()))
+            ok = row["rel_err"] <= PAGERANK_REL_TOL
+        row["launches"] = {k: v for k, v in counts.items() if v}
+        print(f"[examples] {json.dumps(row)}", flush=True)
+        require(ok, f"[examples] {app} run_numeric {kw}: the card's output "
+                f"differs from the CPU's: {row}")
+        if counter is not None:
+            require(counts[counter] == want_launches,
+                    f"[examples] {app} run_numeric {kw}: {counter} launched "
+                    f"{counts[counter]} times, not {want_launches}")
+        if kernel_row is not None:
+            out[kernel_row] = counts[counter]
+    return out
+
+
+def example_rows() -> None:
+    """(b) The examples' card parts, called from their modules: the
+    quickstart's KNN design (compiled without floorplans: host work the
+    path phase already does) executed on the card and on the CPU, and its
+    20 LM steps; multi_fpga_apps' fabric execution; serve_lm twice;
+    train_lm with its injected failure."""
+    from repro_torch.exec import bit_identical
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    qs = example_module("torch_quickstart")
+    t0 = time.perf_counter()
+    design = qs.compile_flow(floorplan_devices=())
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    res = qs.execute_flow(design)
+    torch.cuda.synchronize()
+    launches = launch_counts()["knn"]
+    execute_s = time.perf_counter() - t0
+    cpu = qs.execute_flow(design, "cpu")
+    (gd, gi), (wd, wi) = res.outputs, cpu.outputs
+    row = {"check": "quickstart_execute", "compile_s": compile_s,
+           "execute_s": execute_s, "knn_launches": launches,
+           "max_abs_err": float((gd.cpu() - wd).abs().max()),
+           "index_diffs": int((gi.cpu() != wi).sum()),
+           "agreement": res.report.agreement()}
+    print(f"[examples] {json.dumps(row)}", flush=True)
+    require(row["max_abs_err"] <= 1e-4 and row["index_diffs"] == 0
+            and all(row["agreement"].values()) and launches > 0,
+            f"[examples] quickstart execute: {row}")
+
+    t0 = time.perf_counter()
+    losses = qs.tiny_lm_train()
+    row = {"check": "quickstart_lm", "steps": len(losses),
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "row_s": time.perf_counter() - t0}
+    print(f"[examples] {json.dumps(row)}", flush=True)
+    require(all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0], f"[examples] quickstart LM: {row}")
+
+    mf = example_module("torch_multi_fpga_apps")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    fabric, ideal = mf.fabric_execution()
+    torch.cuda.synchronize()
+    row = {"check": "fabric_execution",
+           "bit_identical": bit_identical(fabric.outputs, ideal.outputs),
+           "agreement": fabric.report.agreement(),
+           "dilate_launches": launch_counts()["dilate"],
+           "row_s": time.perf_counter() - t0}
+    print(f"[examples] {json.dumps(row)}", flush=True)
+    require(row["bit_identical"] and all(row["agreement"].values())
+            and row["dilate_launches"] > 0, f"[examples] fabric: {row}")
+
+    sv = example_module("torch_serve_lm")
+    t0 = time.perf_counter()
+    first, second = sv.main(), sv.main()
+    row = {"check": "serve_lm", "tokens": list(first.shape),
+           "equal": bool(np.array_equal(first, second)),
+           "row_s": time.perf_counter() - t0}
+    print(f"[examples] {json.dumps(row)}", flush=True)
+    require(row["equal"], "[examples] serve_lm: two runs with generator "
+            "seed 7 give other tokens")
+
+    tl = example_module("torch_train_lm")
+    t0 = time.perf_counter()
+    final, attempts = tl.main()
+    losses = [m["loss"] for h in attempts for m in h]
+    row = {"check": "train_lm", "final_step": final,
+           "attempts": len(attempts),
+           "resumed_from": attempts[-1][0]["step"] - 1,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "row_s": time.perf_counter() - t0}
+    print(f"[examples] {json.dumps(row)}", flush=True)
+    require(final == 60 and len(attempts) == 2
+            and row["resumed_from"] == 20
+            and all(math.isfinite(x) for x in losses),
+            f"[examples] train_lm: {row}")
+
+
+def examples_phase() -> dict:
+    """(a) the entry points' ``run_numeric``s, (b) the examples' card
+    parts; prints the phase's wall time.  Returns (a)'s launches by
+    kernels-line row."""
+    t0 = time.perf_counter()
+    launches = numeric_rows()
+    example_rows()
+    print(f"[examples] phase {time.perf_counter() - t0:.1f} s; card: "
+          f"{card_line()}", flush=True)
+    return launches
 
 
 # -- phase 6: observability and snapshots -----------------------------------
@@ -3521,8 +3781,8 @@ def main() -> int:
 
 
 def card_phases(dev) -> int:
-    """Phases 3 to 8, the dry run's records, the kernels line and the last
-    line."""
+    """Phases 3 to 8, phase 9 beside the dry runs, the kernels line and the
+    last line."""
     rows = kernel_phase(dev)
     release_kernel_phase()
 
@@ -3557,13 +3817,20 @@ def card_phases(dev) -> int:
     obs_phase(dev, designs)
     tenants_phase(dev)
     chaos_phase(dev)
-    dryrun_phase(ROOT / "results" / "dryrun_torch")
+    tiled, _ = dryrun_phase(ROOT / "results" / "dryrun_torch")
+    launches.update(tiled)
 
     blas = "src/repro/kernels/hbm_blas/kernel.py"
     sources = {"dilate": ("src/repro_torch/csrc/dilate.cu",
                           "src/repro/kernels/stencil_dilate/kernel.py:52"),
                "matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/systolic_matmul/kernel.py:42"),
+               "matmul_tiled": (
+                   "src/repro_torch/csrc/matmul.cu",
+                   "src/repro/kernels/systolic_matmul/kernel.py:42"),
+               "matmul_tiled_vgg_conv3": (
+                   "src/repro_torch/csrc/matmul.cu",
+                   "src/repro/kernels/systolic_matmul/kernel.py:42"),
                "knn": ("src/repro_torch/csrc/knn.cu",
                        "src/repro/kernels/knn/kernel.py:72"),
                "axpy": ("src/repro_torch/csrc/hbm_blas.cu", f"{blas}:23"),

@@ -98,6 +98,35 @@ def speedup_table() -> Dict[str, float]:
 
 # -- runnable numerics --------------------------------------------------------
 
+def numeric_inputs(h: int = 32, w: int = 32, cin: int = 64, cout: int = 64,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """The arrays :func:`run_numeric` convolves, drawn from ``seed`` in this
+    order: ``x`` [h, w, cin] (standard normal), then ``wgt``
+    [3, 3, cin, cout] (standard normal × 0.05), both fp32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((h, w, cin), dtype=np.float32)
+    wgt = rng.standard_normal((3, 3, cin, cout), dtype=np.float32)
+    wgt *= np.float32(0.05)
+    return {"x": x, "wgt": wgt}
+
+
+def run_numeric(h: int = 32, w: int = 32, cin: int = 64, cout: int = 64,
+                seed: int = 0, *, device=None) -> torch.Tensor:
+    """VGG conv3-style layer on the systolic matmul kernel: [h, w, cout];
+    its im2col product [h·w, 9·cin] × [9·cin, cout] takes the tiled kernel
+    for cout > 16 (:func:`~repro_torch.kernels.systolic_matmul.kernel.
+    route`).  ``device`` as :func:`~repro_torch.exec.programs.
+    resolve_device`."""
+    from ..exec.programs import resolve_device
+    from ..kernels import conv_op
+
+    device = resolve_device(device)
+    arrays = numeric_inputs(h, w, cin, cout, seed)
+    x = torch.from_numpy(arrays["x"]).to(device)
+    wgt = torch.from_numpy(arrays["wgt"]).to(device)
+    return conv_op(x, wgt)
+
+
 def make_inputs(graph: TaskGraph, spec=None) -> Dict[str, np.ndarray]:
     """The arrays :func:`bind_programs` uses, drawn from ``spec["seed"]`` in
     this order: ``wgt`` [3, 3, cin, columns × cout_per_col] (standard

@@ -15,7 +15,7 @@ Mechanisms:
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +98,33 @@ def speedup_table(n_list=(1_000_000, 4_000_000, 8_000_000),
 
 
 # -- runnable numerics --------------------------------------------------------
+
+def numeric_inputs(n: int = 2048, dim: int = 16, q: int = 32,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """The arrays :func:`run_numeric` searches, drawn from ``seed`` in this
+    order: ``data`` [n, dim], then ``queries`` [q, dim], both fp32
+    standard normal."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n, dim), dtype=np.float32)
+    queries = rng.standard_normal((q, dim), dtype=np.float32)
+    return {"data": data, "queries": queries}
+
+
+def run_numeric(n: int = 2048, dim: int = 16, q: int = 32, k: int = K,
+                seed: int = 0, *, device=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Runnable reduced-scale KNN on the fused kernel, unsharded: (dists
+    [q, k], idx [q, k] int32); ``device`` as
+    :func:`~repro_torch.exec.programs.resolve_device`."""
+    from ..exec.programs import resolve_device
+    from ..kernels import knn_op
+
+    device = resolve_device(device)
+    arrays = numeric_inputs(n, dim, q, seed)
+    data = torch.from_numpy(arrays["data"]).to(device)
+    queries = torch.from_numpy(arrays["queries"]).to(device)
+    return knn_op(queries, data, k)
+
 
 def make_inputs(graph: TaskGraph, spec=None) -> Dict[str, np.ndarray]:
     """The arrays :func:`bind_programs` uses, drawn from ``spec["seed"]`` in

@@ -122,6 +122,26 @@ def eight_fpga_latency(iters: int = 512) -> float:
 
 # -- runnable numerics --------------------------------------------------------
 
+def numeric_inputs(h: int = 256, w: int = 256,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """The image :func:`run_numeric` dilates, drawn from ``seed``:
+    ``img`` [h, w] fp32 standard normal."""
+    rng = np.random.default_rng(seed)
+    return {"img": rng.standard_normal((h, w), dtype=np.float32)}
+
+
+def run_numeric(h: int = 256, w: int = 256, iters: int = 4, seed: int = 0,
+                *, device=None) -> torch.Tensor:
+    """Runnable reduced-scale numerics on the dilate kernel, unsharded;
+    ``device`` as :func:`~repro_torch.exec.programs.resolve_device`."""
+    from ..exec.programs import resolve_device
+    from ..kernels import dilate_op
+
+    device = resolve_device(device)
+    img = torch.from_numpy(numeric_inputs(h, w, seed)["img"]).to(device)
+    return dilate_op(img, iters=iters, block_rows=min(128, h))
+
+
 def make_inputs(graph: TaskGraph, spec=None) -> Dict[str, np.ndarray]:
     """The arrays :func:`bind_programs` streams, drawn from ``spec["seed"]``:
     ``imgs`` [streams, h, w] fp32 standard normal."""

@@ -24,6 +24,7 @@ from .systolic_matmul.ops import conv_op, matmul_op
 #: Every kernel's launch counter, by kernel name.
 COUNTERS = {c.name: c for c in (_dilate_kernel.LAUNCHES,
                                 _matmul_kernel.LAUNCHES,
+                                _matmul_kernel.TILED_LAUNCHES,
                                 _knn_kernel.LAUNCHES,
                                 _hbm_kernel.AXPY_LAUNCHES,
                                 _hbm_kernel.DOT_PARTIALS_LAUNCHES,

@@ -12,7 +12,8 @@ from typing import Callable, Sequence, Union
 import torch
 
 from .kernel import axpy, dot_partials, gemv
-from .ref import axpy_ref, dot_partials_ref, gemv_ref
+from .ref import (axpy_ref, axpydot_ref, dot_partials_ref, dot_ref,
+                  gemv_ref)
 
 
 def _pick(name: str, t: torch.Tensor, kernel: Callable, plain: Callable):
@@ -73,5 +74,6 @@ def axpydot_op(a, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
     return dot_op(axpy_op(a, x, y, block_rows), w, block_rows)
 
 
-__all__ = ["axpy_op", "axpydot_op", "axpy_ref", "dot_op", "dot_partials_op",
-           "dot_partials_ref", "fold_partials", "gemv_op", "gemv_ref"]
+__all__ = ["axpy_op", "axpydot_op", "axpy_ref", "axpydot_ref", "dot_op",
+           "dot_partials_op", "dot_partials_ref", "dot_ref", "fold_partials",
+           "gemv_op", "gemv_ref"]

@@ -11,6 +11,8 @@ Each has its kernel's signature and block semantics: arrays are 2-D
 * :func:`dot_partials_ref` sums each row block's view separately.
 * :func:`gemv_ref` is the row-wise multiply plus a lane sum
   (``sum(dim=1)``), block by block, as the kernel does it — not ``A @ x.T``.
+* :func:`dot_ref` and :func:`axpydot_ref` are whole-array oracles with no
+  blocks, as the JAX package's.
 
 The sums run in torch's own order, not the kernels': a kernel and its plain
 version agree within a stated tolerance, not bit for bit.  Each function
@@ -32,12 +34,29 @@ def block_count(rows: int, block_rows: int) -> int:
     return rows // br
 
 
+def _axpy(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    a32 = float(torch.tensor(float(a), dtype=torch.float32))
+    return (a32 * x.double() + y.double()).to(x.dtype)
+
+
 def axpy_ref(a, x: torch.Tensor, y: torch.Tensor,
              block_rows: int = 256) -> torch.Tensor:
     """fp32 ``a * x + y`` with one rounding; x, y: [R, C]."""
     block_count(x.shape[0], block_rows)
-    a32 = float(torch.tensor(float(a), dtype=torch.float32))
-    return (a32 * x.double() + y.double()).to(x.dtype)
+    return _axpy(a, x, y)
+
+
+def dot_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x·y as one sum over the whole arrays (any shape, no blocks), as the
+    JAX package's oracle: a 0-d tensor."""
+    return (x * y).sum()
+
+
+def axpydot_ref(a, x: torch.Tensor, y: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """(a*x + y)·w over the whole arrays: :func:`dot_ref` of the
+    one-rounding axpy."""
+    return dot_ref(_axpy(a, x, y), w)
 
 
 def dot_partials_ref(x: torch.Tensor, y: torch.Tensor,

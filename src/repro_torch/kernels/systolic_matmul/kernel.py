@@ -14,6 +14,8 @@ from .. import build
 
 #: Launches of either kernel.
 LAUNCHES = build.LaunchCounter("matmul")
+#: Launches of the tiled kernel alone (also counted in :data:`LAUNCHES`).
+TILED_LAUNCHES = build.LaunchCounter("matmul_tiled")
 NARROW_MAX_N = 16
 NARROW_SMEM_BYTES = 48 * 1024
 
@@ -74,4 +76,5 @@ def _launch_tiled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         build.stream_handle(a.device))
     build.check(err, "matmul")
     LAUNCHES.count += 1
+    TILED_LAUNCHES.count += 1
     return out

@@ -138,6 +138,22 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6,
     return (y * s).to(x.dtype)
 
 
+def layernorm_init(dim: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in fp32 (mean, biased variance, ``rsqrt(var + eps)``),
+    then scale and bias, cast back."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
+
+
 # -- logit soft-capping (Gemma-2) --------------------------------------------
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

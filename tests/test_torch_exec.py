@@ -184,6 +184,8 @@ def _imports(path: pathlib.Path):
 def test_port_sources_import_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py"]
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
+    files += sorted((ROOT / "scripts").glob("torch_*.py"))
     assert len(files) > 30
     assert {"mem", "net", "hbm_blas", "models", "serving", "launch",
             "flash_attention", "obs", "runtime", "optim", "data",
@@ -207,6 +209,9 @@ def test_port_sources_import_no_jax_and_no_repro():
     assert {f"src/repro_torch/launch/{m}.py" for m in
             ("mesh", "shardings", "pipeline", "plan", "hlo_analysis",
              "dryrun")} | {"src/repro_torch/models/shardctx.py"} <= names
+    assert {f"examples/torch_{m}.py" for m in
+            ("quickstart", "multi_fpga_apps", "serve_lm", "train_lm")} | {
+        "scripts/torch_decode_step.py", "scripts/torch_flash_ab.py"} <= names
     bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
            for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]

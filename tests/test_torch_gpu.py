@@ -322,7 +322,8 @@ def test_launch_counters(cuda):
     reset_launch_counts()
     img = _randn(cuda, 64, 64)
     dilate_op(img, iters=3)
-    matmul_op(_randn(cuda, 8, 8), _randn(cuda, 8, 8))
+    matmul_op(_randn(cuda, 8, 8), _randn(cuda, 8, 8))       # narrow
+    matmul_op(_randn(cuda, 8, 8), _randn(cuda, 8, 32))      # tiled
     knn_op(_randn(cuda, 4, 4), _randn(cuda, 40, 4), 3)
     v = _randn(cuda, 8, 8)
     axpy_op(2.0, v, v, block_rows=4)
@@ -333,7 +334,8 @@ def test_launch_counters(cuda):
     flash_attention_op(q, q, q)                     # the CUDA cores
     qb = _randn(cuda, 1, 2, 8, 64).bfloat16()
     flash_attention_op(qb, qb, qb)                  # the tensor cores
-    assert launch_counts() == {"dilate": 3, "matmul": 1, "knn": 1,
+    assert launch_counts() == {"dilate": 3, "matmul": 2, "matmul_tiled": 1,
+                               "knn": 1,
                                "axpy": 1, "dot_partials": 1, "gemv": 2,
                                "flash_attention": 2,
                                "flash_attention_tc": 1}

@@ -310,7 +310,17 @@ x [576, 64], and a VGG-16 conv3 layer, 56 x 56 x 256 -> 256 ([3136, 2304]
 x [2304, 256]); each within 2e-4 of ``matmul_ref``'s scale (TF32 off),
 two runs bit-equal, timed beside ``matmul_ref`` and ``torch.matmul``
 (TF32 off), its bound fp32 operations at the CUDA cores' rate against the
-bytes; their launches are phase 9's.  The ``flash_attention_mla`` row
+bytes; their launches are phase 9's.  Each of the three matmul rows
+prints ``tiled_plan``'s plan (tile, K splits, blocks).  The
+``matmul_tiled_edges`` row holds the tiled route at its edges, each within
+2e-4 of ``matmul_ref``'s scale and two runs bit-equal: [1024, 576] x
+[576, 17] (just past the narrow route), N % 4 != 0 (300 x 200 x 150),
+K % 4 != 0 (65 x 17 x 129, 1024 x 575 x 64), 1 x 1 x 32, a deep split
+(64 x 4096 x 64), an A 4 bytes past a 16-byte boundary (a [1024, 576]
+view of a flat buffer from element 1) and M = 4,194,305, past the grid
+limit of the kernel it replaced.  After the build a ``ptxas:`` line gives
+the three tiled instances' registers and spills (a spill fails the smoke).
+The ``flash_attention_mla`` row
 holds both kernels' (192, 128) instances at MLA's shape (causal) and at
 every feature case at d = 192, dv = 128: bf16 on the tensor cores under
 the flash row's gates (and its two planted faults at MLA's shape), fp32
@@ -572,6 +582,11 @@ FLASH_GRAD_CASES = (
 # (kernels-line row, (h, w, cin, cout), reps a CUDA graph holds).
 TILED_ROWS = (("matmul_tiled", (32, 32, 64, 64), 200),
               ("matmul_tiled_vgg_conv3", (56, 56, 256, 256), 20))
+# The tiled matmul's edges (M, K, N, A's offset in floats from a 16-byte
+# boundary), held in the kernel phase (``matmul_tiled_edges``).
+TILED_EDGES = ((1024, 576, 17, 0), (300, 200, 150, 0), (65, 17, 129, 0),
+               (1024, 575, 64, 0), (1, 1, 32, 0), (64, 4096, 64, 0),
+               (1024, 576, 64, 1), (4_194_305, 4, 17, 0))
 # The examples phase: each entry point's run_numeric on the card against
 # the same call with device="cpu" (the plain versions): (app, keywords,
 # the launch counter it must raise, by how much, the kernels-line row
@@ -871,7 +886,7 @@ def kernel_phase(dev) -> dict:
                           bound_by=by,
                           library_ms=lib, bytes=nbytes, ops=ops,
                           routes=routes, two_runs_equal=True,
-                          tiled_ms=tiled_ms,
+                          tiled_ms=tiled_ms, tiled_plan=plan_of(M, K, cpc),
                           max_abs_err_reference_shape=errs[20 * cpc],
                           device_kernels=device_kernels(
                               lambda: matmul(cols, wt)))
@@ -958,6 +973,7 @@ def kernel_phase(dev) -> dict:
     new["flash_attention_g7"]["rows_s"] = time.perf_counter() - t0
     rows.update(new)
     rows.update(matmul_tiled_rows(dev))
+    rows["matmul_tiled_edges"] = matmul_tiled_edges(dev)
     for name, row in rows.items():
         print(f"[kernel] {name} {json.dumps(row)}", flush=True)
     return rows
@@ -1003,11 +1019,54 @@ def matmul_tiled_rows(dev) -> dict:
                           two_runs_equal=True, ms=ms, plain_ms=plain,
                           library_ms=lib, bound_ms=bnd, bound_by=by,
                           bytes=nbytes, ops=ops, tflops=ops / ms / 1e9,
-                          over_library=ms / lib,
+                          over_library=ms / lib, plan=plan_of(M, K, N),
                           device_kernels=device_kernels(
                               lambda: matmul(a, b)))
         del x, a, b, got, ref
     return rows
+
+
+def plan_of(M: int, K: int, N: int) -> dict:
+    """The tiled kernel's plan for [M, K] x [K, N] (``tiled_plan``)."""
+    from repro_torch.kernels.systolic_matmul.kernel import tiled_plan
+    plan = tiled_plan(M, K, N)
+    return dict(tile=[plan.bm, plan.bn], splits=plan.splits,
+                blocks=plan.blocks)
+
+
+def matmul_tiled_edges(dev) -> dict:
+    """The tiled route at TILED_EDGES' products (inputs from a generator of
+    their own, seed 2): route() must pick it; each within 2e-4 of
+    ``matmul_ref``'s scale (TF32 off), two runs bit-equal, with its plan."""
+    from repro_torch.kernels.systolic_matmul.kernel import matmul, route
+    from repro_torch.kernels.systolic_matmul.ref import matmul_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs = {}
+    for M, K, N, offset in TILED_EDGES:
+        name = f"{M}x{K}x{N}" + (f"+{4 * offset}B" if offset else "")
+        flat = torch.randn(M * K + offset, device=dev, generator=gen)
+        a = flat[offset:].view(M, K)
+        b = torch.randn(K, N, device=dev, generator=gen) * 0.05
+        require(route(M, K, N) == "tiled",
+                f"tiled edge {name}: route is {route(M, K, N)}")
+        require((a.data_ptr() % 16 == 0) == (offset == 0),
+                f"tiled edge {name}: A's alignment is not the case's")
+        got = matmul(a, b)
+        ref = matmul_ref(a, b)
+        err = float((got - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        require(err <= 2e-4 * scale,
+                f"tiled edge {name}: err {err:.3e} > 2e-4*{scale:.2f}")
+        require(torch.equal(got, matmul(a, b)),
+                f"tiled edge {name}: two runs differ")
+        errs[name] = dict(max_abs_err=err, scale=scale,
+                          plan=plan_of(M, K, N))
+        del flat, a, b, got, ref
+    worst = max(r["max_abs_err"] / r["scale"] for r in errs.values())
+    return dict(max_abs_err_over_scale=worst, two_runs_equal=True,
+                cases=errs)
 
 
 def visible_pairs(Sq: int, Sk: int, causal: bool = True) -> int:
@@ -3760,6 +3819,15 @@ def main() -> int:
                     and sm90[inst[0]].get("spill_load_bytes") == 0,
                     f"ptxas: the {pair} flash_sm90_kernel instance spills "
                     f"or is missing: {sm90}")
+        tiled = ptxas_report(info.log, "matmul_kernel")
+        print(f"ptxas: matmul_kernel instances {json.dumps(tiled)}",
+              flush=True)
+        require(len(tiled) == 3
+                and all(r.get("spill_store_bytes") == 0
+                        and r.get("spill_load_bytes") == 0
+                        for r in tiled.values()),
+                f"ptxas: the tiled matmul_kernel's three instances spill or "
+                f"are missing: {tiled}")
         D64_PTXAS.update(ptxas_report(info.log, "flash_sm90_d64_kernel"))
         print(f"ptxas: flash_sm90_d64_kernel instances "
               f"{json.dumps(D64_PTXAS)}", flush=True)

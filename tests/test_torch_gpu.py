@@ -129,6 +129,11 @@ def test_dilate_kernel_bits_on_unaligned_views(cuda, h, w, kind):
     # (scalar loads of A).
     (1024, 576, 1), (1024, 576, 16), (1001, 576, 4), (1024, 575, 4),
     (37, 1001, 3),
+    # The tiled kernel (N > 16): CNN's run_numeric default and a VGG-16
+    # conv3 layer (the rows' products), just past the narrow route,
+    # K % 4 != 0 at the CNN's size, and a deep K split.
+    (1024, 576, 64), (3136, 2304, 256), (1024, 576, 17), (1024, 575, 64),
+    (64, 4096, 64),
 ])
 def test_matmul_kernel(cuda, M, K, N):
     a, b = _randn(cuda, M, K, seed=1), _randn(cuda, K, N, seed=2)
@@ -316,6 +321,24 @@ def test_dot_kernel_unaligned_operands(cuda):
     assert _sum_err(got, want, terms) <= _dot_tol(4 * 256)
     xc = x.clone()                               # 16-byte aligned copy
     assert torch.equal(got, dot_partials_op(xc, y, block_rows=4))
+
+
+def test_matmul_tiled_on_a_misaligned_view(cuda):
+    """An A with K % 4 == 0 whose base lies 4 bytes past a 16-byte
+    boundary (a [M, K] view of a flat buffer from element 1) takes the
+    4-byte path: within 2e-4 of the scale, the same bits on two runs, and
+    the aligned copy's bits (the same products in the same order)."""
+    M, K, N = 1024, 576, 64
+    flat = _randn(cuda, M * K + 1, seed=3)
+    a = flat[1:].view(M, K)
+    b = _randn(cuda, K, N, seed=4) * 0.05
+    assert a.is_contiguous() and a.data_ptr() % 16 == 4
+    want = matmul_ref(a, b)
+    got = matmul_op(a, b)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 2e-4 * scale
+    assert torch.equal(got, matmul_op(a, b))
+    assert torch.equal(got, matmul_op(a.clone(), b))
 
 
 def test_launch_counters(cuda):

@@ -261,6 +261,20 @@ Phases (any failure exits non-zero before the final line):
    a tenant cell) must equal the port's CPU run of the same cell: the
    faults are drawn on the host from the scenario's seed.  dilate, matmul
    and knn must each launch in their app's cells.
+8b. The CI's smoke commands (``[smokes]`` lines, in this process):
+   ``repro_torch.exec.smoke --app stencil --ndev 4``, ``repro_torch.net.
+   smoke --app stencil --rows 2 --cols 2`` and ``repro_torch.mem.smoke
+   --app axpy --ndev 4``, each ``main`` called with ``--trace`` at the
+   binders' default sizes, once with no ``--device`` (the entry point's
+   default reaches the card) and once with ``--device cpu``, ``--out``
+   and ``--trace`` in a temporary directory.  Both return 0; dilate
+   (axpy for the mem smoke) launches in the card run; the card's Chrome
+   trace equals the CPU run's event for event and its record equals the
+   CPU run's field for field, both without what differs by device or by
+   wall clock (``device``, each firing's ``busy_s``, the exec report's
+   wall and busy times).  Prints each smoke's events (by kind), sweeps,
+   link or bank bytes, launches and wall seconds, then the phase's.
+   These launches do not enter the kernels line.
 9. The entry points and the examples (``[examples]`` lines, on the card
    while the dry runs use the host's CPU).  (a) ``run_numeric`` of
    stencil, KNN, CNN and PageRank at the JAX package's defaults, and CNN's
@@ -367,6 +381,7 @@ Prints the ``kernels`` JSON line, then the card line, and last
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import gc
@@ -3776,6 +3791,89 @@ def chaos_phase(dev) -> None:
     print(f"[chaos] card: {card_line()}", flush=True)
 
 
+# -- phase 8b: the CI's smoke commands ---------------------------------------
+
+# (name, module, the CI's arguments, the kernel it launches, the record's
+# bytes: the links' or the banks')
+CI_SMOKES = (
+    ("exec", "repro_torch.exec.smoke", ("--app", "stencil", "--ndev", "4"),
+     "dilate", ("report", "comm", "measured_inter_bytes")),
+    ("net", "repro_torch.net.smoke",
+     ("--app", "stencil", "--rows", "2", "--cols", "2"), "dilate",
+     ("congestion", "total_link_bytes")),
+    ("mem", "repro_torch.mem.smoke", ("--app", "axpy", "--ndev", "4"),
+     "axpy", ("measured", "total_bank_bytes")),
+)
+
+
+def smoke_files(d: Path) -> tuple:
+    """(record, trace) a smoke wrote into ``d``, without the fields that
+    differ by device or by wall clock: ``device``, each firing's
+    ``busy_s``, and the exec report's wall and busy times."""
+    record = json.loads((d / "record.json").read_text())
+    record.pop("device")
+    report = record.get("report", {})
+    for key in ("wall_time_s", "device_busy_s"):
+        report.pop(key, None)
+    report.get("schedule", {}).pop("measured_wall_s", None)
+    trace = json.loads((d / "trace.json").read_text())
+    for ev in trace["traceEvents"]:
+        ev.get("args", {}).pop("busy_s", None)
+    return record, trace
+
+
+def smokes_phase() -> None:
+    """Each CI smoke's ``main`` with ``--trace``, once with no
+    ``--device`` (its default reaches the card) and once with ``--device
+    cpu``: both return 0, the card run launches the app's kernel, and its
+    trace and record are the CPU run's."""
+    import importlib
+    import tempfile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, module, argv, kernel, bytes_at in CI_SMOKES:
+            main = importlib.import_module(module).main
+            runs = {}
+            for label, dev_args in (("card", ()),
+                                    ("cpu", ("--device", "cpu"))):
+                d = Path(tmp) / name / label
+                reset_launch_counts()
+                t = time.perf_counter()
+                rc = main([*argv, *dev_args, "--out", str(d / "record.json"),
+                           "--trace", str(d / "trace.json")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                require(rc == 0, f"smokes {name} on the {label}: main "
+                        f"returned {rc}")
+                runs[label] = (*smoke_files(d), launch_counts()[kernel],
+                               wall)
+            record, trace, launches, wall = runs["card"]
+            require(launches > 0, f"smokes {name}: {kernel} never launched "
+                    "on the card")
+            require(trace == runs["cpu"][1], f"smokes {name}: the card's "
+                    "trace differs from the CPU's")
+            require(record == runs["cpu"][0], f"smokes {name}: the card's "
+                    f"record {record} differs from the CPU's "
+                    f"{runs['cpu'][0]}")
+            kinds = collections.Counter(ev.get("cat", "meta")
+                                        for ev in trace["traceEvents"])
+            row = {"smoke": name, "app": argv[1],
+                   "events": len(trace["traceEvents"]),
+                   "events_by_kind": dict(sorted(kinds.items())),
+                   "sweeps": (record["report"]["sweeps"] if name == "exec"
+                              else record["sweeps"]),
+                   bytes_at[-1]: functools.reduce(dict.__getitem__, bytes_at,
+                                                  record),
+                   "launches": {kernel: launches},
+                   "card_wall_s": wall, "cpu_wall_s": runs["cpu"][3]}
+            print(f"[smokes] {json.dumps(row)}", flush=True)
+    print(f"[smokes] phase {time.perf_counter() - t0:.1f} s; card: "
+          f"{card_line()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3849,7 +3947,7 @@ def main() -> int:
 
 
 def card_phases(dev) -> int:
-    """Phases 3 to 8, phase 9 beside the dry runs, the kernels line and the
+    """Phases 3 to 8b, phase 9 beside the dry runs, the kernels line and the
     last line."""
     rows = kernel_phase(dev)
     release_kernel_phase()
@@ -3885,6 +3983,7 @@ def card_phases(dev) -> int:
     obs_phase(dev, designs)
     tenants_phase(dev)
     chaos_phase(dev)
+    smokes_phase()
     tiled, _ = dryrun_phase(ROOT / "results" / "dryrun_torch")
     launches.update(tiled)
 

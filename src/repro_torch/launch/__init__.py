@@ -4,3 +4,4 @@ FLOPs and bytes per step), and the sharded and dry-run parts: ``mesh``,
 ``shardings`` (the placement rules), ``pipeline`` (GPipe over the pod
 axis), ``plan`` (the partitioner on a cell), ``hlo_analysis`` and
 ``dryrun``."""
+from .mesh import make_production_mesh

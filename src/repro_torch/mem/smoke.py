@@ -14,12 +14,15 @@ memory path — and checks:
 Writes the per-bank utilization JSON::
 
     PYTHONPATH=src python -m repro_torch.mem.smoke [--app axpy] [--ndev 4] \
-        [--device cpu] [--out results/...json]
+        [--device cpu] [--out results/...json] \
+        [--trace results/mem_trace_torch.json]
 
 The app runs at its binder's default spec (16 rows of 128 lanes).
 
 It runs on the CUDA card (the hand-written kernels) unless ``--device cpu``
-asks for the kernels' plain versions.
+asks for the kernels' plain versions.  ``--trace`` records the
+bank-modelled run (not the ideal one) with a
+:class:`~repro_torch.obs.trace.Tracer` and writes its Chrome trace.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     ap.add_argument("--out", default="results/mem_smoke_torch.json")
+    ap.add_argument("--trace", default=None,
+                    help="write the bank-modeled run's Chrome trace here")
     args = ap.parse_args(argv)
 
     import torch
@@ -46,6 +51,7 @@ def main(argv=None) -> int:
     from ..core import fpga_ring_cluster
     from ..exec import bind_programs, execute
     from ..exec.programs import resolve_device
+    from ..obs.trace import Tracer, write_chrome_trace
     from .banks import MemConfig
 
     app, ndev = args.app, args.ndev
@@ -62,7 +68,8 @@ def main(argv=None) -> int:
         passes=("normalize_units", "partition", "memory_feedback",
                 "pipeline_interconnect", "schedule")))
     binding = bind_programs(graph, device=device)
-    result = execute(design, binding, device=device)
+    tracer = Tracer() if args.trace else None
+    result = execute(design, binding, device=device, tracer=tracer)
     ideal = execute(design, bind_programs(graph, device=device),
                     device=device, mem=None)
 
@@ -88,6 +95,11 @@ def main(argv=None) -> int:
           f"(max measured util {mem.max_utilization:.3f}, "
           f"mem waits {sum(report.task_mem_waits.values())}, "
           f"sweeps {report.sweeps} vs ideal {ideal.report.sweeps})")
+
+    if tracer is not None:
+        doc = write_chrome_trace(tracer, args.trace)
+        print(f"wrote Chrome trace ({len(doc['traceEvents'])} events) "
+              f"to {args.trace}")
 
     record = {
         "app": app,

@@ -13,11 +13,13 @@ twice — through the fabric and on the ideal transfer path — and checks:
 Writes the per-link utilization JSON::
 
     PYTHONPATH=src python -m repro_torch.net.smoke [--app stencil] \
-        [--rows 2 --cols 2] [--device cpu] [--out results/...json]
+        [--rows 2 --cols 2] [--device cpu] [--out results/...json] \
+        [--trace results/net_trace_torch.json]
 
 The app runs at its binder's default spec.  It runs on the CUDA card (the
 hand-written kernels) unless ``--device cpu`` asks for the kernels' plain
-versions.
+versions.  ``--trace`` records the fabric run (not the ideal one) with a
+:class:`~repro_torch.obs.trace.Tracer` and writes its Chrome trace.
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; 'cpu' runs the "
                          "kernels' plain versions)")
     ap.add_argument("--out", default="results/net_smoke_torch.json")
+    ap.add_argument("--trace", default=None,
+                    help="write the fabric run's Chrome trace JSON here")
     args = ap.parse_args(argv)
 
     import torch
@@ -45,6 +49,7 @@ def main(argv=None) -> int:
     from ..core import ALVEO_U55C, Cluster, Mesh2D
     from ..exec import bind_programs, execute
     from ..exec.programs import resolve_device
+    from ..obs.trace import Tracer, write_chrome_trace
     from . import cluster_fabric
 
     ndev = args.rows * args.cols
@@ -58,7 +63,8 @@ def main(argv=None) -> int:
         passes=("normalize_units", "partition", "congestion_feedback",
                 "pipeline_interconnect", "schedule")))
     binding = bind_programs(graph, device=device)
-    result = execute(design, binding, device=device)
+    tracer = Tracer() if args.trace else None
+    result = execute(design, binding, device=device, tracer=tracer)
     ideal = execute(design, bind_programs(graph, device=device),
                     device=device, fabric=None)
 
@@ -85,6 +91,11 @@ def main(argv=None) -> int:
           f"hop-weighted {report.net_hop_weighted_bytes} "
           f"(max util {cong.max_utilization:.3f}, "
           f"sweeps {report.sweeps} vs ideal {ideal.report.sweeps})")
+
+    if tracer is not None:
+        doc = write_chrome_trace(tracer, args.trace)
+        print(f"wrote Chrome trace ({len(doc['traceEvents'])} events) "
+              f"to {args.trace}")
 
     out = args.out
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)

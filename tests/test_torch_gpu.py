@@ -8,13 +8,16 @@ head dims on the tensor cores in bf16 and the CUDA cores in fp32) against
 its cached decode, and training: the flash op's gradient (kernel forward,
 ``backward.py``) at each tensor-core instance, RG-LRU's scan under
 autograd, and a train step on the card against the CPU's (the recurrent
-archs too).
+archs too); the CI's exec, fabric and bank smoke commands with ``--trace``
+on the card against ``--device cpu``.
 
 Every test here carries the ``gpu`` marker and skips without a CUDA card
 (decided in the fixture, never at import).  On a machine with one:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import importlib
+import json
 import math
 
 import numpy as np
@@ -752,6 +755,51 @@ def test_traced_fabric_run_on_cuda(cuda, app):
     cpu = execute(design, bind_programs(graph, device="cpu"), device="cpu")
     assert counters(run["result"].report) == counters(cpu.report)
     assert run["result"].report.metrics.total("exec.device.fired") > 0
+
+
+# The CI's smoke commands: (module, arguments, the kernel they launch).
+CI_SMOKES = {
+    "exec": ("repro_torch.exec.smoke", ["--app", "stencil", "--ndev", "4"],
+             "dilate"),
+    "net": ("repro_torch.net.smoke",
+            ["--app", "stencil", "--rows", "2", "--cols", "2"], "dilate"),
+    "mem": ("repro_torch.mem.smoke", ["--app", "axpy", "--ndev", "4"],
+            "axpy"),
+}
+
+
+def _smoke_files(d):
+    """(record, trace) a smoke wrote into ``d``, with the wall-clock
+    fields removed: ``device``, each firing's ``busy_s``, and the exec
+    report's wall and busy times."""
+    record = json.loads((d / "record.json").read_text())
+    record.pop("device")
+    report = record.get("report", {})
+    for key in ("wall_time_s", "device_busy_s"):
+        report.pop(key, None)
+    report.get("schedule", {}).pop("measured_wall_s", None)
+    trace = json.loads((d / "trace.json").read_text())
+    for ev in trace["traceEvents"]:
+        ev.get("args", {}).pop("busy_s", None)
+    return record, trace
+
+
+@pytest.mark.parametrize("name", sorted(CI_SMOKES))
+def test_ci_smoke_on_cuda_matches_cpu(cuda, name, tmp_path):
+    """Each smoke's main with --trace and no --device launches its kernel
+    on the card and writes the --device cpu run's trace and record."""
+    module, argv, kernel = CI_SMOKES[name]
+    main = importlib.import_module(module).main
+    runs = {}
+    for label, dev_args in (("cuda", []), ("cpu", ["--device", "cpu"])):
+        d = tmp_path / label
+        reset_launch_counts()
+        assert main([*argv, *dev_args, "--out", str(d / "record.json"),
+                     "--trace", str(d / "trace.json")]) == 0
+        launches = launch_counts()[kernel]
+        assert (launches > 0) == (label == "cuda"), (label, launches)
+        runs[label] = _smoke_files(d)
+    assert runs["cuda"] == runs["cpu"]
 
 
 # -- the MoE FFN --------------------------------------------------------------

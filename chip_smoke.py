@@ -10,11 +10,14 @@ Phases (any failure exits non-zero before the final line):
    build (a spill in the tensor-core flash kernel's (192, 128) or
    (256, 256) instance is a failure; the CUDA-core kernel's two
    (256, 256) instances, fp32 and bf16, are printed on a line of their
-   own, and the (64, 64) kernel's two instances, two and three consumer
-   warpgroups, on another); counts the ``HGMMA`` instructions that
+   own, the (64, 64) kernel's two instances, two and three consumer
+   warpgroups, on another, and the (128, 128) kernel's on a third, with
+   its ptxas notes: a spill there fails, and so does C7520, C7514 or
+   C7515, ptxas serializing its wgmma); counts the ``HGMMA`` instructions that
    ``cuobjdump -sass`` finds in each of the five tensor-core flash
-   attention instances, three of ``flash_sm90_kernel`` and two of
-   ``flash_sm90_d64_kernel`` (none is a failure).
+   attention instances, two of ``flash_sm90_kernel`` ((192, 128) and
+   (256, 256)), two of ``flash_sm90_d64_kernel`` and
+   ``flash_sm90_d128_kernel`` (none is a failure).
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main path gives it (dilate bit for bit,
    NaN where both are NaN, on the main-path image, on an image with NaN,
@@ -309,7 +312,11 @@ version.  Three planted faults at the main shape (the last query block's
 rows without their first or their diagonal key tile, at the instance's
 key tile: 128 keys, 64 at (256, 256); and the last query tile's rows
 never written, at the instance's query tile: 128 rows, and at head dim
-64 192 past Sq = 512) must fail the row check.  The
+64 192 past Sq = 512; at head dims 64 and 128, whose kernels are
+persistent, some of those tiles come after every block's first in their
+work order) must fail the row check.  The row, like
+``flash_attention_g7``, prints its TFLOP/s beside the time the (128, 128)
+instance had before its redesign (``FLASH_EARLIER_MS``).  The
 same cases in fp32 at d = 32, 64 and 128 go to the CUDA cores (within
 2e-5).  It also times the CUDA-core kernel and a non-causal call at the
 main shape.  Its yardstick is ``F.scaled_dot_product_attention``
@@ -343,8 +350,8 @@ tenth of the CUDA cores' time at MLA's shape.  Its bound counts 2·(d + dv)
 operations a visible pair at the bf16 tensor-core rate, its yardstick is
 ``F.scaled_dot_product_attention(is_causal=True)``, timed with CUDA
 events around 10 back-to-back calls.  After the build, ``ptxas``
-registers and spills of each flash_kernel, flash_sm90_kernel and
-flash_sm90_d64_kernel instance are printed.
+registers and spills of each flash_kernel, flash_sm90_kernel,
+flash_sm90_d64_kernel and flash_sm90_d128_kernel instance are printed.
 
 The ``flash_attention_g7`` row (llava-next-34b's q [4, 56, 2048, 128]
 on k, v [4, 8, 2048, 128], causal) and the ``flash_attention_seamless``
@@ -516,6 +523,10 @@ MLA_HEADS, MLA_D, MLA_DV = 128, 192, 128
 # decoder's [4, 16, 2048, 64], and cross attention's 2048 queries on 512
 # keys (the encoder's frames: seq // 4).
 G7_HEADS, G7_KV_HEADS = 56, 8
+# The (128, 128) instance's ms at rows 7 and 7d before its redesign as a
+# persistent kernel (flash_sm90_kernel's; NVIDIA H100 80GB HBM3, 700.00 W,
+# this script's kernel phase).
+FLASH_EARLIER_MS = {"flash_attention": 0.3457, "flash_attention_g7": 0.5893}
 SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES = 16, 64, PREFILL_LEN // 4
 # The flash feature cases run in fp32 at these head dims (the CUDA cores)
 # and in bf16 at the tensor cores' two.
@@ -780,6 +791,22 @@ def ptxas_report(log: str, match: str) -> dict:
     return out
 
 
+def ptxas_notes(log: str, match: str) -> dict:
+    """The ptxas info codes (``C7519``, ``C7520``, ...) of each kernel
+    whose mangled name holds ``match``, from a build log, with their
+    counts.  C7520 (and C7514, C7515) say that ptxas serialized every
+    wgmma of the kernel."""
+    out = {}
+    for line in log.splitlines():
+        if "ptxas info" in line and "(C" in line and "function '" in line:
+            name = line.split("function '")[1].split("'")[0]
+            if match in name:
+                code = line.split("(C")[1].split(")")[0]
+                counts = out.setdefault(name, {})
+                counts[f"C{code}"] = counts.get(f"C{code}", 0) + 1
+    return out
+
+
 def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -987,6 +1014,12 @@ def kernel_phase(dev) -> dict:
     new = flash_new_arch_rows(dev, gen)
     new["flash_attention_g7"]["rows_s"] = time.perf_counter() - t0
     rows.update(new)
+    for name, earlier in FLASH_EARLIER_MS.items():
+        print(f"[kernel] {name}: {rows[name]['ms']:.5f} ms, "
+              f"{rows[name]['tflops']:.1f} TFLOP/s (the (128, 128) "
+              f"instance before its redesign: {earlier} ms), SDPA "
+              f"{rows[name]['library_ms']:.5f} ms, bound "
+              f"{rows[name]['bound_ms']:.5f} ms", flush=True)
     rows.update(matmul_tiled_rows(dev))
     rows["matmul_tiled_edges"] = matmul_tiled_edges(dev)
     for name, row in rows.items():
@@ -1180,7 +1213,8 @@ def planted_faults(label, q, k, v, got, want, causal=True) -> dict:
     beside it."""
     from repro_torch.kernels.flash_attention import cases
     from repro_torch.kernels.flash_attention.kernel import (tc_key_tile,
-                                                            tc_query_tile)
+                                                            tc_query_tile,
+                                                            tc_work_tile)
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     Sq, Sk, T = q.shape[2], k.shape[2], tc_key_tile(q.shape[3])
@@ -1217,6 +1251,20 @@ def planted_faults(label, q, k, v, got, want, causal=True) -> dict:
             f"{label}: the row gate passes the planted fault "
             f"skips_last_query_tile ({planted['skips_last_query_tile']})")
     del bad
+    if q.shape[3] in (64, 128):
+        # The persistent kernels: block i takes work tile i first, so the
+        # fault must cover tiles past the grid, which a block takes after
+        # its first.
+        pairs, n_q = q.shape[0] * q.shape[1], -(-Sq // R)
+        grid = min(pairs * n_q, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        ws = [w for w in range(pairs * n_q)
+              if tc_work_tile(w, pairs, n_q)[1] == n_q - 1]
+        planted["skips_last_query_tile"].update(
+            work_tiles=[ws[0], ws[-1]], grid=grid)
+        require(ws[-1] >= grid, f"{label}: the last query tiles are work "
+                f"tiles {ws[0]}..{ws[-1]}, every one a block's first "
+                f"(grid {grid})")
     return planted
 
 
@@ -1291,7 +1339,9 @@ def flash_kernel_row(dev, gen) -> dict:
                 atol=cases.ATOL, rtol=cases.RTOL,
                 row_rel_limit=cases.ROW_REL_LIMIT, planted_faults=planted,
                 bf16_cases=bf16_cases, fp32_max_abs_err=fp32_cases, ms=ms,
-                tflops=ops / ms / 1e9, cuda_core_ms=cuda_core_ms,
+                tflops=ops / ms / 1e9,
+                earlier_ms=FLASH_EARLIER_MS["flash_attention"],
+                cuda_core_ms=cuda_core_ms,
                 noncausal_ms=noncausal_ms,
                 noncausal_tflops=4 * B * H * d * S * S / noncausal_ms / 1e9,
                 plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib,
@@ -1553,6 +1603,8 @@ def flash_new_arch_rows(dev, gen) -> dict:
     rows = {"flash_attention_g7": flash_use_row(
         "llava-next-34b shape (G = 7)", dev, gen, B, G7_HEADS, G7_KV_HEADS,
         S, S, 128, True)}
+    rows["flash_attention_g7"]["earlier_ms"] = FLASH_EARLIER_MS[
+        "flash_attention_g7"]
     H, d, E = SEAMLESS_HEADS, SEAMLESS_D, SEAMLESS_FRAMES
     uses = {}
     for use, (Sq, Sk, causal) in {"encoder": (E, E, False),
@@ -3932,16 +3984,33 @@ def main() -> int:
         require(len(D64_PTXAS) == 2, f"ptxas: {len(D64_PTXAS)} "
                 f"flash_sm90_d64_kernel instances, not 2 (two and three "
                 f"consumer warpgroups)")
+        d128 = ptxas_report(info.log, "flash_sm90_d128_kernel")
+        notes = ptxas_notes(info.log, "flash_sm90")
+        print(f"ptxas: flash_sm90_d128_kernel {json.dumps(d128)}; ptxas "
+              f"notes of the tensor-core flash kernels {json.dumps(notes)}",
+              flush=True)
+        require(len(d128) == 1
+                and all(r.get("spill_store_bytes") == 0
+                        and r.get("spill_load_bytes") == 0
+                        for r in d128.values()),
+                f"ptxas: flash_sm90_d128_kernel spills or is missing: {d128}")
+        serialized = {n: c for n, c in notes.items() if "d128" in n
+                      and any(k in c for k in ("C7514", "C7515", "C7520"))}
+        require(not serialized, f"ptxas serializes the wgmma of "
+                f"flash_sm90_d128_kernel (C7520, C7514 or C7515): "
+                f"{serialized}")
     build.library()
     hgmma = hgmma_counts(info.path)
     print(f"sass: HGMMA instructions per kernel {json.dumps(hgmma)}",
           flush=True)
     tc_kernels = [n for n in hgmma
-                  if "flash_sm90_kernel" in n or "flash_sm90_d64_kernel" in n]
+                  if any(k in n for k in ("flash_sm90_kernel",
+                                          "flash_sm90_d64_kernel",
+                                          "flash_sm90_d128_kernel"))]
     require(len(tc_kernels) == 5 and all(hgmma[n] > 0 for n in tc_kernels),
             f"cuobjdump finds HGMMA in {len(tc_kernels)} tensor-core flash "
-            f"kernels, not 5 (three flash_sm90_kernel instances, two "
-            f"flash_sm90_d64_kernel)")
+            f"kernels, not 5 (two flash_sm90_kernel instances, two "
+            f"flash_sm90_d64_kernel, flash_sm90_d128_kernel)")
 
     return card_phases(dev)
 

@@ -5,9 +5,10 @@
 // v [B, H, S, DV] views with (DQK, DV) in {(64, 64), (128, 128),
 // (192, 128), (256, 256)}: (192, 128) is DeepSeek's MLA prefill (128 nope
 // + 64 rope dims for q and k, 128 for v), (256, 256) recurrentgemma's local
-// attention, (64, 64) seamless-m4t-large-v2's.  Two kernels:
-// flash_sm90_kernel for the last three pairs, flash_sm90_d64_kernel (its
-// own design, below) for (64, 64).
+// attention, (64, 64) seamless-m4t-large-v2's.  Three kernels:
+// flash_sm90_kernel for the last two pairs, flash_sm90_d64_kernel for
+// (64, 64) and flash_sm90_d128_kernel for (128, 128) (each its own design,
+// below).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py, `flash_attention`
 // (`_flash_kernel`), the TPU kernel whose innermost, sequential grid axis
@@ -29,14 +30,14 @@
 // encoder's 512 on 512 4.3e9 operations on 16.8 MB, 0.0050 ms for the
 // bytes.
 //
-// flash_sm90_kernel.  A block owns 128 query rows of one (batch, head) and
-// walks the visible keys in tiles of BN (the loop bounds skip the fully
-// masked tiles, the TPU kernel's `run`): 128 keys, and 64 at (256, 256),
-// where two stages of 128-key K and V tiles (256 KB) would not fit beside
-// Q.  The grid takes the (batch, head) pairs in groups of eight, each
-// group's heaviest causal blocks (the last rows) first, so the blocks in
-// flight read the K and V of a few heads, which stay in L2 (see the
-// kernel).
+// flash_sm90_kernel, the (192, 128) and (256, 256) instances.  A block
+// owns 128 query rows of one (batch, head) and walks the visible keys in
+// tiles of BN (the loop bounds skip the fully masked tiles, the TPU
+// kernel's `run`): 128 keys, and 64 at (256, 256), where two stages of
+// 128-key K and V tiles (256 KB) would not fit beside Q.  The grid takes
+// the (batch, head) pairs in groups of eight, each group's heaviest causal
+// blocks (the last rows) first, so the blocks in flight read the K and V
+// of a few heads, which stay in L2 (see the kernel).
 // - Producer warpgroup (setmaxnreg down to 24 registers): one thread loads
 //   the Q tile once, and K and V tiles into two rings of two stages by TMA,
 //   each stage guarded by a "full" and an "empty" mbarrier (a K stage is
@@ -68,14 +69,13 @@
 //   runs beside the other's products.  The output is acc / l (l == 0
 //   divides by 1), rounded to bf16 and stored from registers in q's
 //   layout.
-// Shared memory at (128, 128): Q 32 KB, two stages of K and V 128 KB; at
-// (192, 128): Q 48 KB, two stages of K (48 KB) and V (32 KB) 160 KB, 209 KB
-// with the barriers and the alignment slack; at (256, 256) with 64-key
-// tiles: Q 64 KB, two stages of K and V (32 KB each) 128 KB, 193 KB; each
-// under the 227 KB a block may take (a third stage would not fit at the
-// last two).  One block per SM.  A consumer's registers: S BN / 2 and O
-// DV / 2, so 64 + 64 at the first two and 32 + 128 at (256, 256), beside
-// P's BN / 4.
+// Shared memory at (192, 128): Q 48 KB, two stages of K (48 KB) and V
+// (32 KB) 160 KB, 209 KB with the barriers and the alignment slack; at
+// (256, 256) with 64-key tiles: Q 64 KB, two stages of K and V (32 KB
+// each) 128 KB, 193 KB; each under the 227 KB a block may take (a third
+// stage would not fit).  One block per SM.  A consumer's registers: S
+// BN / 2 and O DV / 2, so 64 + 64 at (192, 128) and 32 + 128 at
+// (256, 256), beside P's BN / 4.
 // What is left between it and the bound: inside a warpgroup the softmax
 // still waits for both products (running it while the warpgroup's own P V
 // is in flight, that P V a group of its own, measured slower on the card),
@@ -85,6 +85,56 @@
 // memory at (192, 128) and (256, 256), so a third has no room.  At
 // (256, 256), 80-key tiles (224 KB) and one m64n256k16 for P V measured
 // within 2% of this design on the card.
+//
+// flash_sm90_d128_kernel, the (128, 128) instance (qwen3-4b, chatglm3-6b,
+// mistral-nemo-12b, gemma2-27b and llava-next-34b: 210 of the serve path's
+// prefill launches).  flash_sm90_kernel's design, one block per (batch,
+// head, 128-row query tile), left each block's barrier set-up, Q load and
+// first K wait in front of its first product and its output stores behind
+// its last, on an SM that no other block shares (about 160 KB of shared
+// memory); a causal block walks 8.5 key tiles on average, so those fixed
+// costs weighed on every block.  So:
+// - Persistent: one block per SM (the SM count read at launch) walks the
+//   work tiles (a 128-row query tile of one (batch, head)) in
+//   work_tile's order, as flash_sm90_d64_kernel does: causal, the next
+//   free one from a counter in device memory that the call zeroes (the
+//   tiles differ in length), otherwise every gridDim-th.  The producer
+//   writes a tile's index beside its Q buffer; two Q buffers let it load
+//   the next tile's Q and first K and V while the consumers finish the
+//   current one.
+// - The turns (flash_sm90_kernel's: a turn issues the pending key tile's
+//   P V and the next one's Q K^T as one group) go on across work tiles,
+//   and a tile's output leaves by TMA: after its last P V each warpgroup
+//   writes its 64 rows, O / l in bf16, into shared memory in the 128-byte
+//   swizzle and one thread issues two TMA stores (cp.async.bulk.tensor)
+//   through a tensor map over the output; they run beside the next turns
+//   and are waited for only before the staging is written again, a work
+//   tile later.  Rows past Sq lie outside the map and are not written.
+// - The last key tile of a causal work tile, which only the diagonal cuts,
+//   is masked by one comparison an element (d128_scores); the other
+//   masked tiles take tile_scores.  The softmax is tile_softmax, the
+//   (64, 64) kernel's.
+// - Branches around wgmma hang on values broadcast from lane 0, one thread
+//   a warp arrives on each barrier (as in flash_sm90_d64_kernel).
+// Shared memory: Q 2 x 32 KB, two stages of K and V 128 KB, O's staging
+// 32 KB: 225 KB with the barriers and the slack.  Registers: producer 24,
+// consumers 240 (S 64, O 64, P 32).
+// At the prefill step's shape it takes 0.2771 ms (flash_sm90_kernel's
+// instance 0.3498), at llava's G = 7 0.5039 (0.6526), against 0.139 and
+// 0.243 ms at the tensor-core rate (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/torch_flash_ab.py --reps 20, the means of two runs each).
+// What is left: one warpgroup's softmax, which runs while the other's
+// products do, takes longer than those products.  At the non-causal main
+// shape a copy without the softmax takes 0.364 ms and one without the
+// products 0.375, the kernel 0.50: with one warp of a warpgroup on each
+// SM sub-partition the softmax is bound by its own latency.  gemma2's
+// softcap (tanhf on every score) makes its softmax alone 0.87 ms.
+// Tried and slower on the card: FlashAttention-3's order inside a
+// warpgroup (its Q K^T and P V as two groups, the softmax of the one
+// beside the other; six arrangements), which ptxas serialized every time
+// (C7514, C7515 or C7517 in its build log), 18-26% slower; taking the
+// next work tile from the counter one tile ahead, 7% slower (blocks claim
+// tiles while still busy).
 //
 // flash_sm90_d64_kernel, the (64, 64) instance.  At head dim 64 a 64 x 128
 // tile of scores costs the tensor cores half of what it costs at 128, but
@@ -274,6 +324,37 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
         "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// One TMA box out of shared memory at `src` into the map's box at (c0, c1,
+// c2, c3), in the issuing thread's bulk group; parts of the box outside
+// the map's dims are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+        "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until the thread's TMA stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Until the thread's TMA stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Named barrier `id` (1 ..) over the 128 threads of a warpgroup.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 // wgmma shared-memory descriptor for a 128-byte swizzled operand: start
@@ -820,10 +901,11 @@ struct D64Layout {
   static_assert(kBytes <= 232448, "over the 227 KB a block may take");
 };
 
-// One work tile: kRows query rows from q0 of (batch, head) pair bh =
-// b H + h, and the 128-key tiles t_begin .. t_begin + n_tiles - 1 that
-// those rows see (the loop bounds of the generic kernel's blocks).
-struct D64Tile {
+// One work tile of the persistent kernels ((64, 64) and (128, 128)): kRows
+// query rows from q0 of (batch, head) pair bh = b H + h, and the 128-key
+// tiles t_begin .. t_begin + n_tiles - 1 that those rows see (the loop
+// bounds of the generic kernel's blocks).
+struct WorkTile {
   int bh, q0, t_begin, n_tiles;
 };
 
@@ -831,12 +913,13 @@ struct D64Tile {
 // grid's order: the pairs in groups of kHeadGroup, each group's query
 // tiles heaviest first (the last rows), each over the group's pairs.
 template <int kRows>
-__device__ __forceinline__ D64Tile d64_tile(const Params& p, int w, int n_q) {
+__device__ __forceinline__ WorkTile work_tile(const Params& p, int w,
+                                              int n_q) {
   const int per_group = kHeadGroup * n_q;
   const int group = w / per_group;
   const int in_group = w - group * per_group;
   const int group_size = min(kHeadGroup, p.BH - group * kHeadGroup);
-  D64Tile t;
+  WorkTile t;
   t.bh = group * kHeadGroup + in_group % group_size;
   t.q0 = (n_q - 1 - in_group / group_size) * kRows;
   const int delta = p.Sk - p.Sq;
@@ -895,11 +978,11 @@ __device__ __forceinline__ void row_reduce(const float* x, float& r_a,
 
 // Scores of warpgroup wg's 64 x 128 tile from key k0 of the work tile
 // from row q0, in place: scaled, capped and masked where that is needed
-// (returns 1), otherwise left raw (returns the scale, which d64_softmax
+// (returns 1), otherwise left raw (returns the scale, which tile_softmax
 // folds into the exponent).
-__device__ __forceinline__ float d64_scores(float* sc, const Params& p,
-                                            int q0, int wg, int row_in,
-                                            int col, int k0) {
+__device__ __forceinline__ float tile_scores(float* sc, const Params& p,
+                                             int q0, int wg, int row_in,
+                                             int col, int k0) {
   const int r0 = q0 + 64 * wg;
   const int delta = p.Sk - p.Sq;
   const bool mask = k0 + 128 > p.Sk || (p.causal && k0 + 127 > r0 + delta) ||
@@ -924,14 +1007,15 @@ __device__ __forceinline__ float d64_scores(float* sc, const Params& p,
 // (the scale then rides in the exponent's fma).  Updates the running max
 // m, leaves P, rounded to bf16, in pa, and rescales O by alpha =
 // 2^(m_old - m_new), but not when no row of the warp has a new max (every
-// alpha 1, the product exact).  kOnes: the row sums l of P are O's
-// columns 64 .. (o[32 ..], rescaled with it); otherwise l is the thread's
-// share of them, summed here from the unrounded p.
-template <bool kOnes>
-__device__ __forceinline__ void d64_softmax(float* sc, float mul, float& m_a,
-                                            float& m_b, float& l_a,
-                                            float& l_b, float* o,
-                                            uint32_t (*pa)[4]) {
+// alpha 1, the product exact).  O is kO fragments: 32 at head dim 64, 64
+// at 128.  kOnes (head dim 64): the row sums l of P are O's columns 64 ..
+// (o[32 ..], kO 36, rescaled with it); otherwise l is the thread's share
+// of them, summed here from the unrounded p.
+template <bool kOnes, int kO>
+__device__ __forceinline__ void tile_softmax(float* sc, float mul, float& m_a,
+                                             float& m_b, float& l_a,
+                                             float& l_b, float* o,
+                                             uint32_t (*pa)[4]) {
   float mx_a, mx_b;
   row_reduce<true>(sc, mx_a, mx_b);
   const float mn_a = fmaxf(m_a, quad_max(mx_a) * mul);
@@ -959,7 +1043,7 @@ __device__ __forceinline__ void d64_softmax(float* sc, float mul, float& m_a,
   }
   if (__any_sync(0xffffffffu, alpha_a != 1.f || alpha_b != 1.f)) {
 #pragma unroll
-    for (int j = 0; j < (kOnes ? 36 : 32); ++j) {
+    for (int j = 0; j < kO; ++j) {
       o[j] *= (j & 2) ? alpha_b : alpha_a;
     }
   }
@@ -998,7 +1082,7 @@ __device__ __forceinline__ void d64_store(const Params& p, int bh, int row_a,
 
 // The (64, 64) kernel: persistent, one block per SM, kWGs consumer
 // warpgroups of 64 query rows and a producer warpgroup.  The blocks take
-// the work tiles in d64_tile's order: block i tile i first, then, when
+// the work tiles in work_tile's order: block i tile i first, then, when
 // next_tile is null, every gridDim.x-th after it; otherwise the next one
 // that nobody has taken (next_tile counts those past the first gridDim.x,
 // from 0 at the launch): the causal tiles differ in length.  The producer
@@ -1077,7 +1161,7 @@ __global__ void __launch_bounds__((kWGs + 1) * 128, 1)
           mbar_arrive(q_full);
           break;
         }
-        const D64Tile t = d64_tile<kRows>(p, w, n_q);
+        const WorkTile t = work_tile<kRows>(p, w, n_q);
         const int b = t.bh / p.H;
         const int h = t.bh - b * p.H;
         const int kvh = h / p.G;
@@ -1135,7 +1219,7 @@ __global__ void __launch_bounds__((kWGs + 1) * 128, 1)
     int n = 0;       // work tiles taken (the Q buffers' count)
     int k0 = 0;      // first key of cur's next key tile
     int left = 0;    // cur's key tiles from that one on
-    D64Tile cur;
+    WorkTile cur;
     // have: a key tile of cur is next; need: take a work tile first.  The
     // pending P V: whether there is one, whether this warpgroup issues it,
     // whether it closes a work tile (whose bh and q0 are out_*).
@@ -1151,7 +1235,7 @@ __global__ void __launch_bounds__((kWGs + 1) * 128, 1)
         const int w = __shfl_sync(0xffffffffu, ld_shared(slot0 + 4 * qb), 0);
         need = false;
         if (w >= n_work) break;
-        cur = d64_tile<kRows>(p, w, n_q);
+        cur = work_tile<kRows>(p, w, n_q);
         k0 = cur.t_begin * 128;
         left = cur.n_tiles;
         have = left > 0;
@@ -1232,8 +1316,8 @@ __global__ void __launch_bounds__((kWGs + 1) * 128, 1)
       for (int i = 0; i < 64; ++i) fence_reg(sc[i]);
       if (closes && leader) mbar_arrive(q_empty0 + 8 * qb);
       if (active) {
-        const float mul = d64_scores(sc, p, cur.q0, wg, row_in, col, k0);
-        d64_softmax<kOnes>(sc, mul, m_a, m_b, l_a, l_b, o, pa);
+        const float mul = tile_scores(sc, p, cur.q0, wg, row_in, col, k0);
+        tile_softmax<kOnes, kO>(sc, mul, m_a, m_b, l_a, l_b, o, pa);
       }
       pend = true;
       pend_active = active;
@@ -1253,17 +1337,13 @@ __global__ void __launch_bounds__((kWGs + 1) * 128, 1)
   }
 }
 
-template <int kWGs>
-cudaError_t launch_d64(const Params& p, int* next_tile, cudaStream_t stream) {
-  using L = D64Layout<kWGs>;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_sm90_d64_kernel<kWGs>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-    if (e != cudaSuccess) return e;
-    configured = true;
-  }
+// The grid of a persistent kernel over work tiles of `rows` query rows:
+// one block per SM (the count read here), or per tile where there are
+// fewer.  A causal call takes its tiles from next_tile, zeroed here on
+// the stream; the others take them in a fixed order, and next_tile
+// becomes null.
+cudaError_t persistent_grid(const Params& p, int rows, int*& next_tile,
+                            cudaStream_t stream, dim3* grid) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
@@ -1279,10 +1359,409 @@ cudaError_t launch_d64(const Params& p, int* next_tile, cudaStream_t stream) {
     e = cudaMemsetAsync(next_tile, 0, sizeof(int), stream);
     if (e != cudaSuccess) return e;
   }
-  const int n_work = p.BH * ((p.Sq + L::kRows - 1) / L::kRows);
-  const dim3 grid(n_work < sms ? n_work : sms);
+  const int n_work = p.BH * ((p.Sq + rows - 1) / rows);
+  *grid = dim3(n_work < sms ? n_work : sms);
+  return cudaSuccess;
+}
+
+template <int kWGs>
+cudaError_t launch_d64(const Params& p, int* next_tile, cudaStream_t stream) {
+  using L = D64Layout<kWGs>;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_sm90_d64_kernel<kWGs>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid;
+  const cudaError_t e = persistent_grid(p, L::kRows, next_tile, stream, &grid);
+  if (e != cudaSuccess) return e;
   flash_sm90_d64_kernel<kWGs>
       <<<grid, (kWGs + 1) * 128, L::kBytes, stream>>>(p, next_tile);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The (128, 128) instance: a kernel of its own (see the header).
+
+constexpr int kOutRows = 64;    // rows of O's TMA box: one warpgroup's
+
+// Shared memory of the (128, 128) kernel, from a 1024-byte aligned base:
+// two Q buffers of 128 rows (the next work tile's Q loads while the
+// current one's products run), kStages stages of a 128-key K tile and a
+// 128-key V tile, O's staging (each warpgroup's 64 rows as two [64][64]
+// chunks, which its TMA stores read), the barriers, then the work index of
+// each Q buffer.  Every tile is chunks of [rows][64 bf16] in the 128-byte
+// swizzle.
+struct D128Layout {
+  static constexpr int kQTile = 2 * kQChunkBytes;       // 32 KB
+  static constexpr int kKVChunk = 128 * 128;            // [128][64]
+  static constexpr int kKVTile = 2 * kKVChunk;          // 32 KB
+  static constexpr int kOChunk = kOutRows * 128;        // [64][64]
+  __host__ __device__ static constexpr int q(int buf) { return buf * kQTile; }
+  __host__ __device__ static constexpr int k(int s) {
+    return 2 * kQTile + 2 * s * kKVTile;
+  }
+  __host__ __device__ static constexpr int v(int s) { return k(s) + kKVTile; }
+  __host__ __device__ static constexpr int o(int wg) {
+    return k(kStages) + 2 * wg * kOChunk;
+  }
+  static constexpr int kBars = 2 * kQTile + 2 * kStages * kKVTile +
+                               4 * kOChunk;       // o(2)
+  // q_full[2], q_empty[2], full_k, full_v, empty_k, empty_v (kStages
+  // each), turn[2].
+  static constexpr int kBarriers = 4 + 4 * kStages + 2;
+  static constexpr int kSlots = kBars + 8 * kBarriers;
+  // Two work indices and 1024 bytes of alignment slack.
+  static constexpr int kBytes = kSlots + 8 + 1024;
+  static_assert(kBytes <= 232448, "over the 227 KB a block may take");
+};
+
+// A warpgroup's 64 rows of a work tile's output, from row row0 of (batch,
+// head) pair bh: O / l (l the sum of the quad's shares; l == 0 divides by
+// 1), rounded to bf16 and written into the warpgroup's staging at `stage`
+// in the 128-byte swizzle (conflict-free: a warp's 8 rows of a 16-byte
+// column group land in 8 different groups of banks), then stored by two
+// TMA stores, one a 64-column chunk, that the warpgroup's first thread
+// issues and nobody waits for here: the next call (a work tile later)
+// waits until they have read the staging.  Rows past Sq lie outside O's
+// tensor map and are not written.
+__device__ __forceinline__ void d128_store(const Params& p,
+                                           const CUtensorMap* to,
+                                           uint32_t stage, int wg, bool first,
+                                           int row_w, int col, const float* o,
+                                           float l_a, float l_b, int bh,
+                                           int row0) {
+  const float den_a = quad_sum(l_a);
+  const float den_b = quad_sum(l_b);
+  const float inv_a = 1.f / (den_a == 0.f ? 1.f : den_a);
+  const float inv_b = 1.f / (den_b == 0.f ? 1.f : den_b);
+  if (first) bulk_wait_read();
+  warpgroup_sync(1 + wg);
+  const uint32_t swz = (row_w & 7) << 4;
+  const uint32_t at_a = stage + row_w * 128 + 2 * col;
+  const uint32_t at_b = at_a + 8 * 128;
+#pragma unroll
+  for (int g = 0; g < 16; ++g) {
+    const uint32_t at = (g / 8) * D128Layout::kOChunk + (((g % 8) << 4) ^ swz);
+    st_shared(at_a + at, static_cast<int>(pack_bf16(o[4 * g] * inv_a,
+                                                    o[4 * g + 1] * inv_a)));
+    st_shared(at_b + at, static_cast<int>(pack_bf16(o[4 * g + 2] * inv_b,
+                                                    o[4 * g + 3] * inv_b)));
+  }
+  // The generic proxy's writes, before the async proxy's reads.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(1 + wg);
+  if (first) {
+    const int b = bh / p.H;
+    const int h = bh - b * p.H;
+    tma_store(to, stage, 0, row0, h, b);
+    tma_store(to, stage + D128Layout::kOChunk, kChunk, row0, h, b);
+    bulk_commit();
+  }
+}
+
+// Scores of warpgroup wg's 64 x 128 tile from key k0, as tile_scores
+// gives them, with a cheaper mask where only the causal diagonal cuts the
+// tile (no Sk tail, no window edge in it), as on each causal work tile's
+// last key tile: fragment j holds key k0 + 8 (j / 4) + col + (j & 1) of
+// row q0 + row_in (+ 8 when j & 2), which sees it while key <= row +
+// delta, so one comparison of a constant against the row's limit masks
+// it.
+__device__ __forceinline__ float d128_scores(float* sc, const Params& p,
+                                             int q0, int wg, int row_in,
+                                             int col, int k0) {
+  const int r0 = q0 + 64 * wg;
+  const int delta = p.Sk - p.Sq;
+  const bool diagonal_only =
+      p.causal && k0 + 127 > r0 + delta && k0 + 128 <= p.Sk &&
+      !(p.window > 0 && k0 <= r0 + 63 + delta - p.window);
+  if (!diagonal_only) return tile_scores(sc, p, q0, wg, row_in, col, k0);
+  const int lim = q0 + row_in + delta - k0 - col;
+  if (p.softcap) {
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const float x = p.cap_out * tanhf(sc[j] * p.cap_in);
+      sc[j] = 8 * (j / 4) + (j & 1) <= ((j & 2) ? lim + 8 : lim) ? x : kNegInf;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const float x = sc[j] * p.scale_log2;
+      sc[j] = 8 * (j / 4) + (j & 1) <= ((j & 2) ? lim + 8 : lim) ? x : kNegInf;
+    }
+  }
+  return 1.f;
+}
+
+// The (128, 128) kernel: persistent, one block per SM, two consumer
+// warpgroups of 64 query rows and a producer warpgroup, over work tiles of
+// 128 query rows in work_tile's order: block i takes tile i first, then,
+// when next_tile is null, every gridDim.x-th after it; otherwise the next
+// one that nobody has taken (next_tile counts those past the first
+// gridDim.x, from 0 at the launch): the causal tiles differ in length.  The
+// producer takes each tile, writes its index beside its Q buffer and loads
+// its Q and its K and V tiles into rings of their own (a K stage is free
+// once its Q K^T has retired, a V stage after its P V, a turn later); the
+// consumers read the index when the Q buffer fills (an index past the last
+// tile ends the block).  The two warpgroups take turns at the tensor cores
+// across work tiles: a turn issues the pending key tile's P V and the next
+// key tile's Q K^T (the next work tile's first after a tile's last) as one
+// group, hands the turn over and waits for both, so one warpgroup's softmax
+// runs beside the other's products; after a work tile's last P V the
+// warpgroup writes its output to shared memory, and the TMA store that
+// takes it to device memory runs beside the next turns.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_sm90_d128_kernel(const __grid_constant__ Params p,
+                           const __grid_constant__ CUtensorMap to,
+                           int* next_tile) {
+  using L = D128Layout;
+  constexpr int kConsumerWarps = kConsumers / 32;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t slot0 = base + L::kSlots;    // work index of Q buffer i
+  // Barriers: buffer or stage i of each at + 8 i; turn[wg] at turn0 + 8 wg.
+  const uint32_t q_full0 = base + L::kBars;
+  const uint32_t q_empty0 = q_full0 + 16;
+  const uint32_t full_k0 = q_empty0 + 16;
+  const uint32_t full_v0 = full_k0 + 8 * kStages;
+  const uint32_t empty_k0 = full_v0 + 8 * kStages;
+  const uint32_t empty_v0 = empty_k0 + 8 * kStages;
+  const uint32_t turn0 = empty_v0 + 8 * kStages;
+  const int n_q = (p.Sq + kBlockM - 1) / kBlockM;
+  const int n_work = p.BH * n_q;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(q_full0 + 8 * i, 1);
+      mbar_init(q_empty0 + 8 * i, kConsumerWarps);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k0 + 8 * s, 1);
+      mbar_init(full_v0 + 8 * s, 1);
+      mbar_init(empty_k0 + 8 * s, kConsumerWarps);
+      mbar_init(empty_v0 + 8 * s, kConsumerWarps);
+    }
+    mbar_init(turn0, 4);                     // a warpgroup's warps
+    mbar_init(turn0 + 8, 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      int it = 0;                  // key tiles loaded (the rings' count)
+      int w = blockIdx.x;
+      for (int n = 0;; ++n) {      // n: work tiles taken (the Q buffers')
+        const int qb = n & 1;
+        const uint32_t q_full = q_full0 + 8 * qb;
+        mbar_wait(q_empty0 + 8 * qb, ((n >> 1) & 1) ^ 1);
+        st_shared(slot0 + 4 * qb, w);
+        if (w >= n_work) {
+          mbar_arrive(q_full);
+          break;
+        }
+        const WorkTile t = work_tile<kBlockM>(p, w, n_q);
+        const int b = t.bh / p.H;
+        const int h = t.bh - b * p.H;
+        const int kvh = h / p.G;
+        if (t.n_tiles == 0) {
+          mbar_arrive(q_full);
+        } else {
+          // Every box counts its full bytes, the out-of-bounds fill too.
+          mbar_expect_tx(q_full, L::kQTile);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            tma_load(base + L::q(qb) + c * kQChunkBytes, &p.tq, q_full,
+                     c * kChunk, t.q0, h, b);
+          }
+        }
+        for (int i = 0; i < t.n_tiles; ++i, ++it) {
+          const int s = it % kStages;
+          const int free = ((it / kStages) & 1) ^ 1;
+          const int k0 = (t.t_begin + i) * 128;
+          mbar_wait(empty_k0 + 8 * s, free);
+          mbar_expect_tx(full_k0 + 8 * s, L::kKVTile);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            tma_load(base + L::k(s) + c * L::kKVChunk, &p.tk,
+                     full_k0 + 8 * s, c * kChunk, k0, kvh, b);
+          }
+          mbar_wait(empty_v0 + 8 * s, free);
+          mbar_expect_tx(full_v0 + 8 * s, L::kKVTile);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            tma_load(base + L::v(s) + c * L::kKVChunk, &p.tv,
+                     full_v0 + 8 * s, c * kChunk, k0, kvh, b);
+          }
+        }
+        w = next_tile != nullptr ? gridDim.x + atomicAdd(next_tile, 1)
+                                 : w + gridDim.x;
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    // Warpgroup wg owns a work tile's rows 64 wg .. 64 wg + 63; of the
+    // wgmma fragments, a thread holds rows row_w and row_w + 8 of them and,
+    // of each 8 columns, columns col and col + 1.  wg, and the work index
+    // read from shared memory, are broadcast from lane 0 so that the
+    // compiler sees one value a warp: the products' branches hang on them,
+    // and wgmma in a branch it takes for divergent is serialized.
+    const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+    const int row_w = 16 * ((threadIdx.x % 128) / 32) + (threadIdx.x % 32) / 4;
+    const int row_in = 64 * wg + row_w;
+    const int col = 2 * (threadIdx.x % 4);
+    // One thread a warp arrives on a barrier for the warp: after the
+    // warp's wgmma.wait_group, its share of the products has retired.
+    const bool leader = threadIdx.x % 32 == 0;
+    const bool first = threadIdx.x % 128 == 0;   // issues the TMA stores
+    const uint32_t my_turn = turn0 + 8 * wg;
+    const uint32_t other_turn = turn0 + 8 * (wg ^ 1);
+    const uint32_t stage_o = base + L::o(wg);
+    const float zeros[64] = {};
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m_a = kNegInf, m_b = kNegInf;   // running max, log2 domain
+    float l_a = 0.f, l_b = 0.f;           // the thread's share of the sum
+    // P of the pending key tile, as the A registers of its P V: fragments
+    // 8 kk .. 8 kk + 7 of the scores are those of keys 16 kk .. 16 kk + 15.
+    uint32_t pa[8][4];
+
+    int it = 0;      // key tiles taken (the rings' count)
+    int n = 0;       // work tiles taken (the Q buffers' count)
+    int k0 = 0;      // first key of cur's next key tile
+    int left = 0;    // cur's key tiles from that one on
+    WorkTile cur;
+    // have: a key tile of cur is next; need: take a work tile first.  The
+    // pending P V: whether there is one, whether it closes a work tile
+    // (whose bh and q0 are out_*).
+    bool have = false, need = true, pend = false, pend_closes = false;
+    int out_bh = 0, out_q0 = 0;
+    for (int turn = 0;; ++turn) {
+      // The next work tile that has key tiles (an empty one's rows are
+      // stored as zeros); none past the last.
+      while (need) {
+        const int qb = n & 1;
+        mbar_wait(q_full0 + 8 * qb, (n >> 1) & 1);
+        const int w = __shfl_sync(0xffffffffu, ld_shared(slot0 + 4 * qb), 0);
+        need = false;
+        if (w >= n_work) break;
+        cur = work_tile<kBlockM>(p, w, n_q);
+        k0 = cur.t_begin * 128;
+        left = cur.n_tiles;
+        have = left > 0;
+        if (have) break;
+        need = true;
+        if (leader) mbar_arrive(q_empty0 + 8 * qb);
+        ++n;
+        d128_store(p, &to, stage_o, wg, first, row_w, col, zeros, 0.f, 0.f,
+                   cur.bh, cur.q0 + 64 * wg);
+      }
+      if (!have && !pend) break;
+      // Warpgroup 1 opens warpgroup 0's first turn and does not hand over
+      // after its last, so every arrival on a turn barrier is waited for.
+      if (turn == 0 && wg == 1 && leader) mbar_arrive(turn0);
+      const int s = it % kStages;                      // this key tile's
+      const int sp = (it + kStages - 1) % kStages;     // the pending one's
+      const int qb = n & 1;
+      const bool closes = have && left == 1;
+      if (have) mbar_wait(full_k0 + 8 * s, (it / kStages) & 1);
+      if (pend) mbar_wait(full_v0 + 8 * sp, ((it - 1) / kStages) & 1);
+      mbar_wait(my_turn, turn & 1);
+
+      // O += P V of the pending key tile: 8 steps of 16 keys; V's rows
+      // advance 16 x 128 bytes a step, its two 64-wide chunks lie kKVChunk
+      // apart.  S = Q K^T of this one: 8 steps of 16 along d; a chunk's
+      // 128-byte rows advance 32 bytes a step, Q's chunks lie kQChunkBytes
+      // apart and K's kKVChunk.
+      float sc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_reg(o[i]);
+      wgmma_fence();
+      if (pend) {
+        const uint32_t v_tile = base + L::v(sp);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          wgmma_rs_n128(o, pa[kk],
+                        desc_sw128(v_tile + kk * 16 * 128, L::kKVChunk, 1024));
+        }
+      }
+      if (have) {
+        const uint32_t q_tile = base + L::q(qb) + wg * 64 * 128;
+        const uint32_t k_tile = base + L::k(s);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          static_assert(kQChunkBytes == L::kKVChunk, "one step for both");
+          const uint32_t step = (kk / 4) * L::kKVChunk + (kk % 4) * 32;
+          wgmma_ss_n128(sc, desc_sw128(q_tile + step, 16, 1024),
+                        desc_sw128(k_tile + step, 16, 1024), kk > 0);
+        }
+      }
+      wgmma_commit();
+      if ((have || wg == 0) && leader) mbar_arrive(other_turn);
+      wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_reg(o[i]);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fence_reg(pa[kk][e]);
+      }
+      if (pend && leader) mbar_arrive(empty_v0 + 8 * sp);
+      if (pend_closes) {
+        d128_store(p, &to, stage_o, wg, first, row_w, col, o, l_a, l_b,
+                   out_bh, out_q0 + 64 * wg);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[i] = 0.f;
+        m_a = m_b = kNegInf;
+        l_a = l_b = 0.f;
+      }
+      if (!have) break;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) fence_reg(sc[i]);
+      if (leader) mbar_arrive(empty_k0 + 8 * s);
+      if (closes && leader) mbar_arrive(q_empty0 + 8 * qb);
+      const float mul = d128_scores(sc, p, cur.q0, wg, row_in, col, k0);
+      tile_softmax<false, 64>(sc, mul, m_a, m_b, l_a, l_b, o, pa);
+      pend = true;
+      pend_closes = closes;
+      ++it;
+      if (closes) {
+        out_bh = cur.bh;
+        out_q0 = cur.q0;
+        ++n;
+        have = false;
+        need = true;
+      } else {
+        k0 += 128;
+        --left;
+      }
+    }
+    // The shared memory stays until the last stores have read it.
+    if (first) bulk_wait();
+  }
+}
+
+cudaError_t launch_d128(const Params& p, const CUtensorMap& to,
+                        int* next_tile, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_sm90_d128_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        D128Layout::kBytes);
+    if (e != cudaSuccess) return e;
+    configured = true;
+  }
+  dim3 grid;
+  const cudaError_t e = persistent_grid(p, kBlockM, next_tile, stream, &grid);
+  if (e != cudaSuccess) return e;
+  flash_sm90_d128_kernel<<<grid, kThreads, D128Layout::kBytes, stream>>>(
+      p, to, next_tile);
   return cudaGetLastError();
 }
 
@@ -1353,11 +1832,12 @@ int encode(CUtensorMap* map, const void* ptr, const long long* g, int rows) {
 
 // bf16 q [B,H,Sq,d], k [B,K,Sk,d] and v [B,K,Sk,dv], (d, dv) one of (64, 64),
 // (128, 128), (192, 128) and (256, 256), read through the tensor maps that
-// geom describes (11 values each for q, k, v in turn, see encode; q's box
-// query_tile(d, Sq) rows, k's and v's key_tile(d)); o [B,H,Sq,dv] written
-// through its element strides (batch, head, seq).  scratch: 4 bytes of
-// device memory that a causal call at (64, 64) counts its work tiles in
-// (the kernel zeroes them first), unused otherwise.
+// geom describes (11 values each for q, k, v and o in turn, see encode; q's
+// box query_tile(d, Sq) rows, k's and v's key_tile(d), o's kOutRows); o
+// [B,H,Sq,dv] written through its tensor map at (128, 128), through its
+// element strides (batch, head, seq) otherwise.  scratch: 4 bytes of
+// device memory that a causal call at (64, 64) or (128, 128) counts its
+// work tiles in (the kernel zeroes them first), unused otherwise.
 // Returns the cudaError_t of the launch (0 = cudaSuccess), or -r when
 // encoding a tensor map failed with CUresult r.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
@@ -1400,7 +1880,12 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
     return d64_rows(Sq) == 192 ? launch_d64<3>(p, next_tile, s)
                                : launch_d64<2>(p, next_tile, s);
   }
-  if (d == 128) return launch<128, 128>(p, B * H, Sq, s);
+  if (d == 128) {
+    CUtensorMap to;
+    err = encode(&to, o, geom + 33, kOutRows);
+    if (err != 0) return err;
+    return launch_d128(p, to, static_cast<int*>(scratch), s);
+  }
   if (d == 192) return launch<192, 128>(p, B * H, Sq, s);
   return launch<256, 256>(p, B * H, Sq, s);
 }

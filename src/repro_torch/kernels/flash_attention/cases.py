@@ -58,6 +58,19 @@ FEATURE_CASES = (
     ("window_softcap_three_wgs", (1, 2, 2, 600, 900),
      {"window": 100, "softcap": 30.0}),
     ("gqa_g2_three_wgs", (1, 4, 2, 700, 700), {}),
+    # The (128, 128) kernel's persistent grid (one block on each of the
+    # card's 132 SMs): more work tiles than twice the SMs, so that blocks
+    # take three or more tiles of different lengths, at G = 7 with a
+    # ragged Sq (294 tiles of 128 rows, each pair's last one row); the
+    # same with gemma2's softcap 50, a window and Sq < Sk; fewer work
+    # tiles than SMs (35); and a non-causal call past 132 tiles (140),
+    # Sq > Sk, Sk ending 8 into a key tile.
+    ("persistent_g7_ragged", (2, 49, 7, 257, 257), {}),
+    ("persistent_g7_window_softcap", (2, 49, 7, 300, 400),
+     {"window": 160, "softcap": 50.0}),
+    ("persistent_fewer_tiles_than_sms", (1, 7, 1, 640, 640), {}),
+    ("persistent_noncausal_140_tiles", (1, 28, 4, 600, 520),
+     {"causal": False}),
 )
 #: The cases of the (256, 256) instances (bf16 on the tensor cores' 64-key
 #: tiles, fp32 on the CUDA cores), run at d = dv = 256: recurrentgemma-9b's

@@ -41,6 +41,12 @@ TC_HEAD_DIMS = ((64, 64), (128, 128), (192, 128), (256, 256))
 #: span) by 128 rows of one head of one batch.  Q's boxes are
 #: :func:`tc_query_tile` rows, K's and V's :func:`tc_key_tile` rows.
 TC_BOX = (64, 128, 1, 1)
+#: Rows of the output's TMA box at (128, 128), whose kernel stores each
+#: consumer warpgroup's 64 rows by TMA (``kOutRows`` in the CUDA source).
+TC_OUT_ROWS = 64
+#: (batch, head) pairs a group of the tensor-core kernels' work order
+#: (``kHeadGroup`` in the CUDA source).
+TC_HEAD_GROUP = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -88,13 +94,37 @@ def tc_query_tile(d: int, sq: int) -> int:
     return 128 if sq <= 512 else 192
 
 
+def tc_tile_counter(d: int, causal: bool) -> bool:
+    """Whether a tensor-core call at q/k head dim ``d`` takes 4 bytes of
+    scratch for a work-tile counter: the persistent kernels ((64, 64) and
+    (128, 128)) hand causal work tiles, which differ in length, to the
+    next free block through it; their other calls, and the other
+    instances, need none."""
+    return causal and d in (64, 128)
+
+
+def tc_work_tile(w: int, pairs: int, n_q: int) -> Tuple[int, int]:
+    """(pair, query tile) of work tile ``w`` of the persistent kernels,
+    for ``pairs`` (batch, head) pairs of ``n_q`` query tiles each (the
+    order of ``work_tile`` in the CUDA source): the pairs in groups of
+    ``TC_HEAD_GROUP``, each group's query tiles heaviest first (the last
+    rows, which see the most keys under the causal mask), each over the
+    group's pairs.  A block takes tile ``w`` = its index first, and every
+    later tile only after one of those."""
+    group, in_group = divmod(w, TC_HEAD_GROUP * n_q)
+    size = min(TC_HEAD_GROUP, pairs - group * TC_HEAD_GROUP)
+    return (group * TC_HEAD_GROUP + in_group % size,
+            n_q - 1 - in_group // size)
+
+
 def tma_geometry(t: torch.Tensor, rows: int = TC_BOX[1]
                  ) -> Tuple[tuple, tuple, tuple]:
     """(dims, byte strides, box) of the tensor-core kernel's 4-D tensor map
     over a ``[batch, heads, S, d]`` view: dims innermost first,
     ``(d, S, heads, batch)``, the byte strides of the last three, and a box
     of 64 of d by ``rows`` (:func:`tc_query_tile` for q; :func:`tc_key_tile`
-    for k and v)."""
+    for k and v; ``TC_OUT_ROWS`` for the output, stored by TMA at
+    (128, 128))."""
     B, heads, S, d = t.shape
     size = t.element_size()
     return ((d, S, heads, B),
@@ -170,13 +200,14 @@ def _launch_tensor_core(q, k, v, *, causal=True, window=None, softcap=None,
     B, H, Sq, d = q.shape
     K, Sk, dv = k.shape[1], k.shape[2], v.shape[3]
     out = empty_like_q(q, dv)           # q's layout, unit stride in dv
-    # The (64, 64) kernel counts its causal work tiles here (the call
+    # The persistent kernels count their causal work tiles here (the call
     # zeroes it first).
     scratch = (torch.empty(1, dtype=torch.int32, device=q.device)
-               if d == 64 and causal else None)
+               if tc_tile_counter(d, causal) else None)
     tile = tc_key_tile(d)
-    geom = (ctypes.c_longlong * 33)(
-        *(x for t, rows in ((q, tc_query_tile(d, Sq)), (k, tile), (v, tile))
+    geom = (ctypes.c_longlong * 44)(
+        *(x for t, rows in ((q, tc_query_tile(d, Sq)), (k, tile), (v, tile),
+                            (out, TC_OUT_ROWS))
           for part in tma_geometry(t, rows) for x in part))
     o_strides = (ctypes.c_longlong * 3)(*out.stride()[:3])
     err = build.library().repro_flash_attention_sm90(

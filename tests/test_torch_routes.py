@@ -13,6 +13,7 @@ Matmul: ``route(M, K, N)`` sends N <= 16 to the narrow kernel while B fits
 its shared memory.  The routes read dtypes, shapes, strides and pointers
 only, so CPU tensors answer as the card's would.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -389,6 +390,125 @@ def test_llava_and_seamless_views_take_the_tensor_cores():
     assert (H, seamless.num_kv_heads, d) == (16, 16, 64)
     assert flash.route(proj(4, 2048, H, d), proj(4, 512, H, d),
                        proj(4, 512, H, d)) == "tensor_core"
+
+
+@pytest.mark.parametrize("B,S,H,K", [(4, 2048, 32, 8), (4, 2048, 32, 2),
+                                     (4, 2048, 56, 8), (1, 100, 14, 2)])
+def test_bf16_d128_views_take_the_tensor_cores(B, S, H, K):
+    """The (128, 128) kernel's calls: qwen3-4b's, chatglm3-6b's (G = 16)
+    and llava's (G = 7) prefill views at full width, and a ragged one,
+    bshd views and contiguous tensors alike (``torch.empty``: nothing is
+    touched)."""
+    def bshd(n):
+        return torch.empty(B, S, n, 128, dtype=torch.bfloat16).transpose(
+            1, 2)
+
+    assert flash.route(bshd(H), bshd(K), bshd(K)) == "tensor_core"
+    q, k = (torch.empty(B, n, S, 128, dtype=torch.bfloat16)
+            for n in (H, K))
+    assert flash.route(q, k, k) == "tensor_core"
+
+
+@pytest.mark.parametrize("sq", [1, 64, 100, 128, 129, 512, 513, 2048,
+                                4096])
+def test_query_tile_at_d128_is_128_at_every_length(sq):
+    """The (128, 128) kernel's work tiles and Q's TMA box are 128 rows,
+    two consumer warpgroups', whatever Sq."""
+    assert flash.tc_query_tile(128, sq) == 128
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tile_counter_exactly_for_causal_persistent_calls(d, causal):
+    """The persistent kernels ((64, 64), (128, 128)) take causal work tiles
+    from a counter in the wrapper's scratch; their other calls and the
+    other instances take none."""
+    assert flash.tc_tile_counter(d, causal) == (causal and d in (64, 128))
+
+
+def _fake_launch(monkeypatch):
+    """Replace the library by a stand-in that records the tensor-core
+    entry point's scratch pointer and geometry (read while the wrapper's
+    ctypes array is alive) and returns success."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def repro_flash_attention_sm90(*args):
+            geom = (ctypes.c_longlong * 44).from_address(args[4])
+            calls.append({"scratch": args[17], "geom": list(geom),
+                          "d": args[11], "dv": args[12]})
+            return 0
+
+    monkeypatch.setattr(flash.build, "library", lambda: Lib)
+    monkeypatch.setattr(flash.build, "stream_handle", lambda device: 0)
+    return calls
+
+
+@pytest.mark.parametrize("d,dv", [(64, 64), (128, 128), (192, 128),
+                                  (256, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wrapper_asks_for_the_tile_counter_as_tc_tile_counter_says(
+        monkeypatch, d, dv, causal):
+    """``_launch_tensor_core`` hands the library 4 bytes of scratch for the
+    work-tile counter exactly when ``tc_tile_counter`` says so, and the
+    geometry of q, k, v and the output, the output's box
+    ``TC_OUT_ROWS`` rows."""
+    calls = _fake_launch(monkeypatch)
+    q, k = (torch.zeros(1, 2, 300, n, dtype=torch.bfloat16).transpose(
+        1, 2) for n in (d, d))
+    v = torch.zeros(1, 2, 300, dv, dtype=torch.bfloat16).transpose(1, 2)
+    out = flash._launch_tensor_core(q, k, v, causal=causal)
+    (call,) = calls
+    assert (call["scratch"] is not None) == flash.tc_tile_counter(d, causal)
+    assert (call["d"], call["dv"]) == (d, dv)
+    want = [x for part in flash.tma_geometry(out, flash.TC_OUT_ROWS)
+            for x in part]
+    assert call["geom"][33:] == want
+    assert call["geom"][40:] == [64, flash.TC_OUT_ROWS, 1, 1]
+
+
+def test_output_tensor_map_has_q_geometry_at_the_bshd_view():
+    """At (128, 128) the output is ``empty_like(q)``: at the model's bshd
+    view its tensor map has q's dims and byte strides (the box a
+    warpgroup's 64 rows)."""
+    q = _bshd(4, 2048, 32, 128)
+    out = flash.empty_like_q(q, 128)
+    dims, strides, box = flash.tma_geometry(out, flash.TC_OUT_ROWS)
+    assert (dims, strides) == flash.tma_geometry(q)[:2]
+    assert box == (64, 64, 1, 1)
+    assert all(s % 16 == 0 for s in strides)
+
+
+@pytest.mark.parametrize("pairs,n_q", [(128, 16), (224, 16), (8, 3),
+                                       (13, 5), (1, 1), (98, 3)])
+def test_work_tiles_cover_every_tile_once_heaviest_first(pairs, n_q):
+    """``tc_work_tile`` (the persistent kernels' order) visits every (pair,
+    query tile) once: the pairs in groups of ``TC_HEAD_GROUP``, a group's
+    last query tiles (the heaviest under the causal mask) first, each
+    over the group's pairs."""
+    order = [flash.tc_work_tile(w, pairs, n_q) for w in range(pairs * n_q)]
+    assert sorted(order) == [(p, t) for p in range(pairs)
+                             for t in range(n_q)]
+    G = flash.TC_HEAD_GROUP
+    for w, (p, t) in enumerate(order):
+        group = w // (G * n_q)
+        assert group * G <= p < min(pairs, (group + 1) * G)
+        if w + 1 < len(order) and order[w + 1][0] // G == p // G:
+            assert order[w + 1][1] <= t
+
+
+@pytest.mark.parametrize("B,H,Sq", [(4, 32, 2048), (4, 56, 2048),
+                                    (2, 49, 257)])
+def test_last_query_tiles_come_after_a_blocks_first(B, H, Sq):
+    """At rows 7 and 7d and the persistent-grid feature case, some of the
+    last query tiles (the planted fault ``skips_last_query_tile``) are
+    work tiles past the grid of 132 blocks, taken after a block's first."""
+    pairs, n_q = B * H, -(-Sq // 128)
+    ws = [w for w in range(pairs * n_q)
+          if flash.tc_work_tile(w, pairs, n_q)[1] == n_q - 1]
+    assert len(ws) == pairs
+    assert max(ws) >= min(132, pairs * n_q)
 
 
 def _spy_prefill(monkeypatch, cfg, batch):
